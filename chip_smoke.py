@@ -1,0 +1,432 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py              # all phases, one card
+
+Phases (each prints its lines; any failure exits non-zero):
+
+  (a) the card (``nvidia-smi`` name and power limit) and the kernel build
+      from ``gossipprotocol_tpu_torch/csrc`` (ptxas report per kernel);
+  (b) each CUDA kernel against its plain PyTorch version on the card, at
+      the shapes the main path gives it on the three smoke graphs —
+      bitwise equal — with its time (CUDA events), the bytes/operations
+      bound, the plain version's time and one PyTorch library call's;
+  (c) the main path end to end through the CLI entry point, in process:
+      1M-node imp3D and power_law (bucket gathers, both folds) and a
+      262,144-node imp3D (resident gathers), each to convergence, with
+      every kernel's launch count read around the run;
+  (d) card against CPU: 16 rounds on ``cuda`` and the same 16 on ``cpu``
+      (the plain versions), bitwise equal state and round counts, on
+      imp3D, power_law and an Erdős–Rényi graph with birth exclusions
+      (the masked round).
+
+Then one JSON line of kernel records, the card line, and last
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+package next to this file, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+
+# (name, argv of the graph: nodes, topology, seed, builder kwargs)
+GRAPHS = {
+    "imp3D_1M": (1_000_000, "imp3D", {"seed": 0}),
+    "power_law_1M": (1_000_000, "power_law", {"seed": 0, "m": 4}),
+    "imp3D_262144": (262_144, "imp3D", {"seed": 0}),
+}
+
+# the three end-to-end runs of phase (c). The delta predicate at its
+# default eps (1e-10) does not converge in float32 (the ratio keeps moving
+# in its last bits), so the 1M runs take the global predicate and the
+# resident-mode run the delta predicate at eps 1e-7.
+CLI_RUNS = {
+    "imp3D_1M": ["1000000", "imp3D", "push-sum", "--fanout", "all",
+                 "--delivery", "pallas", "--seed", "0",
+                 "--predicate", "global", "--tol", "1e-4"],
+    "power_law_1M": ["1000000", "power_law", "push-sum", "--fanout", "all",
+                     "--delivery", "pallas", "--predicate", "global",
+                     "--tol", "1e-4"],
+    "imp3D_262144": ["262144", "imp3D", "push-sum", "--fanout", "all",
+                     "--delivery", "pallas", "--eps", "1e-7"],
+}
+MAX_ROUNDS = "4000"
+
+KERNELS = {
+    "class_reduce_small": ("gossipprotocol_tpu_torch/csrc/classops.cu",
+                           "gossipprotocol_tpu/ops/classops.py:96"),
+    "class_reduce_split": ("gossipprotocol_tpu_torch/csrc/classops.cu",
+                           "gossipprotocol_tpu/ops/classops.py:183"),
+    "gather_resident": ("gossipprotocol_tpu_torch/csrc/gather.cu",
+                        "gossipprotocol_tpu/ops/pallasdelivery.py:115"),
+    "gather_bucket": ("gossipprotocol_tpu_torch/csrc/gather.cu",
+                      "gossipprotocol_tpu/ops/pallasdelivery.py:153"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def cuda_ms(torch, fn, iters, warmup=2):
+    """Mean device time of ``fn`` over ``iters`` back-to-back launches
+    (CUDA events; the source stays warm in L2 as in the round loop)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bitwise_equal(torch, a, b):
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    return bool(torch.equal(a, b))
+
+
+def max_abs_err(torch, a, b):
+    d = (a.double() - b.double()).abs()
+    d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- (a)
+
+def phase_card(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    say(f"(a) card: {card}")
+    say(f"(a) torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    from gossipprotocol_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    say(f"(a) kernels built in {time.perf_counter() - t0:.1f} s "
+        f"into {build._LOADED.build_dir}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "ptxas" in line or "spill" in line:
+                say(f"(a) {name}.cu: {line.strip()}")
+    return card
+
+
+# ---------------------------------------------------------------- (b)
+
+def graph_inputs(torch, name):
+    """The graph's delivery on the card and the first round's shares."""
+    from gossipprotocol_tpu_torch.ops.pallasdelivery import (
+        build_pallas_delivery,
+    )
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    n, topo_name, kw = GRAPHS[name]
+    t0 = time.perf_counter()
+    topo = build_topology(topo_name, n, **kw)
+    pd = build_pallas_delivery(topo, device="cuda")
+    st = pushsum_init(topo.num_nodes, device="cuda")
+    deg = pd.degree.float()
+    inv = torch.ones_like(deg) / (deg + 1)
+    say(f"(b) {name}: n={topo.num_nodes} edges={topo.num_directed_edges} "
+        f"classes={[(c, k) for c, k, *_ in pd.classes]} "
+        f"pre={pd.gather_pre.mode}{list(pd.gather_pre.rows.shape)} "
+        f"out={pd.gather_out.mode}{list(pd.gather_out.rows.shape)} "
+        f"(host build {time.perf_counter() - t0:.1f} s)")
+    return topo, pd, st.s * inv, st.w * inv
+
+
+def expected_kernels(pd):
+    want = set()
+    for g in (pd.gather_pre, pd.gather_out):
+        want.add("gather_resident" if g.mode == "resident" else "gather_bucket")
+    for c, *_ in pd.classes:
+        want.add("class_reduce_small" if 2 * c <= 128 else
+                 "class_reduce_split")
+    return want
+
+
+def check_gather(torch, records, gname, which, plan, x2d):
+    from gossipprotocol_tpu_torch.ops import pallasdelivery as pdm
+
+    lanes = pdm.LANES
+    out_k = plan.gather_padded(x2d)
+    if plan.mode == "resident":
+        kname = "gather_resident"
+        plain = lambda: pdm.gather_resident_plain(x2d, plan.idx)  # noqa: E731
+        kern = lambda: pdm.gather_resident(x2d, plan.idx)  # noqa: E731
+        gidx = plan.idx.reshape(-1).long()
+        nbytes = plan.idx.numel() * 4 + x2d.numel() * 4 + out_k.numel() * 4
+    else:
+        kname = "gather_bucket"
+        plain = lambda: pdm.gather_bucket_plain(x2d, plan.rows, plan.lidx)  # noqa: E731
+        kern = lambda: pdm.gather_bucket(x2d, plan.rows, plan.lidx)  # noqa: E731
+        tiles = plan.rows.shape[0]
+        li = plan.lidx.reshape(tiles, -1).long()
+        gidx = (torch.gather(plan.rows.long(), 1, li // lanes) * lanes
+                + li % lanes).reshape(-1)
+        # of the rows table, which is padded to the widest tile, the
+        # kernel reads each tile's first max(lidx >> 7) + 1 entries
+        rows_used = int((li.max(dim=1).values // lanes + 1).sum())
+        say(f"(b) gather_bucket {gname} {which}: rows table "
+            f"{list(plan.rows.shape)}, {rows_used} entries read "
+            f"({rows_used / plan.rows.numel():.4f} of it)")
+        nbytes = (plan.lidx.numel() * 4 + rows_used * 4
+                  + x2d.numel() * 4 + out_k.numel() * 4)
+    out_p = plain().reshape(-1)
+    flat = x2d.reshape(-1)
+    err = max_abs_err(torch, out_k, out_p)
+    require(bitwise_equal(torch, out_k, out_p),
+            f"{kname} ({gname} {which}) differs from its plain version: "
+            f"max abs err {err}")
+    ms = cuda_ms(torch, kern, 20)
+    plain_ms = cuda_ms(torch, plain, 5)
+    lib_ms = cuda_ms(torch, lambda: flat[gidx], 20)
+    b_ms, b_by = bound(nbytes, 0)
+    rec = dict(name=kname, graph=gname, call=which,
+               shape=list(plan.lidx.shape if plan.mode == "bucket"
+                          else plan.idx.shape),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, bytes=nbytes)
+    records.append(rec)
+    say(f"(b) {kname:18s} {gname} {which}: bitwise ok, {ms:.4f} ms "
+        f"(plain {plain_ms:.4f}, library x[idx] {lib_ms:.4f}, bound "
+        f"{b_ms:.4f} by {b_by}, {nbytes / 1e6:.1f} MB)")
+    return out_k
+
+
+def check_folds(torch, records, gname, pd, f):
+    from gossipprotocol_tpu_torch.ops import classops as co
+
+    lanes = co.LANES
+    ys = []
+    for c, n_c, start, reg_rows, cap in pd.classes:
+        region = f[2 * start: 2 * start + reg_rows * lanes]
+        if 2 * c <= lanes:
+            kname = "class_reduce_small"
+            kern = lambda r=region, c=c: co.class_reduce_small(r, c)  # noqa: E731
+            plain = lambda r=region, c=c: co.class_reduce_small_plain(r, c)  # noqa: E731
+            lib = lambda r=region, c=c: r.view(-1, c, 2).sum(1)  # noqa: E731
+        else:
+            kname = "class_reduce_split"
+            q = 2 * c // lanes
+            kern = lambda r=region, c=c: co.class_reduce_split(r, c)  # noqa: E731
+            plain = lambda r=region, c=c: co.class_reduce_split_plain(r, c)  # noqa: E731
+            lib = lambda r=region, q=q, cap=cap: r.view(q, cap, 64, 2).sum((0, 2))  # noqa: E731
+        out_k = kern()
+        out_p = plain()
+        err = max_abs_err(torch, out_k, out_p)
+        require(bitwise_equal(torch, out_k, out_p),
+                f"{kname} c={c} ({gname}) differs from its plain version: "
+                f"max abs err {err}")
+        ms = cuda_ms(torch, kern, 50)
+        plain_ms = cuda_ms(torch, plain, 3 if 2 * c > lanes else 20)
+        lib_ms = cuda_ms(torch, lib, 50)
+        nbytes = region.numel() * 4 + out_k.numel() * 4
+        b_ms, b_by = bound(nbytes, region.numel() - out_k.numel())
+        records.append(dict(name=kname, graph=gname, call=f"c={c}",
+                            shape=[region.numel()], max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib_ms, bytes=nbytes))
+        say(f"(b) {kname:18s} {gname} c={c} n_c={n_c} rows={reg_rows}: "
+            f"bitwise ok, {ms:.4f} ms (plain {plain_ms:.4f}, library sum "
+            f"{lib_ms:.4f}, bound {b_ms:.4f} by {b_by})")
+        ys.append(out_k[: 2 * n_c])
+    return torch.cat(ys)
+
+
+def phase_kernels(torch):
+    records = []
+    expected = {}
+    for gname in GRAPHS:
+        _, pd, share_s, share_w = graph_inputs(torch, gname)
+        expected[gname] = expected_kernels(pd)
+        n = pd.n
+        x = torch.zeros(pd.gather_pre.src_rows * 128, device="cuda")
+        x[:n] = share_s
+        x[n: 2 * n] = share_w
+        f = check_gather(torch, records, gname, "gather_pre", pd.gather_pre,
+                         x.view(-1, 128))
+        yf = check_folds(torch, records, gname, pd, f)
+        y = torch.zeros(pd.gather_out.src_rows * 128, device="cuda")
+        y[: yf.numel()] = yf
+        check_gather(torch, records, gname, "gather_out", pd.gather_out,
+                     y.view(-1, 128))
+        del pd, f, x, y
+        torch.cuda.empty_cache()
+    return records, expected
+
+
+# ---------------------------------------------------------------- (c)
+
+def phase_cli(torch, expected):
+    from gossipprotocol_tpu_torch.cli import main
+    from gossipprotocol_tpu_torch.ops import (
+        kernel_launches, reset_kernel_launches,
+    )
+
+    totals = {k: 0 for k in KERNELS}
+    for gname, argv in CLI_RUNS.items():
+        argv = argv + ["--device", "cuda", "--max-rounds", MAX_ROUNDS]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        reset_kernel_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        counts = kernel_launches()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            say(f"(c) {gname} | {line}")
+        require(rc == 0, f"CLI run {gname} exited {rc}: {' '.join(argv)}")
+        conv = re.search(r"Convergence Time: ([0-9.]+) ms", text)
+        rounds = re.search(r"rounds: (\d+) \((\d+) executed\)", text)
+        err = re.search(r"max \|s/w - mean\| = (\S+)", text)
+        require(conv and rounds and err, f"CLI run {gname}: output lines "
+                "missing")
+        wall_ms, n_rounds = float(conv.group(1)), int(rounds.group(1))
+        n_exec = int(rounds.group(2))
+        est = float(err.group(1))
+        limit = 2e-4 if "global" in argv else 1e-4
+        require(est == est and est <= limit,
+                f"CLI run {gname}: estimate error {est} above {limit}")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        say(f"(c) {gname}: rc 0, {n_rounds} rounds, {wall_ms:.3f} ms, "
+            f"{wall_ms / max(n_rounds, 1):.4f} ms/round, {n_exec} rounds "
+            f"executed ({wall_ms / max(n_exec, 1):.4f} ms each), "
+            f"estimate_error "
+            f"{est:.3e}, peak {peak:.1f} MiB, launches {counts}")
+        for k in expected[gname]:
+            require(counts[k] > 0, f"CLI run {gname}: kernel {k} was "
+                    "never launched on the main path")
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
+# ---------------------------------------------------------------- (d)
+
+def phase_card_vs_cpu(torch):
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    for n, name, kw in ((262_144, "imp3D", {"seed": 0}),
+                        (100_000, "power_law", {"seed": 0, "m": 4}),
+                        (100_000, "erdos_renyi", {"seed": 5})):
+        topo = build_topology(name, n, **kw)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            res[dev] = run_simulation(topo, RunConfig(
+                device=dev, max_rounds=16, chunk_rounds=8))
+        a, b = res["cuda"].final_state, res["cpu"].final_state
+        for field in ("s", "w", "ratio", "streak", "converged", "round"):
+            require(bitwise_equal(torch, getattr(a, field),
+                                  getattr(b, field)),
+                    f"card vs cpu: {name} {n} field {field} differs")
+        require(res["cuda"].rounds == res["cpu"].rounds == 16,
+                f"card vs cpu: {name} {n} rounds {res['cuda'].rounds} vs "
+                f"{res['cpu'].rounds}")
+        say(f"(d) {name} {topo.num_nodes}: 16 rounds cuda == cpu bitwise "
+            "(s, w, ratio, streak, converged, round)")
+
+
+def summarize(records, totals):
+    """One record per kernel: its largest main-path call."""
+    out = []
+    for kname, (source, replaces) in KERNELS.items():
+        mine = [r for r in records if r["name"] == kname]
+        require(mine, f"kernel {kname} was not measured")
+        big = max(mine, key=lambda r: r["bytes"])
+        out.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=totals[kname],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+            bound_by=big["bound_by"], library_ms=big["library_ms"],
+            shape=f"{big['graph']} {big['call']}"))
+    return out
+
+
+def main(argv=None) -> int:
+    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(
+        argv)
+    try:
+        import torch
+    except ImportError:
+        print("FAIL: PyTorch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false — this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import gossipprotocol_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"FAIL: the gossipprotocol_tpu_torch package is not beside "
+              f"this script ({e})", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    try:
+        card = phase_card(torch)
+        records, expected = phase_kernels(torch)
+        totals = phase_cli(torch, expected)
+        phase_card_vs_cpu(torch)
+        kernels = summarize(records, totals)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", flush=True)
+        return 1
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_kernels.json"),
+              "w") as fh:
+        json.dump({"card": card, "records": records, "kernels": kernels},
+                  fh, indent=1)
+    say(f"total {time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"kernels": kernels}))
+    say(card)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

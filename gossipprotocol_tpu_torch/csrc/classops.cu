@@ -1,0 +1,163 @@
+// Degree-class fold kernels of the fused gather delivery, for Hopper (sm_90a).
+//
+// The only arithmetic of `--delivery pallas` is these folds, and the port
+// is held bitwise to the JAX package's Pallas kernels, so each kernel
+// replays the fixed pairwise tree of the TPU's lane-roll fold
+// (`acc + roll(acc, -sh)`, sh = 2, 4, ...) op for op. IEEE addition is
+// commutative but not associative: any other grouping (a warp reduction
+// in another order, atomics, `torch.sum`) changes the last bits.
+// Compiled without --use_fast_math and with --fmad=false: no
+// flush-to-zero of denormals, no contraction.
+#include "common.cuh"
+
+namespace {
+
+// class_reduce_small — replaces gossipprotocol_tpu/ops/classops.py:96
+// (class_reduce_small's pallas_call).
+//
+// Input: f32 [rows * 128], runs of 2c lanes holding c interleaved (s, w)
+// pairs; output: f32 [rows * 128 / c], each run's (s, w) sums packed left.
+// One thread per output value (one run, one of s|w): it loads the c values
+// of its stream (stride 2) and folds them in registers, level by level,
+// `v[j] = v[j] + v[j + sh]` for sh = 1, 2, ..., c/2 — exactly the roll
+// tree (the lane-roll by 2*sh adds the block that starts sh values to the
+// right). c = 1 is a copy (the roll loop of the TPU kernel does not run).
+//
+// Bound on this card: bytes (each input value read once, each output
+// written once; (c-1)/c adds per input value, far below the f32 rate).
+// The design keeps the whole fold in registers; neighbouring threads read
+// neighbouring runs, so a warp's loads cover one contiguous span of the
+// region (strided within it, served from L1 after the first touch).
+template <int C>
+__global__ void reduce_small_kernel(const float* __restrict__ x,
+                                    float* __restrict__ out,
+                                    long long n_out) {
+  const long long o = blockIdx.x * static_cast<long long>(blockDim.x)
+                      + threadIdx.x;
+  if (o >= n_out) return;
+  constexpr int OUT_LANES = GOSSIP_LANES / C;
+  const long long row = o / OUT_LANES;
+  const int p = static_cast<int>(o % OUT_LANES);
+  const float* base = x + row * GOSSIP_LANES + (p >> 1) * 2 * C + (p & 1);
+  float v[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) v[j] = __ldg(base + 2 * j);
+#pragma unroll
+  for (int sh = 1; sh < C; sh *= 2) {
+#pragma unroll
+    for (int j = 0; j < C; j += 2 * sh) v[j] = v[j] + v[j + sh];
+  }
+  out[o] = v[0];
+}
+
+// class_reduce_split — replaces gossipprotocol_tpu/ops/classops.py:183
+// (class_reduce_split's pallas_call).
+//
+// Input: f32 [q * cap * 128], row j*cap + r holding node slot r's j-th
+// 64-pair chunk; output: f32 [2 * cap]. Per row, the full 128-lane roll
+// fold gives an (s, w) partial; the q partials of a node then add as a
+// left fold in ascending j: acc = p_0, acc = acc + p_1, ...
+//
+// The TPU kernel carried that sum across sequential grid steps in j. On
+// the GPU blocks run in no order, so one block owns one node slot and the
+// ascending-j fold runs inside it: its 8 warps compute the partials of up
+// to SPLIT_CHUNK rows (lane t sums a[4t] + a[4t+2] and a[4t+1] + a[4t+3],
+// then __shfl_down_sync with offsets 1, 2, ..., 16 — at every level
+// (left block) + (right block) in index order, which is the roll tree),
+// stage them in shared memory, and thread 0 folds them in j order.
+//
+// Bound on this card: bytes. The widest hub classes have few node slots
+// (cap 8 with q = 2048 on a 1M-node power-law graph), so few blocks are
+// busy and the serial fold of thread 0 is on the critical path; recorded
+// in PERF.md, not tuned here.
+constexpr int SPLIT_THREADS = 256;
+constexpr int SPLIT_WARPS = SPLIT_THREADS / 32;
+constexpr int SPLIT_CHUNK = 256;
+
+__global__ void __launch_bounds__(SPLIT_THREADS)
+reduce_split_kernel(const float* __restrict__ x, float* __restrict__ out,
+                    long long cap, int q) {
+  __shared__ float2 part[SPLIT_CHUNK];
+  const long long r = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float2 acc = make_float2(0.f, 0.f);  // meaningful in thread 0 only
+  for (int j0 = 0; j0 < q; j0 += SPLIT_CHUNK) {
+    const int jn = min(SPLIT_CHUNK, q - j0);
+#pragma unroll 4
+    for (int jj = warp; jj < jn; jj += SPLIT_WARPS) {
+      const float4* row = reinterpret_cast<const float4*>(
+          x + (static_cast<long long>(j0 + jj) * cap + r) * GOSSIP_LANES);
+      const float4 a = __ldg(row + lane);
+      float s = a.x + a.z;
+      float w = a.y + a.w;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        s = s + __shfl_down_sync(0xffffffffu, s, off);
+        w = w + __shfl_down_sync(0xffffffffu, w, off);
+      }
+      if (lane == 0) part[jj] = make_float2(s, w);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int jj = 0; jj < jn; ++jj) {
+        const float2 p = part[jj];
+        if (j0 + jj == 0) {
+          acc = p;
+        } else {
+          acc.x = acc.x + p.x;
+          acc.y = acc.y + p.y;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    out[2 * r] = acc.x;
+    out[2 * r + 1] = acc.y;
+  }
+}
+
+constexpr int SMALL_THREADS = 256;
+
+template <int C>
+cudaError_t launch_small(const float* x, float* out, long long rows,
+                         cudaStream_t stream) {
+  const long long n_out = rows * GOSSIP_LANES / C;
+  reduce_small_kernel<C>
+      <<<gossip_blocks(n_out, SMALL_THREADS), SMALL_THREADS, 0, stream>>>(
+          x, out, n_out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+GOSSIP_EXPORT const char* gossip_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+GOSSIP_EXPORT int gossip_class_reduce_small(const float* x, float* out,
+                                            long long rows, int c,
+                                            void* stream) {
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (c) {
+    case 1: return launch_small<1>(x, out, rows, s);
+    case 2: return launch_small<2>(x, out, rows, s);
+    case 4: return launch_small<4>(x, out, rows, s);
+    case 8: return launch_small<8>(x, out, rows, s);
+    case 16: return launch_small<16>(x, out, rows, s);
+    case 32: return launch_small<32>(x, out, rows, s);
+    case 64: return launch_small<64>(x, out, rows, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+GOSSIP_EXPORT int gossip_class_reduce_split(const float* x, float* out,
+                                            long long cap, int q,
+                                            void* stream) {
+  if (cap == 0) return 0;
+  reduce_split_kernel<<<static_cast<unsigned int>(cap), SPLIT_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(x, out, cap, q);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,275 @@
+"""Experiment driver + convergence supervisor (port of the subset of
+``gossipprotocol_tpu/engine/driver.py`` that fanout-all push-sum over the
+fused gather delivery reads).
+
+The loop is chunked like the JAX engine's: one chunk advances rounds
+until a host-known ``round_limit`` or global convergence, whichever comes
+first, and the host fetches the chunk's summary once. The JAX engine
+tests the supervisor predicate in a ``while_loop`` condition before every
+round; here a chunk runs ``round_limit - round`` rounds unconditionally
+and freezes the state once the predicate holds
+(``torch.where(done, old, new)``, counting ``round`` only while not
+frozen — the megakernel's freeze rule, ``ops/megakernel.py:237-254`` of
+the JAX package). Round counts therefore equal the JAX engine's exactly,
+with no host round-trip per round.
+
+What is not yet ported exits as a :class:`NotPortedError` naming itself:
+gossip, the single-target sender, every delivery but ``pallas``, faults,
+checkpoints, telemetry, sharding, sweeps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from gossipprotocol_tpu_torch.ops.build import resolve_device
+from gossipprotocol_tpu_torch.protocols.diffusion import (
+    pushsum_diffusion_round_routed,
+)
+from gossipprotocol_tpu_torch.protocols.pushsum import pushsum_done
+from gossipprotocol_tpu_torch.protocols.state import PushSumState, pushsum_init
+from gossipprotocol_tpu_torch.topology.base import Topology
+
+ALGORITHMS = ("gossip", "push-sum")
+
+# Rounds per chunk (one host fetch each). A fixed default: the JAX
+# engine's auto size is a TPU-watchdog cost model that does not apply.
+# A chunk runs to its limit, frozen rounds included, so a large chunk
+# spends up to chunk - 1 rounds past convergence; 16 beat 64 and 8 on
+# the card's smoke graphs (PERF.md, utils/profiling.py).
+DEFAULT_CHUNK_ROUNDS = 16
+
+
+class NotPortedError(ValueError):
+    """The configuration asks for a path the PyTorch port lacks."""
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """The fields the ported path reads (names and defaults as in the
+    JAX package's ``RunConfig``), plus ``device``."""
+
+    algorithm: str = "push-sum"
+    seed: int = 0
+    eps: float = 1e-10             # push-sum |Δ(s/w)| tolerance
+    streak_target: int = 3         # consecutive rounds within tolerance
+    predicate: str = "delta"       # "delta" (local) | "global" (sound)
+    tol: float = 1e-4              # global-predicate tolerance
+    fanout: str = "all"
+    delivery: str = "pallas"
+    value_mode: str = "scaled"     # push-sum init: "scaled" (i/N) | "index" (i)
+    max_rounds: int = 1_000_000
+    chunk_rounds: Optional[int] = None  # None = DEFAULT_CHUNK_ROUNDS
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(
+                f"unknown algorithm {self.algorithm!r}; valid: {ALGORITHMS}")
+        if self.algorithm != "push-sum":
+            raise NotPortedError(
+                f"algorithm {self.algorithm!r} is not yet ported to the "
+                "PyTorch package (only push-sum --fanout all --delivery "
+                "pallas is)")
+        if self.fanout != "all":
+            raise NotPortedError(
+                f"fanout {self.fanout!r} is not yet ported (only "
+                "--fanout all is)")
+        if self.delivery != "pallas":
+            raise NotPortedError(
+                f"delivery {self.delivery!r} is not yet ported (only "
+                "--delivery pallas is)")
+        if self.predicate not in ("delta", "global"):
+            raise ValueError("predicate must be 'delta' or 'global'")
+        if self.value_mode not in ("scaled", "index"):
+            raise ValueError("value_mode must be 'scaled' or 'index'")
+        if self.streak_target < 1:
+            raise ValueError("streak_target must be >= 1")
+        if self.chunk_rounds is not None and self.chunk_rounds < 1:
+            raise ValueError("chunk_rounds must be >= 1")
+
+    @property
+    def chunk(self) -> int:
+        return self.chunk_rounds or DEFAULT_CHUNK_ROUNDS
+
+
+@dataclasses.dataclass
+class RunResult:
+    converged: bool
+    rounds: int
+    wall_ms: float            # convergence time, excluding warm-up
+    compile_ms: float         # warm-up: kernel build/load + first round
+    num_nodes: int
+    algorithm: str
+    final_state: Any          # PushSumState of CPU tensors
+    # round iterations the device ran, frozen ones included: a chunk
+    # runs to its limit, so up to chunk - 1 rounds past convergence
+    rounds_executed: int = 0
+
+    @property
+    def estimate_error(self) -> Optional[float]:
+        """Push-sum: max |s/w − achievable mean| over healthy nodes (the
+        mean over healthy rows only, in float64 on the host)."""
+        st = self.final_state
+        ratio = st.ratio.numpy().astype(np.float64)
+        alive = st.alive.numpy()
+        if not alive.any():
+            return None
+        s = st.s.numpy().astype(np.float64)[alive].sum(axis=0)
+        w = st.w.numpy().astype(np.float64)[alive].sum()
+        return float(np.abs(ratio[alive] - s / w).max())
+
+
+def initial_alive(topo: Topology) -> Optional[np.ndarray]:
+    """Healthy-at-birth mask: only the largest connected component
+    (None = everyone healthy)."""
+    return topo.birth_alive()
+
+
+def build_protocol(topo: Topology, cfg: RunConfig,
+                   allow_all_alive: bool = True):
+    """``(init_state, round_core(state, delivery), done_fn,
+    (all_alive, targets_alive))`` on the run's device.
+
+    With no birth exclusions the round drops its aliveness masks
+    (``all_alive``); birth exclusions are whole components, so an alive
+    node's neighbors are alive (``targets_alive``). ``allow_all_alive=
+    False`` forces the general dead-set path."""
+    dev = resolve_device(cfg.device)
+    alive0 = initial_alive(topo)
+    all_alive = allow_all_alive and alive0 is None
+    targets_alive = allow_all_alive
+    state = pushsum_init(topo.num_nodes, value_mode=cfg.value_mode,
+                         device=dev)
+    if alive0 is not None:
+        state = state._replace(
+            alive=state.alive & torch.from_numpy(np.array(alive0)).to(dev))
+
+    def round_core(st, delivery):
+        return pushsum_diffusion_round_routed(
+            st, delivery, eps=cfg.eps, streak_target=cfg.streak_target,
+            predicate=cfg.predicate, tol=cfg.tol, all_alive=all_alive,
+            targets_alive=targets_alive)
+
+    return state, round_core, pushsum_done, (all_alive, targets_alive)
+
+
+def device_arrays(topo: Topology, cfg: RunConfig):
+    """The delivery the round reads: the fused gather plan, built
+    uncached on the host and placed on the run's device."""
+    from gossipprotocol_tpu_torch.ops.pallasdelivery import (
+        build_pallas_delivery,
+    )
+
+    return build_pallas_delivery(topo, device=resolve_device(cfg.device))
+
+
+def _freeze(active: torch.Tensor, new: PushSumState,
+            old: PushSumState) -> PushSumState:
+    return PushSumState(*(torch.where(active, a, b)
+                          for a, b in zip(new, old)))
+
+
+def chunk_stats(state: PushSumState, done_fn) -> torch.Tensor:
+    """The chunk's verdict as ONE int32 device tensor (one host fetch):
+    ``[round, done]``."""
+    return torch.stack([state.round, done_fn(state).to(torch.int32)])
+
+
+def make_chunk_runner(round_core, done_fn):
+    """``chunk(state, delivery, start_round, round_limit) -> (state,
+    stats)``: advance until global convergence or ``round ==
+    round_limit``. The predicate is evaluated before every round, as the
+    JAX engine's loop condition does; a converged state is carried
+    through the remaining rounds of the chunk unchanged."""
+
+    def chunk(state, delivery, start_round: int, round_limit: int):
+        for _ in range(max(0, round_limit - start_round)):
+            active = ~done_fn(state)
+            state = _freeze(active, round_core(state, delivery), state)
+        return state, chunk_stats(state, done_fn)
+
+    return chunk
+
+
+def warm_start(step, state) -> None:
+    """Run one chunk of one round and discard it: builds and loads the
+    CUDA kernels, loads every PyTorch kernel the chunk launches and warms
+    the allocator, so the timed loop measures rounds only (the JAX engine
+    likewise keeps compilation and program load out of ``wall_ms``)."""
+    r = int(state.round)
+    _, stats = step(state, r, r + 1)
+    stats.cpu()  # the sync point
+
+
+def _drive(cfg: RunConfig, state, step, num_nodes: int,
+           compile_ms: float) -> RunResult:
+    """Host loop: chunks up to ``max_rounds`` and the convergence
+    verdict."""
+    cur_round = int(state.round)
+    done = False
+    executed = 0
+    t0 = time.perf_counter()
+    while cur_round < cfg.max_rounds:
+        round_limit = min(cur_round + cfg.chunk, cfg.max_rounds)
+        state, stats = step(state, cur_round, round_limit)
+        executed += round_limit - cur_round
+        cur_round, done = stats.tolist()  # the one fetch of the chunk
+        if done:
+            break
+    if state.s.is_cuda:
+        torch.cuda.synchronize(state.s.device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return RunResult(
+        converged=bool(done), rounds=cur_round, wall_ms=wall_ms,
+        compile_ms=compile_ms, num_nodes=num_nodes,
+        algorithm=cfg.algorithm,
+        final_state=PushSumState(*(t.cpu() for t in state)),
+        rounds_executed=executed,
+    )
+
+
+def resume_allows_fast(topo: Topology,
+                       initial_state: Optional[PushSumState]) -> bool:
+    """Can a run from ``initial_state`` keep the liveness fast paths? Yes
+    iff its dead set is empty or exactly the birth exclusions (component-
+    closed by construction); any other dead set takes the general path,
+    as in the JAX engine."""
+    if initial_state is None:
+        return True
+    alive = initial_state.alive.cpu().numpy()
+    if alive.all():
+        return True
+    birth = topo.birth_alive()
+    return birth is not None and bool(np.array_equal(alive, birth))
+
+
+def run_simulation(topo: Topology, cfg: RunConfig,
+                   initial_state: Optional[PushSumState] = None
+                   ) -> RunResult:
+    """Build the delivery, warm the kernels, and drive the protocol to
+    convergence (or ``max_rounds``). ``initial_state`` continues from a
+    given state (for example one carried across with
+    :func:`gossipprotocol_tpu_torch.convert.state_from_numpy`); it runs
+    the general dead-set path unless its dead set is the birth
+    exclusions."""
+    dev = resolve_device(cfg.device)
+    state, round_core, done_fn, _ = build_protocol(
+        topo, cfg, allow_all_alive=resume_allows_fast(topo, initial_state))
+    if initial_state is not None:
+        state = PushSumState(*(t.to(dev).clone() for t in initial_state))
+    delivery = device_arrays(topo, cfg)
+    runner = make_chunk_runner(round_core, done_fn)
+
+    def step(s, start_round, round_limit):
+        return runner(s, delivery, start_round, round_limit)
+
+    t0 = time.perf_counter()
+    warm_start(step, state)
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    return _drive(cfg, state, step, topo.num_nodes, compile_ms)

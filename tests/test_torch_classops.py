@@ -1,0 +1,113 @@
+"""PyTorch port, degree-class folds (ops/classops.py): the plain PyTorch
+bodies the port runs on the CPU are bitwise equal to the JAX package's
+Pallas kernels (run in interpret mode, as its own tests run them).
+
+Inputs are normal floats of mixed magnitude (exponents 2^-40..2^40, signed
+zeros). Subnormal sums are the one recorded divergence (ROADMAP.md
+Queue 3): this XLA CPU build flushes them to zero, the port keeps them as
+IEEE arithmetic does — pinned here against a numpy replay of the tree."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gossipprotocol_tpu.ops import classops as jco
+from gossipprotocol_tpu_torch.ops import classops as tco
+
+
+def _mixed(rng, n):
+    mant = rng.standard_normal(n).astype(np.float32)
+    x = (mant * np.exp2(rng.integers(-40, 40, n))).astype(np.float32)
+    x[rng.random(n) < 0.05] = 0.0
+    x[rng.random(n) < 0.05] = -0.0
+    return x
+
+
+def _bits_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                 b.view(np.uint32))
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32, 64])
+def test_reduce_small_bitwise_vs_jax(c):
+    x = _mixed(np.random.default_rng(c), tco.BLK * tco.LANES)
+    want = jco.class_reduce_small(jnp.asarray(x), c, interpret=True)
+    got = tco.class_reduce_small(torch.from_numpy(x), c)
+    assert got.shape == (tco.BLK * tco.LANES // c,)
+    assert _bits_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("q,cap", [(2, 8), (2, 256), (8, 8), (8, 256)])
+def test_reduce_split_bitwise_vs_jax(q, cap):
+    c = 64 * q
+    x = _mixed(np.random.default_rng(q * 1000 + cap), q * cap * tco.LANES)
+    want = jco.class_reduce_split(jnp.asarray(x), c, interpret=True)
+    got = tco.class_reduce_split(torch.from_numpy(x), c)
+    assert got.shape == (2 * cap,)
+    assert _bits_equal(got.numpy(), want)
+
+
+def _numpy_tree(x, c):
+    """The roll tree replayed in numpy float32 (IEEE, subnormals kept)."""
+    acc = x.reshape(-1, 128).copy()
+    sh = 2
+    while sh < 2 * c:
+        acc = acc + np.roll(acc, -sh, axis=1)
+        sh *= 2
+    col = np.arange(128)
+    idx = ((col // 2) * 2 * c + col % 2) % 128
+    return np.take_along_axis(acc, np.broadcast_to(idx, acc.shape),
+                              axis=1)[:, : 128 // c].reshape(-1)
+
+
+@pytest.mark.parametrize("c", [2, 4, 8])
+def test_reduce_small_keeps_subnormals(c):
+    x = np.zeros(tco.BLK * tco.LANES, np.float32)
+    x[::7] = np.float32(3e-39)
+    x[1::5] = np.float32(-1.5e-39)
+    x[2::11] = 1.0
+    got = tco.class_reduce_small(torch.from_numpy(x), c).numpy()
+    assert _bits_equal(got, _numpy_tree(x, c))
+    assert np.any((got != 0) & (np.abs(got) < np.finfo(np.float32).tiny))
+
+
+def test_split_left_fold_order():
+    # partials that differ in magnitude make the j order observable:
+    # ((big + 1) + -big) is 0 in f32, (big + (1 + -big)) is not
+    q, cap = 3, 8
+    x = np.zeros((q, cap, 128), np.float32)
+    x[0, :, 0] = 2.0 ** 30
+    x[1, :, 0] = 1.0
+    x[2, :, 0] = -(2.0 ** 30)
+    got = tco.class_reduce_split(torch.from_numpy(x.reshape(-1)), 64 * q)
+    want = jco.class_reduce_split(jnp.asarray(x.reshape(-1)), 64 * q,
+                                  interpret=True)
+    assert _bits_equal(got.numpy(), want)
+    assert float(got[0]) == 0.0
+
+
+@pytest.mark.parametrize("fn,arg", [
+    (tco.class_reduce_small, 3),          # 2c does not divide 128
+    (tco.class_reduce_split, 32),         # 2c < 128 is not a hub class
+])
+def test_bad_geometry_raises(fn, arg):
+    with pytest.raises(ValueError):
+        fn(torch.zeros(tco.BLK * tco.LANES), arg)
+
+
+def test_cpu_path_launches_nothing_and_other_devices_raise():
+    before = dict(tco.LAUNCHES)
+    tco.class_reduce_small(torch.zeros(tco.BLK * tco.LANES), 4)
+    tco.class_reduce_split(torch.zeros(2 * 8 * tco.LANES), 128)
+    assert tco.LAUNCHES == before
+    meta = torch.empty(tco.BLK * tco.LANES, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tco.class_reduce_small(meta, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        tco.class_reduce_split(torch.empty(2 * 8 * tco.LANES, device="meta"),
+                               128)

@@ -1,0 +1,45 @@
+"""The PyTorch port stands alone: no module of gossipprotocol_tpu_torch,
+and not chip_smoke.py, imports jax or the JAX package (checked on the
+source with ast, so an import hidden inside a function counts too)."""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+_FILES = sorted((ROOT / "gossipprotocol_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+_FORBIDDEN = ("jax", "jaxlib", "gossipprotocol_tpu")
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", _FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in _FILES])
+def test_no_jax_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in _FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_walk_finds_the_package():
+    names = {p.name for p in _FILES}
+    assert {"classops.py", "pallasdelivery.py", "driver.py",
+            "chip_smoke.py"} <= names

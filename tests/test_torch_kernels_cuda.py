@@ -1,0 +1,125 @@
+"""PyTorch port, CUDA kernels against their plain PyTorch versions on the
+card (bitwise: the folds replay a fixed tree, the gathers only move
+data). Marked ``cuda``; without a CUDA device every test skips. On a
+machine with one:
+
+    python -m pytest -m cuda tests/test_torch_kernels_cuda.py
+
+Whether a card is present is decided inside the fixture, never at import
+time, so every test worker collects the same tests."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from gossipprotocol_tpu_torch.ops import classops as co
+from gossipprotocol_tpu_torch.ops import pallasdelivery as pdm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "false); the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _mixed(rng, n, subnormal=False):
+    x = (rng.standard_normal(n) * np.exp2(rng.integers(-40, 40, n))).astype(
+        np.float32)
+    if subnormal:
+        m = rng.random(n) < 0.2
+        x[m] = (rng.standard_normal(m.sum()) * 1e-39).astype(np.float32)
+    x[rng.random(n) < 0.05] = -0.0
+    return x
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("subnormal", [False, True])
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32, 64])
+def test_reduce_small_kernel(cuda, c, subnormal):
+    x = torch.from_numpy(_mixed(np.random.default_rng(c), 3 * co.BLK * 128,
+                                subnormal)).to(cuda)
+    before = co.LAUNCHES["class_reduce_small"]
+    got = co.class_reduce_small(x, c)
+    torch.cuda.synchronize()
+    assert co.LAUNCHES["class_reduce_small"] == before + 1
+    assert _bits_equal(got, co.class_reduce_small_plain(x, c))
+
+
+@pytest.mark.parametrize("subnormal", [False, True])
+@pytest.mark.parametrize("q,cap", [(2, 8), (8, 256), (64, 8), (300, 16)])
+def test_reduce_split_kernel(cuda, q, cap, subnormal):
+    x = torch.from_numpy(_mixed(np.random.default_rng(q + cap),
+                                q * cap * 128, subnormal)).to(cuda)
+    got = co.class_reduce_split(x, 64 * q)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, co.class_reduce_split_plain(x, 64 * q))
+
+
+@pytest.mark.parametrize("resident_rows", [None, 0])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gather_kernels(cuda, seed, resident_rows):
+    rng = np.random.default_rng(seed)
+    src_len = int(rng.integers(10_000, 200_000))
+    src = rng.integers(0, src_len + 1, int(rng.integers(1, 300_000)))
+    plan = pdm.build_gather_plan(src, src_len, resident_rows=resident_rows,
+                                 device=cuda)
+    flat = torch.from_numpy(rng.standard_normal(src_len).astype(
+        np.float32)).to(cuda)
+    x2d = plan.padded_source(flat)
+    got = plan.gather_padded(x2d)
+    if plan.mode == "resident":
+        want = pdm.gather_resident_plain(x2d, plan.idx).reshape(-1)
+    else:
+        want = pdm.gather_bucket_plain(x2d, plan.rows, plan.lidx).reshape(-1)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    ref = np.append(flat.cpu().numpy(), np.float32(0))[src]
+    assert np.array_equal(got[: len(src)].cpu().numpy(), ref)
+
+
+def test_matvec_card_equals_cpu(cuda):
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology("power_law", 20_000, seed=1, m=4)
+    for rr in (None, 0):
+        on_card = pdm.build_pallas_delivery(topo, device=cuda,
+                                            resident_rows=rr)
+        on_cpu = pdm.build_pallas_delivery(topo, device="cpu",
+                                           resident_rows=rr)
+        x = torch.rand(topo.num_nodes, generator=torch.Generator().manual_seed(0))
+        a = on_card.matvec(x.to(cuda), x.to(cuda))
+        b = on_cpu.matvec(x, x)
+        for u, v in zip(a, b):
+            assert _bits_equal(u.cpu(), v)
+
+
+def test_dead_set_run_card_equals_cpu(cuda):
+    """The general live-degree round (an arbitrary dead set) on the card
+    against the CPU, 16 rounds, bitwise."""
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology("power_law", 20_000, seed=2, m=3)
+    dead = torch.from_numpy(np.random.default_rng(4).random(20_000) < 0.1)
+    start = pushsum_init(20_000, device="cpu")._replace(alive=~dead)
+    res = [run_simulation(topo, RunConfig(device=d, max_rounds=16,
+                                          chunk_rounds=8),
+                          initial_state=start)
+           for d in ("cuda", "cpu")]
+    assert res[0].rounds == res[1].rounds == 16
+    for a, b in zip(res[0].final_state, res[1].final_state):
+        if a.dtype == torch.float32:
+            assert _bits_equal(a, b)
+        else:
+            assert torch.equal(a, b)

@@ -1,0 +1,163 @@
+"""PyTorch port, fused gather delivery (ops/pallasdelivery.py): the plan
+tables are the JAX package's byte for byte in both gather modes, the
+converters carry a JAX-built delivery across unchanged, and ``matvec`` is
+bitwise equal to the JAX package's ``PallasDelivery.matvec`` run in
+interpret mode — on the graphs of tests/test_pallasdelivery.py (line,
+imp3D, and a power-law graph with a hub-split class)."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gossipprotocol_tpu.ops import pallasdelivery as jpd
+from gossipprotocol_tpu.topology import build_topology as jax_build
+from gossipprotocol_tpu_torch.convert import (
+    delivery_from_numpy, gather_plan_from_numpy,
+)
+from gossipprotocol_tpu_torch.ops import pallasdelivery as tpd
+from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
+from gossipprotocol_tpu_torch.topology import build_topology as torch_build
+
+_GRAPHS = {
+    "line": ("line", 130, {}),
+    "imp3D": ("imp3D", 216, {"seed": 4}),
+    "powerlaw": ("powerlaw", 400, {"seed": 3, "m": 3}),
+}
+# None = the default threshold (resident at these sizes); 2 forces bucket
+_MODES = {"resident": None, "bucket": 2}
+
+
+def _same_bytes(a, b):
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def _plans_equal(tp, jp):
+    return (tp.mode == jp.mode and tp.src_rows == jp.src_rows
+            and tp.out_len == jp.out_len
+            and all(_same_bytes(getattr(tp, f), getattr(jp, f))
+                    for f in ("idx", "rows", "lidx")))
+
+
+def _deliveries(graph, mode):
+    name, n, kw = _GRAPHS[graph]
+    rr = _MODES[mode]
+    jd = jpd.build_pallas_delivery(jax_build(name, n, **kw), device=False,
+                                   resident_rows=rr)
+    td = tpd.build_pallas_delivery(torch_build(name, n, **kw),
+                                   device="cpu", resident_rows=rr)
+    return jd, td
+
+
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_gather_plan_tables_equal(seed, mode):
+    rng = np.random.default_rng(seed)
+    src_len = int(rng.integers(300, 5000))
+    src = rng.integers(0, src_len + 1, int(rng.integers(1, 4000)))
+    jp = jpd.build_gather_plan(src, src_len, resident_rows=_MODES[mode])
+    tp = tpd.build_gather_plan(src, src_len, resident_rows=_MODES[mode],
+                               device="cpu")
+    assert tp.mode == mode
+    assert _plans_equal(tp, jp)
+    # and the gather itself: out[j] = flat_padded[src[j]]
+    flat = rng.standard_normal(src_len).astype(np.float32)
+    got = tp.gather(torch.from_numpy(flat)).numpy()
+    want = np.asarray(jp.gather(jnp.asarray(flat), interpret=True))
+    assert _same_bytes(got, want)
+    assert _same_bytes(got, np.append(flat, np.float32(0))[src])
+
+
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("graph", list(_GRAPHS))
+def test_delivery_fields_equal(graph, mode):
+    jd, td = _deliveries(graph, mode)
+    assert (td.n, td.nu, td.m_pairs, td.classes) == (
+        jd.n, jd.nu, jd.m_pairs, jd.classes)
+    assert _plans_equal(td.gather_pre, jd.gather_pre)
+    assert _plans_equal(td.gather_out, jd.gather_out)
+    assert _same_bytes(td.degree, jd.degree)
+    assert tpd.pallas_streamed_bytes_per_round(td) == \
+        jpd.pallas_streamed_bytes_per_round(jd)
+
+
+def test_powerlaw_graph_has_a_hub_split_class():
+    _, td = _deliveries("powerlaw", "resident")
+    assert any(2 * c > 128 for c, *_ in td.classes)
+
+
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("graph", list(_GRAPHS))
+def test_matvec_bitwise_vs_jax(graph, mode):
+    jd, td = _deliveries(graph, mode)
+    rng = np.random.default_rng(len(graph))
+    xs = rng.standard_normal(td.n).astype(np.float32)
+    xw = rng.random(td.n).astype(np.float32)
+    jdev = jpd.to_device(jd)
+    want_s, want_w = jdev.matvec(jnp.asarray(xs), jnp.asarray(xw),
+                                 interpret=True)
+    got_s, got_w = td.matvec(torch.from_numpy(xs), torch.from_numpy(xw))
+    assert _same_bytes(got_s, want_s) and _same_bytes(got_w, want_w)
+
+
+@pytest.mark.parametrize("graph", list(_GRAPHS))
+def test_delivery_carried_across_from_jax(graph):
+    jd, td = _deliveries(graph, "bucket")
+    carried = delivery_from_numpy(
+        jd.n, jd.nu, jd.m_pairs, jd.classes, tuple(jd.gather_pre),
+        tuple(jd.gather_out), jd.degree, device="cpu")
+    assert carried.classes == td.classes
+    assert _plans_equal(carried.gather_pre, td.gather_pre)
+    assert _plans_equal(carried.gather_out, td.gather_out)
+    x = torch.linspace(0, 1, td.n)
+    for a, b in zip(carried.matvec(x, x), td.matvec(x, x)):
+        assert _same_bytes(a, b)
+
+
+def test_matvec_sums_neighbours():
+    """Against a dense reference on a graph with no float reassociation
+    (small integers): in[i] = sum of x over i's neighbours."""
+    topo = torch_build("powerlaw", 400, seed=3, m=3)
+    td = tpd.build_pallas_delivery(topo, device="cpu")
+    x = torch.arange(td.n, dtype=torch.float32)
+    in_s, in_w = td.matvec(x, torch.ones(td.n))
+    off = topo.offsets.astype(np.int64)
+    want = np.array([topo.indices[off[i]:off[i + 1]].astype(np.float64).sum()
+                     for i in range(td.n)])
+    assert np.array_equal(in_s.numpy().astype(np.float64), want)
+    assert np.array_equal(in_w.numpy(), topo.degree.astype(np.float32))
+
+
+def test_converter_rejects_out_of_bounds_tables():
+    plan = tpd.build_gather_plan_np(np.arange(100), 100, resident_rows=0)
+    mode, src_rows, out_len, idx, rows, lidx = plan
+    bad = rows.copy()
+    bad[0, 0] = src_rows
+    with pytest.raises(ValueError, match="out of the padded source"):
+        gather_plan_from_numpy(mode, src_rows, out_len, idx, bad, lidx,
+                               device="cpu")
+    with pytest.raises(ValueError, match="unknown gather mode"):
+        gather_plan_from_numpy("dma", src_rows, out_len, idx, rows, lidx,
+                               device="cpu")
+
+
+def test_complete_graph_is_refused():
+    with pytest.raises(RoutedConfigError):
+        tpd.build_pallas_delivery(torch_build("full", 20), device="cpu")
+
+
+def test_cpu_gathers_launch_nothing_and_other_devices_raise():
+    before = dict(tpd.LAUNCHES)
+    _, td = _deliveries("line", "bucket")
+    td.matvec(torch.ones(td.n), torch.ones(td.n))
+    assert tpd.LAUNCHES == before
+    x = torch.empty(8, 128, device="meta")
+    idx = torch.empty(1, 8, 128, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tpd.gather_resident(x, idx)
