@@ -18,9 +18,25 @@ Phases (each prints its lines; any failure exits non-zero):
   (d) card against CPU: 16 rounds on ``cuda`` and the same 16 on ``cpu``
       (the plain versions), bitwise equal state and round counts, on
       imp3D, power_law and an Erdős–Rényi graph with birth exclusions
-      (the masked round).
+      (the masked round);
+  (e) the K-round megakernel against its plain version on the card at
+      imp3D 512,000 and power_law 500,000 (full-width resident-mode
+      graphs: imp3D's largest cube, and power_law with hub classes),
+      K = 1 and 16, 48 rounds: bitwise under the delta
+      predicate; under the global one s, w, ratio bitwise and streak,
+      converged and round equal (the plain version summing the mean in
+      the kernel's order; the largest gap to torch.sum's mean printed).
+      K = 16 against the per-round ``--delivery pallas`` path on the
+      card, bitwise; the kernel's time per launch and per round beside
+      its bytes bound, the plain version's time and the per-round path's;
+      the working set against the 50 MB L2;
+  (f) the megakernel path end to end through the CLI (``--delivery
+      megakernel --rounds-per-kernel 16``) on both graphs, to convergence:
+      the megakernel launched, the per-round gather and fold kernels not.
 
-Then one JSON line of kernel records, the card line, and last
+Each end-to-end run reads the launch counts it caused (reset just before,
+read just after). The plan cache lives in a temporary directory for the
+run. Then one JSON line of kernel records, the card line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package next to this file, it exits non-zero and prints no result.
 """
@@ -35,10 +51,12 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+L2_BYTES = 50e6               # H100 L2
 
 # (name, argv of the graph: nodes, topology, seed, builder kwargs)
 GRAPHS = {
@@ -63,6 +81,25 @@ CLI_RUNS = {
 }
 MAX_ROUNDS = "4000"
 
+# phase (e): full-width resident-mode graphs (both gather sources under
+# the 8,192-row resident bound: 8,008 and 7,816 rows)
+MK_GRAPHS = {
+    "imp3D_512000": (512_000, "imp3D", {"seed": 0}),
+    "power_law_500000": (500_000, "power_law", {"seed": 0, "m": 4}),
+}
+MK_ROUNDS = 48
+MK_KS = (1, 16)
+# phase (f): the megakernel path through the CLI, K = 16
+MK_CLI_RUNS = {
+    "imp3D_512000": ["512000", "imp3D", "push-sum", "--fanout", "all",
+                     "--delivery", "megakernel", "--rounds-per-kernel", "16",
+                     "--eps", "1e-7"],
+    "power_law_500000": ["500000", "power_law", "push-sum", "--fanout",
+                         "all", "--delivery", "megakernel",
+                         "--rounds-per-kernel", "16", "--predicate",
+                         "global", "--tol", "1e-4"],
+}
+
 KERNELS = {
     "class_reduce_small": ("gossipprotocol_tpu_torch/csrc/classops.cu",
                            "gossipprotocol_tpu/ops/classops.py:96"),
@@ -72,7 +109,11 @@ KERNELS = {
                         "gossipprotocol_tpu/ops/pallasdelivery.py:115"),
     "gather_bucket": ("gossipprotocol_tpu_torch/csrc/gather.cu",
                       "gossipprotocol_tpu/ops/pallasdelivery.py:153"),
+    "megakernel": ("gossipprotocol_tpu_torch/csrc/megakernel.cu",
+                   "gossipprotocol_tpu/ops/megakernel.py:279"),
 }
+PER_ROUND_KERNELS = ("class_reduce_small", "class_reduce_split",
+                     "gather_resident", "gather_bucket")
 
 
 class SmokeFailure(RuntimeError):
@@ -303,7 +344,7 @@ def phase_cli(torch, expected):
         kernel_launches, reset_kernel_launches,
     )
 
-    totals = {k: 0 for k in KERNELS}
+    totals = {k: 0 for k in PER_ROUND_KERNELS}
     for gname, argv in CLI_RUNS.items():
         argv = argv + ["--device", "cuda", "--max-rounds", MAX_ROUNDS]
         torch.cuda.empty_cache()
@@ -368,13 +409,199 @@ def phase_card_vs_cpu(torch):
             "(s, w, ratio, streak, converged, round)")
 
 
+# ---------------------------------------------------------------- (e)
+
+def _fields_equal(torch, a, b):
+    return [f for f, x, y in zip(a._fields, a, b)
+            if not bitwise_equal(torch, x, y)]
+
+
+def _state_err(torch, a, b):
+    return max(max_abs_err(torch, x.float(), y.float())
+               for x, y in zip(a, b))
+
+
+def phase_megakernel(torch):
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.engine.driver import build_protocol
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.ops.pallasdelivery import (
+        build_pallas_delivery,
+    )
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    records = []
+    for gname, (n, topo_name, kw) in MK_GRAPHS.items():
+        t0 = time.perf_counter()
+        topo = build_topology(topo_name, n, **kw)
+        mk = mkm.build_megakernel_delivery(
+            build_pallas_delivery(topo, device="cuda"))
+        pd, n = mk.pd, topo.num_nodes
+        grid = mkm.launch_grid(mk)
+        ws = mkm.megakernel_working_set_bytes(pd)
+        say(f"(e) {gname}: n={n} classes="
+            f"{[(c, k) for c, k, *_ in pd.classes]} gather_pre "
+            f"{pd.gather_pre.mode} {pd.gather_pre.src_rows} rows "
+            f"(idx {pd.gather_pre.idx.numel()}), gather_out "
+            f"{pd.gather_out.mode} {pd.gather_out.src_rows} rows; grid "
+            f"{grid} blocks of {mkm.THREADS} (max {mk.scratch['max_grid']}); "
+            f"working set {ws / 1e6:.1f} MB against the {L2_BYTES / 1e6:.0f} "
+            f"MB L2 (host build {time.perf_counter() - t0:.1f} s)")
+        # 1. kernel against plain, 48 rounds, the CLI's tolerances
+        worst_err, mean_gap = 0.0, 0.0
+        for predicate in ("delta", "global"):
+            for k in MK_KS:
+                opts = dict(n=n, rounds_per_kernel=k, eps=1e-7,
+                            streak_target=3, predicate=predicate, tol=1e-4)
+                ms_k = mkm.pad_state(pushsum_init(n, device="cuda"))
+                ms_p = mkm.pad_state(pushsum_init(n, device="cuda"))
+                for _ in range(MK_ROUNDS // k):
+                    ms_k = mkm.megakernel_rounds(ms_k, mk, **opts)
+                    ms_p = mkm.megakernel_rounds_plain(
+                        ms_p, mk, **opts, mean_grid=grid)
+                    if predicate == "global" and k == 1:
+                        st = mkm.unpad_state(ms_p, torch.ones(
+                            n, dtype=torch.bool, device="cuda"))
+                        lib_mean = st.s.sum() / torch.clamp(st.w.sum(),
+                                                            min=1e-30)
+                        gap = abs(float(mkm.kernel_order_mean(
+                            st.s, st.w, grid)) - float(lib_mean))
+                        mean_gap = max(mean_gap, gap)
+                torch.cuda.synchronize()
+                err = _state_err(torch, ms_k, ms_p)
+                worst_err = max(worst_err, err)
+                bad = _fields_equal(torch, ms_k, ms_p)
+                require(not bad, f"megakernel {gname} {predicate} K={k}: "
+                        f"fields {bad} differ from the plain version "
+                        f"(max abs err {err})")
+                say(f"(e) megakernel {gname} {predicate} K={k}: "
+                    f"{MK_ROUNDS // k} launches, round {int(ms_k.round)}, "
+                    "s w ratio streak conv round bitwise equal to plain")
+        say(f"(e) {gname}: largest |mean in the kernel's order - "
+            f"torch.sum mean| over 48 global rounds {mean_gap:.3e}")
+        # 2. K = 16 against the per-round path on the card
+        for predicate, extra, fields in (
+                ("delta", dict(eps=1e-7), None),
+                ("global", dict(tol=1e-4, streak_target=2**30),
+                 ("s", "w", "ratio"))):
+            res = {}
+            for dl, k in (("pallas", 1), ("megakernel", 16)):
+                res[dl] = run_simulation(topo, RunConfig(
+                    device="cuda", delivery=dl, rounds_per_kernel=k,
+                    predicate=predicate, max_rounds=MK_ROUNDS,
+                    chunk_rounds=16, plan_cache="none", **extra))
+            a, b = res["megakernel"], res["pallas"]
+            require(a.rounds == b.rounds, f"megakernel K=16 {gname} "
+                    f"{predicate}: {a.rounds} rounds, per-round path "
+                    f"{b.rounds}")
+            bad = [f for f in (fields or ("s", "w", "ratio", "streak",
+                                          "converged", "round"))
+                   if not bitwise_equal(torch, getattr(a.final_state, f),
+                                        getattr(b.final_state, f))]
+            require(not bad, f"megakernel K=16 {gname} {predicate}: "
+                    f"fields {bad} differ from the per-round path")
+            say(f"(e) {gname} {predicate}: K=16 == per-round --delivery "
+                f"pallas on the card, {a.rounds} rounds, bitwise "
+                f"({', '.join(fields or ('every field',))})")
+        # 3. time per launch, never converging (every round runs)
+        opts = dict(n=n, eps=1e-7, streak_target=2**30, predicate="delta",
+                    tol=1e-4)
+        state0, core, _, _ = build_protocol(topo, RunConfig(
+            device="cuda", max_rounds=MK_ROUNDS))
+        per_round_ms = cuda_ms(torch, lambda: core(state0, pd), 20)
+        # the bound: each input read once (state, degree, both index
+        # tables, round), each output written once (state, round,
+        # executed); ops: every fold add and ~12 per node, per round
+        rp = mkm._pad_rows(n)
+        state_bytes = 5 * rp * 128 * 4
+        idx_bytes = (pd.gather_pre.idx.numel()
+                     + pd.gather_out.idx.numel()) * 4
+        in_bytes = state_bytes + n * 4 + idx_bytes + 4
+        out_bytes = state_bytes + 8
+        pair_adds = 2 * pd.m_pairs - 2 * pd.nu
+        for k in MK_KS:
+            ms = mkm.pad_state(pushsum_init(n, device="cuda"))
+            kern_ms = cuda_ms(torch, lambda: mkm.megakernel_rounds(
+                ms, mk, rounds_per_kernel=k, **opts), 20)
+            plain_ms = cuda_ms(torch, lambda: mkm.megakernel_rounds_plain(
+                ms, mk, rounds_per_kernel=k, **opts), 1, warmup=1)
+            nbytes = in_bytes + out_bytes
+            ops = k * (pair_adds + 12 * n)
+            b_ms, b_by = bound(nbytes, ops)
+            stream_ms = k * (idx_bytes + 2 * state_bytes + n * 4) \
+                / HBM_BYTES_PER_S * 1e3
+            records.append(dict(
+                name="megakernel", graph=gname, call=f"K={k}",
+                shape=[n, k], max_abs_err=worst_err, ms=kern_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, bytes=nbytes, stream_bound_ms=stream_ms,
+                ms_per_round=kern_ms / k, per_round_path_ms=per_round_ms))
+            say(f"(e) megakernel {gname} K={k}: {kern_ms:.4f} ms per launch, "
+                f"{kern_ms / k:.4f} ms per round (per-round pallas path "
+                f"{per_round_ms:.4f} ms per round by CUDA events; plain "
+                f"{plain_ms:.3f} ms per launch); bound {b_ms:.4f} ms by "
+                f"{b_by} (inputs once, {nbytes / 1e6:.1f} MB), "
+                f"{stream_ms:.4f} ms re-reading the tables and state every "
+                "round; library: none (no single PyTorch call runs K "
+                "rounds)")
+        del mk, pd, state0
+        torch.cuda.empty_cache()
+    return records
+
+
+# ---------------------------------------------------------------- (f)
+
+def phase_megakernel_cli(torch):
+    from gossipprotocol_tpu_torch.cli import main
+    from gossipprotocol_tpu_torch.ops import (
+        kernel_launches, reset_kernel_launches,
+    )
+
+    total = 0
+    for gname, argv in MK_CLI_RUNS.items():
+        argv = argv + ["--device", "cuda", "--max-rounds", MAX_ROUNDS]
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        reset_kernel_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        counts = kernel_launches()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            say(f"(f) {gname} | {line}")
+        require(rc == 0, f"CLI run {gname} exited {rc}: {' '.join(argv)}")
+        conv = re.search(r"Convergence Time: ([0-9.]+) ms", text)
+        rounds = re.search(r"rounds: (\d+) \((\d+) executed\)", text)
+        err = re.search(r"max \|s/w - mean\| = (\S+)", text)
+        require(conv and rounds and err, f"CLI run {gname}: output lines "
+                "missing")
+        wall_ms, n_rounds = float(conv.group(1)), int(rounds.group(1))
+        est = float(err.group(1))
+        limit = 2e-4 if "global" in argv else 1e-4
+        require(est == est and est <= limit,
+                f"CLI run {gname}: estimate error {est} above {limit}")
+        require(counts["megakernel"] > 0,
+                f"CLI run {gname}: the megakernel was never launched")
+        stray = {k: counts[k] for k in PER_ROUND_KERNELS if counts[k]}
+        require(not stray, f"CLI run {gname}: per-round kernels launched "
+                f"on the megakernel path: {stray}")
+        say(f"(f) {gname}: rc 0, {n_rounds} rounds, {wall_ms:.3f} ms, "
+            f"{wall_ms / max(n_rounds, 1):.4f} ms/round, estimate_error "
+            f"{est:.3e}, launches {counts}")
+        total += counts["megakernel"]
+    return total
+
+
 def summarize(records, totals):
     """One record per kernel: its largest main-path call."""
     out = []
     for kname, (source, replaces) in KERNELS.items():
         mine = [r for r in records if r["name"] == kname]
         require(mine, f"kernel {kname} was not measured")
-        big = max(mine, key=lambda r: r["bytes"])
+        # the megakernel's main path runs K = 16
+        big = max((r for r in mine if r["call"] != "K=1"),
+                  key=lambda r: r["bytes"])
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=totals[kname],
@@ -405,15 +632,19 @@ def main(argv=None) -> int:
               f"this script ({e})", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    try:
-        card = phase_card(torch)
-        records, expected = phase_kernels(torch)
-        totals = phase_cli(torch, expected)
-        phase_card_vs_cpu(torch)
-        kernels = summarize(records, totals)
-    except SmokeFailure as e:
-        print(f"FAIL: {e}", flush=True)
-        return 1
+    with tempfile.TemporaryDirectory(prefix="plan_cache_") as cache:
+        os.environ["GOSSIP_TPU_PLAN_CACHE"] = cache
+        try:
+            card = phase_card(torch)
+            records, expected = phase_kernels(torch)
+            totals = phase_cli(torch, expected)
+            phase_card_vs_cpu(torch)
+            records += phase_megakernel(torch)
+            totals["megakernel"] = phase_megakernel_cli(torch)
+            kernels = summarize(records, totals)
+        except SmokeFailure as e:
+            print(f"FAIL: {e}", flush=True)
+            return 1
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_kernels.json"),
               "w") as fh:

@@ -1,7 +1,8 @@
 """Command-line entry point of the PyTorch port.
 
     python -m gossipprotocol_tpu_torch N TOPOLOGY push-sum \\
-        --fanout all --delivery pallas [--device cuda|cpu]
+        --fanout all --delivery pallas|megakernel [--rounds-per-kernel K]
+        [--plan-cache DIR|none] [--device cuda|cpu]
 
 The positional surface and the output follow the JAX package's CLI (the
 reference's ``N topology algorithm`` → ``Convergence Time: %f ms``). Exit
@@ -26,8 +27,8 @@ _ALGO_ALIASES = {
 # flags of the JAX package's CLI that this port does not have yet
 UNPORTED_FLAGS = (
     "--backend", "--devices", "--threshold", "--semantics",
-    "--routed-design", "--rounds-per-kernel", "--payload-wire",
-    "--exchange-overlap", "--plan-cache", "--build-workers", "--build",
+    "--routed-design", "--payload-wire",
+    "--exchange-overlap", "--build-workers", "--build",
     "--build-memory-budget", "--value-mode", "--payload-dim", "--workload", "--clock",
     "--activation-rate", "--groups", "--accel", "--accel-lambda", "--lr",
     "--local-steps", "--sgp-samples", "--loss-tol", "--x64",
@@ -46,11 +47,19 @@ UNPORTED_SUBCOMMANDS = ("report", "watch", "history", "plan", "serve",
                         "submit", "status")
 
 
+def _positive_int(text: str) -> int:
+    v = int(text)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gossipprotocol_tpu_torch",
         description="PyTorch/CUDA port of the gossip / push-sum simulator "
-                    "(fanout-all push-sum over the fused gather delivery)",
+                    "(fanout-all push-sum over the fused gather delivery "
+                    "and the K-round megakernel)",
     )
     p.add_argument("num_nodes", type=int)
     p.add_argument("topology", type=str)
@@ -77,11 +86,33 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["scatter", "invert", "routed", "pallas",
                             "megakernel"],
                    default="scatter",
-                   help="fanout-all delivery; only 'pallas' (the fused "
-                        "gather delivery) is ported")
+                   help="fanout-all delivery; 'pallas' (the routed "
+                        "pipeline fused into two gathers around the class "
+                        "folds) and 'megakernel' (the pallas path with the "
+                        "whole protocol round fused into one persistent "
+                        "kernel, running --rounds-per-kernel rounds per "
+                        "launch; all-alive, resident gather plans) are "
+                        "ported")
+    p.add_argument("--rounds-per-kernel", type=_positive_int, default=1,
+                   metavar="K",
+                   help="protocol rounds fused into one kernel launch "
+                        "(requires --delivery pallas or megakernel; "
+                        "--delivery megakernel with K=1 is bitwise the "
+                        "pallas path per round). Amortizes launch and "
+                        "host enqueue overhead; convergence trajectories "
+                        "are identical for every K because the in-kernel "
+                        "loop stops once the predicate fires")
+    p.add_argument("--plan-cache", type=str, default=None, metavar="DIR",
+                   help="delivery plan cache directory (default "
+                        "$GOSSIP_TPU_PLAN_CACHE or "
+                        "~/.cache/gossipprotocol_tpu/routed-plans, shared "
+                        "with the JAX package; 'none' disables). Plans are "
+                        "keyed by the adjacency digest; a hit loads bitwise "
+                        "the tables a build would produce")
     p.add_argument("--max-rounds", type=int, default=1_000_000)
     p.add_argument("--chunk-rounds", type=int, default=None,
-                   help="rounds per host fetch (default 16)")
+                   help="rounds per host fetch (default 16, rounded up "
+                        "to a multiple of --rounds-per-kernel)")
     p.add_argument("--avg-degree", type=float, default=8.0,
                    help="erdos_renyi mean degree")
     p.add_argument("--attach", type=int, default=4,
@@ -111,7 +142,7 @@ def main(argv=None) -> int:
     bad = _unported(argv)
     if bad is not None:
         print(f"option not yet ported: {bad} (the PyTorch port runs "
-              "push-sum --fanout all --delivery pallas; use "
+              "push-sum --fanout all --delivery pallas|megakernel; use "
               "python -m gossipprotocol_tpu for the rest)", file=sys.stderr)
         return 2
     try:
@@ -126,16 +157,17 @@ def main(argv=None) -> int:
         return 2
     if algo != "push-sum":
         print(f"option not yet ported: algorithm {algo!r} (the PyTorch "
-              "port runs push-sum --fanout all --delivery pallas)",
-              file=sys.stderr)
+              "port runs push-sum --fanout all --delivery "
+              "pallas|megakernel)", file=sys.stderr)
         return 2
     if args.fanout != "all":
         print(f"option not yet ported: --fanout {args.fanout} (only "
               "--fanout all is ported)", file=sys.stderr)
         return 2
-    if args.delivery != "pallas":
+    if args.delivery not in ("pallas", "megakernel"):
         print(f"option not yet ported: --delivery {args.delivery} (only "
-              "--delivery pallas is ported)", file=sys.stderr)
+              "--delivery pallas and megakernel are ported)",
+              file=sys.stderr)
         return 2
 
     from gossipprotocol_tpu_torch.engine.driver import (
@@ -154,13 +186,20 @@ def main(argv=None) -> int:
             streak_target=args.streak, predicate=args.predicate,
             tol=args.tol, fanout=args.fanout, delivery=args.delivery,
             max_rounds=args.max_rounds,
-            chunk_rounds=args.chunk_rounds, device=args.device,
+            chunk_rounds=args.chunk_rounds,
+            rounds_per_kernel=args.rounds_per_kernel,
+            plan_cache=args.plan_cache, device=args.device,
         )
         topo = build_topology(
             args.topology, args.num_nodes, seed=args.seed,
             avg_degree=args.avg_degree, m=args.attach, k=args.ws_k,
             beta=args.ws_beta,
         )
+        if topo.implicit_full:
+            raise ValueError(
+                f"delivery='{cfg.delivery}' needs an explicit edge list; "
+                "the complete graph has none (diffusion on K_n mixes in "
+                "one round via two reductions) — use delivery='scatter'")
     except (ValueError, RuntimeError, NotImplementedError) as e:
         print(str(e), file=sys.stderr)
         return 2

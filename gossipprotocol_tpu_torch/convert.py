@@ -101,3 +101,19 @@ def delivery_from_numpy(n: int, nu: int, m_pairs: int, classes,
         gather_out=gather_plan_from_numpy(*gather_out, device=dev),
         degree=torch.from_numpy(degree.astype(np.int32)).to(dev),
     )
+
+
+def megakernel_delivery_from_numpy(pd_arrays, device="cuda"):
+    """A :class:`~gossipprotocol_tpu_torch.ops.megakernel.
+    MegakernelDelivery` on ``device`` from a host-side delivery — the
+    port's :class:`~gossipprotocol_tpu_torch.ops.pallasdelivery.
+    HostPallasDelivery`, or the JAX package's ``PallasDelivery`` built with
+    ``device=False`` (same field names) — checked for resident gathers."""
+    from gossipprotocol_tpu_torch.ops.megakernel import (
+        build_megakernel_delivery,
+    )
+
+    p = pd_arrays
+    return build_megakernel_delivery(delivery_from_numpy(
+        p.n, p.nu, p.m_pairs, p.classes, p.gather_pre, p.gather_out,
+        p.degree, device=device))

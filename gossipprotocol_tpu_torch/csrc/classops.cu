@@ -8,7 +8,7 @@
 // in another order, atomics, `torch.sum`) changes the last bits.
 // Compiled without --use_fast_math and with --fmad=false: no
 // flush-to-zero of denormals, no contraction.
-#include "common.cuh"
+#include "fold.cuh"
 
 namespace {
 
@@ -35,19 +35,8 @@ __global__ void reduce_small_kernel(const float* __restrict__ x,
   const long long o = blockIdx.x * static_cast<long long>(blockDim.x)
                       + threadIdx.x;
   if (o >= n_out) return;
-  constexpr int OUT_LANES = GOSSIP_LANES / C;
-  const long long row = o / OUT_LANES;
-  const int p = static_cast<int>(o % OUT_LANES);
-  const float* base = x + row * GOSSIP_LANES + (p >> 1) * 2 * C + (p & 1);
-  float v[C];
-#pragma unroll
-  for (int j = 0; j < C; ++j) v[j] = __ldg(base + 2 * j);
-#pragma unroll
-  for (int sh = 1; sh < C; sh *= 2) {
-#pragma unroll
-    for (int j = 0; j < C; j += 2 * sh) v[j] = v[j] + v[j + sh];
-  }
-  out[o] = v[0];
+  const float* base = x + small_run_base<C>(o);
+  out[o] = fold_small<C>([&](int j) { return __ldg(base + 2 * j); });
 }
 
 // class_reduce_split — replaces gossipprotocol_tpu/ops/classops.py:183
@@ -88,15 +77,8 @@ reduce_split_kernel(const float* __restrict__ x, float* __restrict__ out,
     for (int jj = warp; jj < jn; jj += SPLIT_WARPS) {
       const float4* row = reinterpret_cast<const float4*>(
           x + (static_cast<long long>(j0 + jj) * cap + r) * GOSSIP_LANES);
-      const float4 a = __ldg(row + lane);
-      float s = a.x + a.z;
-      float w = a.y + a.w;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        s = s + __shfl_down_sync(0xffffffffu, s, off);
-        w = w + __shfl_down_sync(0xffffffffu, w, off);
-      }
-      if (lane == 0) part[jj] = make_float2(s, w);
+      const float2 p = fold_row_warp(__ldg(row + lane));
+      if (lane == 0) part[jj] = p;
     }
     __syncthreads();
     if (threadIdx.x == 0) {

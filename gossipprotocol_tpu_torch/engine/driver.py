@@ -1,6 +1,6 @@
 """Experiment driver + convergence supervisor (port of the subset of
 ``gossipprotocol_tpu/engine/driver.py`` that fanout-all push-sum over the
-fused gather delivery reads).
+fused gather delivery and the K-round megakernel reads).
 
 The loop is chunked like the JAX engine's: one chunk advances rounds
 until a host-known ``round_limit`` or global convergence, whichever comes
@@ -11,11 +11,13 @@ and freezes the state once the predicate holds
 (``torch.where(done, old, new)``, counting ``round`` only while not
 frozen — the megakernel's freeze rule, ``ops/megakernel.py:237-254`` of
 the JAX package). Round counts therefore equal the JAX engine's exactly,
-with no host round-trip per round.
+with no host round-trip per round. The megakernel path
+(:func:`use_megakernel`) enqueues one launch per K rounds instead, and
+the kernel itself stops at convergence.
 
 What is not yet ported exits as a :class:`NotPortedError` naming itself:
-gossip, the single-target sender, every delivery but ``pallas``, faults,
-checkpoints, telemetry, sharding, sweeps.
+gossip, the single-target sender, every delivery but ``pallas`` and
+``megakernel``, faults, checkpoints, telemetry, sharding, sweeps.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from gossipprotocol_tpu_torch.ops.build import resolve_device
+from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
 from gossipprotocol_tpu_torch.protocols.diffusion import (
     pushsum_diffusion_round_routed,
 )
@@ -41,8 +44,11 @@ ALGORITHMS = ("gossip", "push-sum")
 # engine's auto size is a TPU-watchdog cost model that does not apply.
 # A chunk runs to its limit, frozen rounds included, so a large chunk
 # spends up to chunk - 1 rounds past convergence; 16 beat 64 and 8 on
-# the card's smoke graphs (PERF.md, utils/profiling.py).
+# the card's smoke graphs (PERF.md, utils/profiling.py). Rounded up to a
+# multiple of the megakernel's K.
 DEFAULT_CHUNK_ROUNDS = 16
+
+DELIVERIES = ("pallas", "megakernel")
 
 
 class NotPortedError(ValueError):
@@ -65,6 +71,11 @@ class RunConfig:
     value_mode: str = "scaled"     # push-sum init: "scaled" (i/N) | "index" (i)
     max_rounds: int = 1_000_000
     chunk_rounds: Optional[int] = None  # None = DEFAULT_CHUNK_ROUNDS
+    rounds_per_kernel: int = 1     # rounds per megakernel launch (K)
+    plan_cache: Optional[str] = None  # plan cache dir; None = default
+                                   # ($GOSSIP_TPU_PLAN_CACHE or ~/.cache/
+                                   # ...), "none" = off. A hit loads the
+                                   # tables a build would produce
     device: str = "cuda"
 
     def __post_init__(self):
@@ -80,10 +91,24 @@ class RunConfig:
             raise NotPortedError(
                 f"fanout {self.fanout!r} is not yet ported (only "
                 "--fanout all is)")
-        if self.delivery != "pallas":
+        if self.rounds_per_kernel < 1:
+            raise ValueError("rounds_per_kernel must be >= 1")
+        if self.rounds_per_kernel > 1 and self.delivery not in DELIVERIES:
+            raise ValueError(
+                "rounds_per_kernel > 1 loops rounds inside the fused "
+                "kernel — it requires delivery='pallas' (or "
+                "'megakernel'); the other deliveries dispatch one round "
+                "per launch by construction")
+        if self.delivery not in DELIVERIES:
             raise NotPortedError(
                 f"delivery {self.delivery!r} is not yet ported (only "
-                "--delivery pallas is)")
+                "--delivery pallas and megakernel are)")
+        if (use_megakernel(self) and self.chunk_rounds is not None
+                and self.chunk_rounds % self.rounds_per_kernel):
+            raise ValueError(
+                f"chunk_rounds ({self.chunk_rounds}) must be a multiple "
+                f"of rounds_per_kernel ({self.rounds_per_kernel}) so "
+                "chunk boundaries land on super-step boundaries")
         if self.predicate not in ("delta", "global"):
             raise ValueError("predicate must be 'delta' or 'global'")
         if self.value_mode not in ("scaled", "index"):
@@ -95,7 +120,19 @@ class RunConfig:
 
     @property
     def chunk(self) -> int:
-        return self.chunk_rounds or DEFAULT_CHUNK_ROUNDS
+        if self.chunk_rounds:
+            return self.chunk_rounds
+        k = self.rounds_per_kernel
+        return -(-DEFAULT_CHUNK_ROUNDS // k) * k
+
+
+def use_megakernel(cfg: RunConfig) -> bool:
+    """Does this config run the K-round kernel (ops/megakernel.py)?
+    ``--delivery megakernel`` always; the pallas path joins it when
+    ``--rounds-per-kernel`` exceeds 1. K = 1 on ``--delivery pallas``
+    stays the per-round path."""
+    return cfg.delivery == "megakernel" or (
+        cfg.delivery == "pallas" and cfg.rounds_per_kernel > 1)
 
 
 @dataclasses.dataclass
@@ -107,8 +144,11 @@ class RunResult:
     num_nodes: int
     algorithm: str
     final_state: Any          # PushSumState of CPU tensors
-    # round iterations the device ran, frozen ones included: a chunk
-    # runs to its limit, so up to chunk - 1 rounds past convergence
+    # round iterations the device ran. The per-round path counts frozen
+    # ones (a chunk runs to its limit, up to chunk - 1 rounds past
+    # convergence); the megakernel stops at convergence, so its count —
+    # the sum of the kernel's own ``executed`` — equals ``rounds`` less
+    # the start
     rounds_executed: int = 0
 
     @property
@@ -139,7 +179,10 @@ def build_protocol(topo: Topology, cfg: RunConfig,
     With no birth exclusions the round drops its aliveness masks
     (``all_alive``); birth exclusions are whole components, so an alive
     node's neighbors are alive (``targets_alive``). ``allow_all_alive=
-    False`` forces the general dead-set path."""
+    False`` forces the general dead-set path. Under
+    :func:`use_megakernel` the core is the K-round kernel's
+    ``(padded state, megakernel delivery) -> padded state``, which runs
+    the all-alive round only."""
     dev = resolve_device(cfg.device)
     alive0 = initial_alive(topo)
     all_alive = allow_all_alive and alive0 is None
@@ -149,6 +192,23 @@ def build_protocol(topo: Topology, cfg: RunConfig,
     if alive0 is not None:
         state = state._replace(
             alive=state.alive & torch.from_numpy(np.array(alive0)).to(dev))
+
+    if use_megakernel(cfg):
+        from gossipprotocol_tpu_torch.ops.megakernel import (
+            make_megakernel_round,
+        )
+
+        if not all_alive:
+            raise RoutedConfigError(
+                "the round-loop megakernel compiles the all-alive round "
+                "only; this run carries dead rows (birth exclusions or a "
+                "resumed dead set) — use delivery='pallas' with "
+                "rounds_per_kernel=1")
+        core = make_megakernel_round(
+            n=topo.num_nodes, rounds_per_kernel=cfg.rounds_per_kernel,
+            eps=cfg.eps, streak_target=cfg.streak_target,
+            predicate=cfg.predicate, tol=cfg.tol)
+        return state, core, pushsum_done, (all_alive, targets_alive)
 
     def round_core(st, delivery):
         return pushsum_diffusion_round_routed(
@@ -160,13 +220,21 @@ def build_protocol(topo: Topology, cfg: RunConfig,
 
 
 def device_arrays(topo: Topology, cfg: RunConfig):
-    """The delivery the round reads: the fused gather plan, built
-    uncached on the host and placed on the run's device."""
-    from gossipprotocol_tpu_torch.ops.pallasdelivery import (
-        build_pallas_delivery,
-    )
+    """The delivery the round reads: the fused gather plan through the
+    plan cache (``cfg.plan_cache``), placed on the run's device; under
+    :func:`use_megakernel` wrapped for the K-round kernel, whose
+    eligibility (resident gathers) is checked here, before any launch."""
+    from gossipprotocol_tpu_torch.ops.plancache import pallas_delivery_cached
 
-    return build_pallas_delivery(topo, device=resolve_device(cfg.device))
+    pd, _prov = pallas_delivery_cached(topo, cache_dir=cfg.plan_cache,
+                                       device=resolve_device(cfg.device))
+    if use_megakernel(cfg):
+        from gossipprotocol_tpu_torch.ops.megakernel import (
+            build_megakernel_delivery,
+        )
+
+        return build_megakernel_delivery(pd)
+    return pd
 
 
 def _freeze(active: torch.Tensor, new: PushSumState,
@@ -197,6 +265,33 @@ def make_chunk_runner(round_core, done_fn):
     return chunk
 
 
+def make_megakernel_chunk_runner(round_core, done_fn,
+                                 rounds_per_kernel: int):
+    """``chunk(state, mk, start_round, round_limit) -> (state, stats)``
+    for the K-round kernel: pad the state once, launch
+    ``ceil((round_limit - start_round) / K)`` super-steps — as many as
+    the JAX engine's ``while_loop`` runs when the run does not converge —
+    and unpad once. Per super-step the host enqueues the launch and
+    nothing else; the kernel updates the padded state in place, and a
+    launch that finds the predicate already true exits at once, so a
+    super-step may overshoot ``round_limit`` by up to K - 1 rounds but
+    never runs past convergence."""
+    from gossipprotocol_tpu_torch.ops.megakernel import (
+        pad_state, unpad_state,
+    )
+
+    k = rounds_per_kernel
+
+    def chunk(state, mk, start_round: int, round_limit: int):
+        ms = pad_state(state)
+        for _ in range(-(-max(0, round_limit - start_round) // k)):
+            ms = round_core(ms, mk)
+        state = unpad_state(ms, state.alive)
+        return state, chunk_stats(state, done_fn)
+
+    return chunk
+
+
 def warm_start(step, state) -> None:
     """Run one chunk of one round and discard it: builds and loads the
     CUDA kernels, loads every PyTorch kernel the chunk launches and warms
@@ -214,12 +309,15 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
     cur_round = int(state.round)
     done = False
     executed = 0
+    fused = use_megakernel(cfg)
     t0 = time.perf_counter()
     while cur_round < cfg.max_rounds:
         round_limit = min(cur_round + cfg.chunk, cfg.max_rounds)
         state, stats = step(state, cur_round, round_limit)
-        executed += round_limit - cur_round
+        prev = cur_round
         cur_round, done = stats.tolist()  # the one fetch of the chunk
+        # the kernel adds the rounds it ran to `round` itself
+        executed += (cur_round - prev) if fused else (round_limit - prev)
         if done:
             break
     if state.s.is_cuda:
@@ -264,7 +362,11 @@ def run_simulation(topo: Topology, cfg: RunConfig,
     if initial_state is not None:
         state = PushSumState(*(t.to(dev).clone() for t in initial_state))
     delivery = device_arrays(topo, cfg)
-    runner = make_chunk_runner(round_core, done_fn)
+    if use_megakernel(cfg):
+        runner = make_megakernel_chunk_runner(round_core, done_fn,
+                                              cfg.rounds_per_kernel)
+    else:
+        runner = make_chunk_runner(round_core, done_fn)
 
     def step(s, start_round, round_limit):
         return runner(s, delivery, start_round, round_limit)

@@ -1,19 +1,32 @@
 """Hand-written CUDA kernels of the port and their host-side plans.
 
-``classops`` (the degree-class folds) and ``pallasdelivery`` (the two
-tile gathers and the fused delivery) each keep a plain PyTorch version
-beside the kernel; ``build`` compiles ``csrc/*.cu`` at first use.
+``classops`` (the degree-class folds), ``pallasdelivery`` (the two tile
+gathers and the fused delivery) and ``megakernel`` (K whole rounds per
+launch) each keep a plain PyTorch version beside the kernel;
+``plancache`` caches the delivery's plans on disk; ``build`` compiles
+``csrc/*.cu`` at first use.
 """
 
 from gossipprotocol_tpu_torch.ops import classops, pallasdelivery
 
 
+def _tables():
+    # imported here: ops.megakernel imports protocols.state, which
+    # imports this package
+    from gossipprotocol_tpu_torch.ops import megakernel
+
+    return classops.LAUNCHES, pallasdelivery.LAUNCHES, megakernel.LAUNCHES
+
+
 def kernel_launches() -> dict:
     """Launch count of every kernel since the last reset."""
-    return {**classops.LAUNCHES, **pallasdelivery.LAUNCHES}
+    out = {}
+    for table in _tables():
+        out.update(table)
+    return out
 
 
 def reset_kernel_launches() -> None:
-    for table in (classops.LAUNCHES, pallasdelivery.LAUNCHES):
+    for table in _tables():
         for k in table:
             table[k] = 0

@@ -29,11 +29,11 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 
 # one shared library per source; the launchers each library exports
-SOURCES = ("classops", "gather")
+SOURCES = ("classops", "gather", "megakernel")
 
 # sm_90a (Hopper). No --use_fast_math: the folds must keep denormals and
-# IEEE rounding; --fmad=false forbids contraction (the kernels only add,
-# so this is a guard, not a change).
+# IEEE rounding; --fmad=false forbids contraction, so the one fused
+# multiply-add (the megakernel's s - share*deg) is the explicit __fmaf_rn.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -43,6 +43,7 @@ NVCC_FLAGS = (
 _VOIDP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 
 # argtypes of every exported launcher (pointers and the stream as void*,
 # so ctypes never truncates them to 32 bits)
@@ -55,6 +56,16 @@ _SIGNATURES = {
         "gossip_gather_resident": (_VOIDP, _VOIDP, _VOIDP, _LL, _VOIDP),
         "gossip_gather_bucket": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _LL, _INT,
                                  _VOIDP),
+    },
+    "megakernel": {
+        "gossip_megakernel_max_grid": (_VOIDP,),
+        # state (5), round, deg, idx_pre, idx_out, xp, xp_len, yp,
+        # yp_len, y_len, part, red, cnt, bar, classes, ncls, has_split, n,
+        # k, eps, tol, streak_target, global_pred, quorum, grid, stream
+        "gossip_megakernel": (
+            *(_VOIDP,) * 9, _VOIDP, _LL, _VOIDP, _LL, _LL,
+            *(_VOIDP,) * 5, _INT, _INT, _LL, _INT, _F32, _F32, _INT, _INT,
+            _LL, _INT, _VOIDP),
     },
 }
 

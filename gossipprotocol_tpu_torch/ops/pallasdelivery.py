@@ -169,16 +169,21 @@ class GatherPlan(NamedTuple):
         x[: flat.shape[0]] = flat
         return x.reshape(self.src_rows, LANES)
 
-    def gather_padded(self, x2d: torch.Tensor) -> torch.Tensor:
+    def gather_padded(self, x2d: torch.Tensor,
+                      plain: bool = False) -> torch.Tensor:
         """Every tile of the gather (``[tiles * 1024]``) from a padded
-        source (the kernels index it unchecked, so its size is checked)."""
+        source (the kernels index it unchecked, so its size is checked).
+        ``plain`` runs the plain PyTorch bodies on any device (the
+        counterpart of the JAX package's ``interpret``)."""
         if x2d.shape != (self.src_rows, LANES):
             raise ValueError(f"padded source {tuple(x2d.shape)} != "
                              f"({self.src_rows}, {LANES})")
         if self.mode == "resident":
-            out = gather_resident(x2d, self.idx)
+            out = (gather_resident_plain if plain else gather_resident)(
+                x2d, self.idx)
         else:
-            out = gather_bucket(x2d, self.rows, self.lidx)
+            out = (gather_bucket_plain if plain else gather_bucket)(
+                x2d, self.rows, self.lidx)
         return out.reshape(-1)
 
     def gather(self, flat: torch.Tensor) -> torch.Tensor:
@@ -187,8 +192,22 @@ class GatherPlan(NamedTuple):
         return self.gather_padded(self.padded_source(flat))[: self.out_len]
 
 
+class HostGatherPlan(NamedTuple):
+    """A :class:`GatherPlan`'s fields as host values (numpy tables) — the
+    form the plan cache stores, with the field names of the JAX package's
+    host-side ``GatherPlan``."""
+
+    mode: str
+    src_rows: int
+    out_len: int
+    idx: np.ndarray
+    rows: np.ndarray
+    lidx: np.ndarray
+
+
 def build_gather_plan_np(src: np.ndarray, src_len: int,
-                         resident_rows: Optional[int] = None):
+                         resident_rows: Optional[int] = None
+                         ) -> HostGatherPlan:
     """The plan tables as numpy: ``(mode, src_rows, out_len, idx, rows,
     lidx)``, byte-equal to the JAX package's ``build_gather_plan``.
 
@@ -204,7 +223,8 @@ def build_gather_plan_np(src: np.ndarray, src_len: int,
     idx3 = idx.reshape(tiles, TILE_ROWS, LANES).astype(np.int32)
     empty = np.zeros(0, np.int32)
     if src_rows <= resident:
-        return "resident", src_rows, out_len, idx3, empty, empty
+        return HostGatherPlan("resident", src_rows, out_len, idx3, empty,
+                              empty)
     # bucket mode: per destination tile, the sorted distinct source rows
     # and slab-local indices into them
     r = (idx // LANES).reshape(tiles, TILE)
@@ -221,8 +241,8 @@ def build_gather_plan_np(src: np.ndarray, src_len: int,
     np.put_along_axis(pos, order, pos_sorted, axis=1)
     lidx = (pos * LANES + (idx % LANES).reshape(tiles, TILE)).reshape(
         tiles, TILE_ROWS, LANES)
-    return ("bucket", src_rows, out_len, empty,
-            rows_tab.astype(np.int32), lidx.astype(np.int32))
+    return HostGatherPlan("bucket", src_rows, out_len, empty,
+                          rows_tab.astype(np.int32), lidx.astype(np.int32))
 
 
 def build_gather_plan(src: np.ndarray, src_len: int,
@@ -252,29 +272,33 @@ class PallasDelivery(NamedTuple):
     gather_out: GatherPlan        # packed class outputs -> [s|w] natural
     degree: torch.Tensor          # int32 [n]
 
-    def matvec(self, xs: torch.Tensor, xw: torch.Tensor):
+    def matvec(self, xs: torch.Tensor, xw: torch.Tensor,
+               plain: bool = False):
         """(in_s, in_w)[i] = sum over neighbors j of (xs, xw)[j], bitwise
         equal to the JAX package's ``PallasDelivery.matvec`` (same fold
-        trees over the same f32 values)."""
+        trees over the same f32 values). ``plain`` runs the gathers' and
+        folds' plain PyTorch bodies on any device."""
         n = self.n
         # the padded source is built in one buffer (no concatenate + pad)
         x = torch.zeros(self.gather_pre.src_rows * LANES,
                         dtype=torch.float32, device=xs.device)
         x[:n] = xs[:n]
         x[n: 2 * n] = xw[:n]
-        f = self.gather_pre.gather_padded(x.view(-1, LANES))
+        f = self.gather_pre.gather_padded(x.view(-1, LANES), plain)
         y = torch.zeros(self.gather_out.src_rows * LANES,
                         dtype=torch.float32, device=xs.device)
         at = 0
         for c, n_c, start, reg_rows, _cap in self.classes:
             region = f[2 * start: 2 * start + reg_rows * LANES]
             if 2 * c <= LANES:
-                packed = classops.class_reduce_small(region, c)
+                fold = (classops.class_reduce_small_plain if plain
+                        else classops.class_reduce_small)
             else:
-                packed = classops.class_reduce_split(region, c)
-            y[at: at + 2 * n_c] = packed[: 2 * n_c]
+                fold = (classops.class_reduce_split_plain if plain
+                        else classops.class_reduce_split)
+            y[at: at + 2 * n_c] = fold(region, c)[: 2 * n_c]
             at += 2 * n_c
-        nat = self.gather_out.gather_padded(y.view(-1, LANES))
+        nat = self.gather_out.gather_padded(y.view(-1, LANES), plain)
         return nat[:n], nat[n: 2 * n]
 
 
@@ -293,11 +317,25 @@ def pallas_streamed_bytes_per_round(pd: PallasDelivery) -> int:
     return pre + out
 
 
+class HostPallasDelivery(NamedTuple):
+    """A :class:`PallasDelivery`'s fields as host values — the form the
+    plan cache stores (``ops/plancache.py``), with the field names of the
+    JAX package's host-side ``PallasDelivery``."""
+
+    n: int
+    nu: int
+    m_pairs: int
+    classes: Tuple[Tuple[int, int, int, int, int], ...]
+    gather_pre: HostGatherPlan
+    gather_out: HostGatherPlan
+    degree: np.ndarray            # int32 [n]
+
+
 def build_pallas_delivery_np(topo: Topology,
-                             resident_rows: Optional[int] = None):
-    """The delivery's fields as host values: ``(n, nu, m_pairs, classes,
-    pre_tables, out_tables, degree)``, with each ``*_tables`` the tuple of
-    :func:`build_gather_plan_np`."""
+                             resident_rows: Optional[int] = None
+                             ) -> HostPallasDelivery:
+    """The delivery's fields as host values, with each gather's tables
+    from :func:`build_gather_plan_np`."""
     if topo.implicit_full:
         raise RoutedConfigError(
             "pallas delivery: complete graph needs no edges "
@@ -357,10 +395,11 @@ def build_pallas_delivery_np(topo: Topology,
     src_out[:n][has] = 2 * rank[has]
     src_out[n:][has] = 2 * rank[has] + 1
 
-    return (n, nu, m_pairs, classes,
-            build_gather_plan_np(src_pre, 2 * n, resident_rows),
-            build_gather_plan_np(src_out, 2 * nu, resident_rows),
-            np.asarray(degree, np.int32))
+    return HostPallasDelivery(
+        n, nu, m_pairs, classes,
+        build_gather_plan_np(src_pre, 2 * n, resident_rows),
+        build_gather_plan_np(src_out, 2 * nu, resident_rows),
+        np.asarray(degree, np.int32))
 
 
 def build_pallas_delivery(topo: Topology, device="cuda",

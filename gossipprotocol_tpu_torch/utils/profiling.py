@@ -1,18 +1,25 @@
-"""Where a round's time goes on the card, and what the chunk size costs
-(the port's counterpart of ``gossipprotocol_tpu/utils/profiling.py``).
+"""Where a round's time goes on the card, and what the chunk size and the
+megakernel's K cost (the port's counterpart of
+``gossipprotocol_tpu/utils/profiling.py``).
 
     python -m gossipprotocol_tpu_torch.utils.profiling \\
         --nodes 1000000 --topology imp3D [--predicate delta --eps 1e-7]
+    python -m gossipprotocol_tpu_torch.utils.profiling \\
+        --nodes 512000 --topology imp3D --delivery megakernel \\
+        --rounds-per-kernel 16 [--predicate delta --eps 1e-7]
 
-Builds the graph and its fused gather delivery on ``cuda``, then:
+Builds the graph and its delivery on ``cuda``, then:
 
-  1. profiles ROUNDS rounds with ``torch.profiler``: device time per
-     kernel name per round, and the host time spent enqueuing a round;
-     times the same rounds with CUDA events, and reports the device's
-     idle share of that window (1 - busy / event time);
-  2. runs the protocol to convergence once per chunk size in CHUNKS, in
-     mirrored order, reporting the convergence time, the rounds, and the
-     rounds executed (frozen rounds past convergence included).
+  1. profiles ROUNDS rounds with ``torch.profiler`` (the per-round path,
+     or ROUNDS / K launches of the K-round kernel with the predicate
+     disabled, so every round runs): device time per kernel name per
+     round, and the host time spent enqueuing a round; times the same
+     rounds with CUDA events, and reports the device's idle share of that
+     window (1 - busy / event time);
+  2. runs the protocol to convergence once per setting, in mirrored
+     order: per chunk size in CHUNKS (``--delivery pallas``), or per K in
+     KS against the per-round pallas path (``--delivery megakernel``),
+     reporting the convergence time, the rounds, and the rounds executed.
 
 Prints a table and one JSON line; ``--out FILE`` also writes the JSON
 there. Needs a CUDA device.
@@ -27,8 +34,9 @@ import time
 
 import torch
 
-ROUNDS = 20
+ROUNDS = 64
 CHUNKS = (64, 16, 8)
+KS = (1, 4, 16, 64)
 
 
 def _kernel_table(prof, rounds):
@@ -51,6 +59,9 @@ def main(argv=None) -> int:
     ap.add_argument("--topology", default="imp3D")
     ap.add_argument("--predicate", default="global")
     ap.add_argument("--eps", type=float, default=1e-10)
+    ap.add_argument("--delivery", choices=["pallas", "megakernel"],
+                    default="pallas")
+    ap.add_argument("--rounds-per-kernel", type=int, default=1)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -58,76 +69,117 @@ def main(argv=None) -> int:
 
     from gossipprotocol_tpu_torch.engine.driver import (
         RunConfig, _drive, build_protocol, device_arrays, make_chunk_runner,
-        resolve_device, warm_start,
+        make_megakernel_chunk_runner, resolve_device, use_megakernel,
+        warm_start,
     )
+    from gossipprotocol_tpu_torch.ops.megakernel import pad_state
     from gossipprotocol_tpu_torch.topology import build_topology
 
     dev = resolve_device("cuda")
     topo = build_topology(args.topology, args.nodes)
     cfg = RunConfig(device="cuda", predicate=args.predicate, eps=args.eps,
-                    max_rounds=20_000)
-    state0, core, done_fn, _ = build_protocol(topo, cfg)
+                    max_rounds=20_000, delivery=args.delivery,
+                    rounds_per_kernel=args.rounds_per_kernel,
+                    plan_cache="none")
+    fused = use_megakernel(cfg)
+    k = cfg.rounds_per_kernel
+    if ROUNDS % k:
+        ap.error(f"--rounds-per-kernel must divide {ROUNDS}")
     delivery = device_arrays(topo, cfg)
-    runner = make_chunk_runner(core, done_fn)
+    # the per-round path reads the plain delivery the megakernel wraps
+    pd = delivery.pd if fused else delivery
 
-    def step(s, start_round, round_limit):
-        return runner(s, delivery, start_round, round_limit)
+    def make_step(c):
+        state0, core, done_fn, _ = build_protocol(topo, c)
+        if use_megakernel(c):
+            runner = make_megakernel_chunk_runner(core, done_fn,
+                                                  c.rounds_per_kernel)
+            dlv = delivery
+        else:
+            runner = make_chunk_runner(core, done_fn)
+            dlv = pd
 
-    warm_start(step, state0)
-    for _ in range(3):
-        core(state0, delivery)
+        def step(s, start_round, round_limit):
+            return runner(s, dlv, start_round, round_limit)
+
+        warm_start(step, state0)
+        return state0, step
+
+    state0, step = make_step(cfg)
+    # 1. rounds with no freeze and no stop: profiled, then timed
+    _, core, _, _ = build_protocol(topo, dataclasses.replace(
+        cfg, streak_target=2**30))
+    if fused:
+        ms = pad_state(state0)
+
+        def rounds():
+            for _ in range(ROUNDS // k):
+                core(ms, delivery)
+    else:
+        def rounds():
+            st = state0
+            for _ in range(ROUNDS):
+                st = core(st, delivery)
+
+    for _ in range(2):
+        rounds()
     torch.cuda.synchronize(dev)
-
-    # 1. plain rounds (no freeze, no predicate): profiled, then timed
-    st = state0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(ROUNDS):
-            st = core(st, delivery)
+        rounds()
         enqueue_ms = (time.perf_counter() - t0) * 1e3 / ROUNDS
         torch.cuda.synchronize(dev)
     table = _kernel_table(prof, ROUNDS)
     busy_ms = sum(r[2] for r in table)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    st = state0
     start.record()
-    for _ in range(ROUNDS):
-        st = core(st, delivery)
+    rounds()
     stop.record()
     stop.synchronize()
     event_ms = start.elapsed_time(stop) / ROUNDS
     idle = max(0.0, 1 - busy_ms / event_ms)
 
-    # 2. convergence time against the chunk size
+    # 2. convergence time against the chunk size, or against K
+    if fused:
+        settings = [("pallas", 1)] + [("megakernel", kk) for kk in KS]
+    else:
+        settings = [("pallas", c) for c in CHUNKS]
     conv = []
-    for c in CHUNKS + CHUNKS[::-1]:
-        res = _drive(dataclasses.replace(cfg, chunk_rounds=c), state0, step,
-                     topo.num_nodes, 0.0)
-        conv.append(dict(chunk=c, wall_ms=res.wall_ms, rounds=res.rounds,
+    for dl, v in settings + settings[::-1]:
+        if fused:
+            c = dataclasses.replace(cfg, delivery=dl, rounds_per_kernel=v)
+        else:
+            c = dataclasses.replace(cfg, chunk_rounds=v)
+        s0, st = (state0, step) if c == cfg else make_step(c)
+        res = _drive(c, s0, st, topo.num_nodes, 0.0)
+        conv.append(dict(delivery=dl, k=c.rounds_per_kernel, chunk=c.chunk,
+                         wall_ms=res.wall_ms, rounds=res.rounds,
                          executed=res.rounds_executed,
                          converged=res.converged))
 
     name = torch.cuda.get_device_name(dev)
-    print(f"{args.topology} {topo.num_nodes} nodes on {name}, "
-          f"{ROUNDS} rounds")
+    what = (f"megakernel K={k}, {ROUNDS // k} launches" if fused
+            else "per-round pallas path")
+    print(f"{args.topology} {topo.num_nodes} nodes on {name}, {ROUNDS} "
+          f"rounds, {what}")
     print(f"device busy {busy_ms:.4f} ms/round (profiler), {event_ms:.4f} "
           f"ms/round by CUDA events, host enqueue {enqueue_ms:.4f} "
           f"ms/round, idle share {idle:.3f}")
     print(f"{'kernel':70s} {'calls/round':>11s} {'ms/round':>10s}")
-    for key, calls, ms in table:
-        print(f"{key[:70]:70s} {calls:11.2f} {ms:10.4f}")
+    for key, calls, ms_r in table:
+        print(f"{key[:70]:70s} {calls:11.2f} {ms_r:10.4f}")
     for r in conv:
-        print(f"chunk {r['chunk']:4d}: {r['rounds']} rounds "
-              f"({r['executed']} executed), {r['wall_ms']:.3f} ms, "
-              f"converged {r['converged']}")
+        print(f"{r['delivery']:10s} K {r['k']:3d} chunk {r['chunk']:4d}: "
+              f"{r['rounds']} rounds ({r['executed']} executed), "
+              f"{r['wall_ms']:.3f} ms, converged {r['converged']}")
     out = dict(topology=args.topology, nodes=topo.num_nodes, device=name,
-               rounds=ROUNDS, busy_ms_per_round=busy_ms,
-               event_ms_per_round=event_ms,
+               delivery=args.delivery, rounds_per_kernel=k, rounds=ROUNDS,
+               busy_ms_per_round=busy_ms, event_ms_per_round=event_ms,
                enqueue_ms_per_round=enqueue_ms, idle_share=idle,
-               kernels=[dict(name=k, calls_per_round=c, ms_per_round=m)
-                        for k, c, m in table],
+               kernels=[dict(name=kk, calls_per_round=c, ms_per_round=m)
+                        for kk, c, m in table],
                convergence=conv)
     print(json.dumps(out))
     if args.out:

@@ -123,3 +123,42 @@ def test_dead_set_run_card_equals_cpu(cuda):
             assert _bits_equal(a, b)
         else:
             assert torch.equal(a, b)
+
+
+_MK_GRAPHS = {"imp3D": ("imp3D", 216, {"seed": 4}),
+              "powerlaw": ("powerlaw", 400, {"seed": 3, "m": 3})}
+
+
+@pytest.mark.parametrize("predicate", ["delta", "global"])
+@pytest.mark.parametrize("k", [1, 16])
+@pytest.mark.parametrize("graph", list(_MK_GRAPHS))
+def test_megakernel_kernel(cuda, graph, k, predicate):
+    """The K-round kernel against its plain version (the global mean
+    summed in the kernel's order), 48 rounds from the initial state with
+    a real streak, so runs converge and freeze mid-launch: every field
+    and the round count bitwise equal."""
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    name, n, kw = _MK_GRAPHS[graph]
+    topo = build_topology(name, n, **kw)
+    mk = mkm.build_megakernel_delivery(
+        pdm.build_pallas_delivery(topo, device=cuda))
+    opts = dict(n=topo.num_nodes, rounds_per_kernel=k, eps=1e-5,
+                streak_target=2, predicate=predicate, tol=1e-3)
+    ms_k = mkm.pad_state(pushsum_init(topo.num_nodes, device=cuda))
+    ms_p = mkm.pad_state(pushsum_init(topo.num_nodes, device=cuda))
+    before = mkm.LAUNCHES["megakernel"]
+    for _ in range(48 // k):
+        ms_k = mkm.megakernel_rounds(ms_k, mk, **opts)
+        ms_p = mkm.megakernel_rounds_plain(ms_p, mk, **opts,
+                                           mean_grid=mkm.launch_grid(mk))
+    torch.cuda.synchronize()
+    assert mkm.LAUNCHES["megakernel"] == before + 48 // k
+    for a, b in zip(ms_k, ms_p):
+        if a.dtype == torch.float32:
+            assert _bits_equal(a, b)
+        else:
+            assert torch.equal(a, b)
+    assert 0 < int(ms_k.round) < 48  # converged inside the budget

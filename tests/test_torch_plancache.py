@@ -1,0 +1,175 @@
+"""PyTorch port, the plan cache of the fused gather delivery
+(ops/plancache.py): the on-disk format is the JAX package's, so an entry
+written by either package loads in the other with equal tables; the cache
+key is the same digest; hit, miss and off provenance, and a stale-format
+entry rebuilds. Every cache lives under ``tmp_path``."""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from gossipprotocol_tpu.ops import pallasdelivery as jpd
+from gossipprotocol_tpu.ops import plancache as jpc
+from gossipprotocol_tpu.topology import build_topology as jax_build
+from gossipprotocol_tpu_torch.ops import pallasdelivery as tpd
+from gossipprotocol_tpu_torch.ops import plancache as tpc
+from gossipprotocol_tpu_torch.topology import build_topology as torch_build
+
+_GRAPHS = {
+    "imp3D": ("imp3D", 216, {"seed": 4}),
+    "powerlaw": ("powerlaw", 400, {"seed": 3, "m": 3}),   # hub split
+}
+# None = the default threshold (resident here); "2" forces bucket mode
+_MODES = {"resident": None, "bucket": "2"}
+_PLAN = ("mode", "src_rows", "out_len", "idx", "rows", "lidx")
+
+
+def _np(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _assert_same_tables(a, b):
+    """Two deliveries (either package, host or device) hold the same
+    geometry and byte-equal tables."""
+    assert (int(a.n), int(a.nu), int(a.m_pairs)) == \
+        (int(b.n), int(b.nu), int(b.m_pairs))
+    assert tuple(map(tuple, a.classes)) == tuple(map(tuple, b.classes))
+    assert np.array_equal(_np(a.degree), _np(b.degree))
+    for g in ("gather_pre", "gather_out"):
+        ga, gb = getattr(a, g), getattr(b, g)
+        for f in _PLAN:
+            x, y = getattr(ga, f), getattr(gb, f)
+            if f in ("mode", "src_rows", "out_len"):
+                assert x == y, (g, f)
+            else:
+                x, y = _np(x), _np(y)
+                assert x.dtype == y.dtype and x.shape == y.shape, (g, f)
+                assert np.array_equal(x, y), (g, f)
+
+
+@pytest.fixture(params=list(_MODES))
+def mode(request, monkeypatch):
+    if _MODES[request.param] is not None:
+        monkeypatch.setenv("GOSSIP_TPU_PALLAS_RESIDENT_ROWS",
+                           _MODES[request.param])
+    return request.param
+
+
+@pytest.mark.parametrize("graph", list(_GRAPHS))
+def test_jax_entry_loads_in_port(graph, mode, tmp_path):
+    name, n, kw = _GRAPHS[graph]
+    jtopo, ttopo = jax_build(name, n, **kw), torch_build(name, n, **kw)
+    path = jpc.pallas_entry_path(str(tmp_path), jpc.cache_key(jtopo))
+    jpc.save_pallas(jpd.build_pallas_delivery(jtopo, device=False), path)
+    loaded = tpc.load_pallas(path)
+    assert loaded is not None and loaded.gather_pre.mode == (
+        "bucket" if mode == "bucket" else "resident")
+    _assert_same_tables(loaded, tpd.build_pallas_delivery_np(ttopo))
+
+
+@pytest.mark.parametrize("graph", list(_GRAPHS))
+def test_port_entry_loads_in_jax(graph, mode, tmp_path):
+    name, n, kw = _GRAPHS[graph]
+    jtopo, ttopo = jax_build(name, n, **kw), torch_build(name, n, **kw)
+    path = tpc.pallas_entry_path(str(tmp_path), tpc.cache_key(ttopo))
+    tpc.save_pallas(tpd.build_pallas_delivery_np(ttopo), path)
+    loaded = jpc.load_pallas(path)
+    assert loaded is not None
+    _assert_same_tables(loaded, jpd.build_pallas_delivery(jtopo,
+                                                          device=False))
+    # and the JAX package's cache front end takes it as a hit
+    _, prov = jpc.pallas_delivery_cached(jtopo, cache_dir=str(tmp_path),
+                                         device=False)
+    assert prov == "hit"
+
+
+@pytest.mark.parametrize("graph", list(_GRAPHS))
+def test_cache_key_and_paths_equal(graph, tmp_path):
+    name, n, kw = _GRAPHS[graph]
+    key = tpc.cache_key(torch_build(name, n, **kw))
+    assert key == jpc.cache_key(jax_build(name, n, **kw))
+    assert tpc.pallas_entry_path(str(tmp_path), key) == \
+        jpc.pallas_entry_path(str(tmp_path), key)
+    assert tpc.FORMAT_VERSION == jpc.FORMAT_VERSION == 2
+    assert os.path.basename(tpc.pallas_entry_path("d", key)) == \
+        f"routedpl_v2_{key}.npz"
+
+
+def test_default_dir_follows_env(monkeypatch, tmp_path):
+    monkeypatch.setenv("GOSSIP_TPU_PLAN_CACHE", str(tmp_path))
+    assert tpc.default_cache_dir() == jpc.default_cache_dir() == \
+        str(tmp_path)
+
+
+def test_provenance_miss_hit_off(tmp_path):
+    topo = torch_build("powerlaw", 400, seed=3, m=3)
+    d = str(tmp_path)
+    notes = []
+    pd_miss, p1 = tpc.pallas_delivery_cached(topo, cache_dir=d,
+                                             progress=notes.append,
+                                             device="cpu")
+    pd_hit, p2 = tpc.pallas_delivery_cached(topo, cache_dir=d,
+                                            progress=notes.append,
+                                            device="cpu")
+    pd_off, p3 = tpc.pallas_delivery_cached(topo, cache_dir="none",
+                                            device="cpu")
+    assert (p1, p2, p3) == ("miss", "hit", "off")
+    assert "plan cached" in notes[0] and "cache hit" in notes[1]
+    path = tpc.pallas_entry_path(d, tpc.cache_key(topo))
+    prov = tpc.entry_provenance(path)
+    assert prov["builder"] == tpc.BUILDER_VERSION and prov["build_s"] >= 0
+    for other in (pd_hit, pd_off):
+        _assert_same_tables(other, pd_miss)
+    assert not [f for f in os.listdir(d) if ".tmp" in f]
+
+
+def test_stale_format_rebuilds(tmp_path):
+    topo = torch_build("imp3D", 216, seed=4)
+    d = str(tmp_path)
+    path = tpc.pallas_entry_path(d, tpc.cache_key(topo))
+    host = tpd.build_pallas_delivery_np(topo)
+    tpc.save_pallas(host, path)
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays.pop("__meta__")))
+    meta["format"] = 1
+    with open(path, "wb") as fh:
+        np.savez(fh, __meta__=json.dumps(meta), **arrays)
+    assert tpc.load_pallas(path) is None
+    pd, prov = tpc.pallas_delivery_cached(topo, cache_dir=d, device="cpu")
+    assert prov == "miss"
+    assert json.loads(str(np.load(path)["__meta__"]))["format"] == 2
+    _assert_same_tables(pd, host)
+
+
+def test_eviction_keeps_newest(tmp_path, monkeypatch):
+    d = str(tmp_path)
+    topos = [torch_build("imp3D", 216, seed=s) for s in (4, 5)]
+    paths = [tpc.pallas_entry_path(d, tpc.cache_key(t)) for t in topos]
+    tpc.save_pallas(tpd.build_pallas_delivery_np(topos[0]), paths[0])
+    monkeypatch.setenv("GOSSIP_TPU_PLAN_CACHE_GB", "1e-9")
+    tpc.pallas_delivery_cached(topos[1], cache_dir=d, device="cpu")
+    assert not os.path.exists(paths[0]) and os.path.exists(paths[1])
+
+
+def test_run_uses_cache(tmp_path):
+    """The engine goes through the cache for both deliveries; a cached
+    run is bitwise the uncached one."""
+    import gossipprotocol_tpu_torch as tx
+
+    topo = torch_build("imp3D", 216, seed=4)
+    d = str(tmp_path)
+    runs = [tx.run_simulation(topo, tx.RunConfig(
+        device="cpu", plan_cache=cache, delivery=dl, max_rounds=16))
+        for cache, dl in ((d, "megakernel"), (d, "pallas"),
+                          ("none", "pallas"))]
+    assert os.listdir(d) and any(f.startswith("routedpl_v2_")
+                                 for f in os.listdir(d))
+    for r in runs[1:]:
+        for a, b in zip(r.final_state, runs[0].final_state):
+            assert torch.equal(a, b)
