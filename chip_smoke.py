@@ -32,7 +32,19 @@ Phases (each prints its lines; any failure exits non-zero):
       the working set against the 50 MB L2;
   (f) the megakernel path end to end through the CLI (``--delivery
       megakernel --rounds-per-kernel 16``) on both graphs, to convergence:
-      the megakernel launched, the per-round gather and fold kernels not.
+      the megakernel launched, the per-round gather and fold kernels not;
+  (g) the Clos-routed delivery (``--delivery routed``) at imp3D 1M and
+      power_law 1M: the plans built once per graph through the plan cache
+      (build seconds, coloring backend: the native library must run);
+      the two expand kernels on every class, the stage kernel on both
+      radix stages of the edge plan and the final kernel on its final
+      pass, each bitwise against its plain version with its time, bound,
+      plain time and one PyTorch call's time (a single ``x[idx]`` with the
+      composed route index; ``repeat_interleave``/``repeat`` for the
+      expands); the routed matvec bitwise against the pallas matvec; and
+      two routed CLI runs with phase (c)'s argv, each converging in the
+      pallas run's round count with the same printed estimate error and
+      every routed kernel launched.
 
 Each end-to-end run reads the launch counts it caused (reset just before,
 read just after). The plan cache lives in a temporary directory for the
@@ -111,9 +123,24 @@ KERNELS = {
                       "gossipprotocol_tpu/ops/pallasdelivery.py:153"),
     "megakernel": ("gossipprotocol_tpu_torch/csrc/megakernel.cu",
                    "gossipprotocol_tpu/ops/megakernel.py:279"),
+    "class_expand_small": ("gossipprotocol_tpu_torch/csrc/classops.cu",
+                           "gossipprotocol_tpu/ops/classops.py:129"),
+    "class_expand_split": ("gossipprotocol_tpu_torch/csrc/classops.cu",
+                           "gossipprotocol_tpu/ops/classops.py:216"),
+    "stage_call": ("gossipprotocol_tpu_torch/csrc/route.cu",
+                   "gossipprotocol_tpu/ops/exec.py:154"),
+    "final_call": ("gossipprotocol_tpu_torch/csrc/route.cu",
+                   "gossipprotocol_tpu/ops/exec.py:193"),
 }
 PER_ROUND_KERNELS = ("class_reduce_small", "class_reduce_split",
                      "gather_resident", "gather_bucket")
+# phase (g): the routed delivery on phase (c)'s two 1M graphs, and its
+# CLI runs with phase (c)'s argv
+ROUTED_KERNELS = ("class_expand_small", "class_expand_split", "stage_call",
+                  "final_call")
+ROUTED_CLI_RUNS = {
+    g: [("routed" if a == "pallas" else a) for a in CLI_RUNS[g]]
+    for g in ("imp3D_1M", "power_law_1M")}
 
 
 class SmokeFailure(RuntimeError):
@@ -345,6 +372,7 @@ def phase_cli(torch, expected):
     )
 
     totals = {k: 0 for k in PER_ROUND_KERNELS}
+    results = {}
     for gname, argv in CLI_RUNS.items():
         argv = argv + ["--device", "cuda", "--max-rounds", MAX_ROUNDS]
         torch.cuda.empty_cache()
@@ -380,7 +408,8 @@ def phase_cli(torch, expected):
                     "never launched on the main path")
         for k in totals:
             totals[k] += counts[k]
-    return totals
+        results[gname] = (n_rounds, err.group(1))
+    return totals, results
 
 
 # ---------------------------------------------------------------- (d)
@@ -593,6 +622,227 @@ def phase_megakernel_cli(torch):
     return total
 
 
+# ---------------------------------------------------------------- (g)
+
+def _record(records, name, gname, call, shape, err, ms, plain_ms, nbytes,
+            lib_ms, lib_what):
+    b_ms, b_by = bound(nbytes, 0)
+    records.append(dict(name=name, graph=gname, call=call, shape=shape,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        bytes=nbytes))
+    say(f"(g) {name:18s} {gname} {call}: bitwise ok, {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, library {lib_what} {lib_ms:.4f}, bound "
+        f"{b_ms:.4f} by {b_by}, {nbytes / 1e6:.1f} MB)")
+
+
+def check_expands(torch, records, gname, rd, cls_pairs):
+    """Both expand kernels on every class of the graph, on the first
+    round's class-ordered shares; returns the expanded slab."""
+    from gossipprotocol_tpu_torch.ops import classops as co
+
+    segs, off = [], 0
+    for c, n_c, _start, _rows, cap in rd.classes:
+        packed = torch.nn.functional.pad(cls_pairs[2 * off: 2 * (off + n_c)],
+                                         (0, 2 * (cap - n_c)))
+        off += n_c
+        if 2 * c <= co.LANES:
+            name = "class_expand_small"
+            kern = lambda x=packed, c=c: co.class_expand_small(x, c)  # noqa: E731
+            plain = lambda x=packed, c=c: co.class_expand_small_plain(x, c)  # noqa: E731
+            rows = packed.numel() * c // co.LANES
+            lib = lambda x=packed, c=c, r=rows: x.view(r, 64 // c, 2).repeat_interleave(c, dim=1)  # noqa: E731
+            lib_what = "repeat_interleave"
+        else:
+            name = "class_expand_split"
+            kern = lambda x=packed, c=c: co.class_expand_split(x, c)  # noqa: E731
+            plain = lambda x=packed, c=c: co.class_expand_split_plain(x, c)  # noqa: E731
+            q = 2 * c // co.LANES
+            lib = lambda x=packed, q=q, cap=cap: x.view(1, cap, 1, 2).repeat(q, 1, 64, 1)  # noqa: E731
+            lib_what = "repeat"
+        out_k, out_p = kern(), plain()
+        err = max_abs_err(torch, out_k, out_p)
+        require(bitwise_equal(torch, out_k, out_p),
+                f"{name} c={c} ({gname}) differs from its plain version: "
+                f"max abs err {err}")
+        require(bitwise_equal(torch, lib().reshape(-1), out_k),
+                f"{name} c={c} ({gname}): library call differs")
+        _record(records, name, gname, f"c={c}", [packed.numel()], err,
+                cuda_ms(torch, kern, 50), cuda_ms(torch, plain, 10),
+                (packed.numel() + out_k.numel()) * 4,
+                cuda_ms(torch, lib, 50), lib_what)
+        segs.append(out_k)
+    return torch.cat(segs)
+
+
+def check_route(torch, records, gname, dp, x):
+    """The stage kernel on every radix stage of plan ``dp`` and the final
+    kernel on its final pass, fed the plan's real input ``x``; returns
+    the routed output."""
+    from gossipprotocol_tpu_torch.ops import exec as ex
+
+    unit, lanes, tile = dp.unit, ex.LANES, ex.TILE
+    cur = x.view(dp.nt_in, lanes, lanes)
+    for si, st in enumerate(dp.stages):
+        tiles = st.p * st.tau_in
+        out_k = ex.stage_call(st, cur, unit)
+        out_p = ex.stage_call_plain(st, cur, unit)
+        got = ex.stage_rows_written(st, out_k)
+        want = ex.stage_rows_written(st, out_p)
+        err = max_abs_err(torch, got, want)
+        require(bitwise_equal(torch, got, want),
+                f"stage_call {si} ({gname}) differs from its plain "
+                f"version: max abs err {err}")
+        # the library yardstick: one gather with the composed index
+        ci = ex.composed_route_index(st.idx, unit)
+        src = (torch.arange(tiles, device=x.device).view(-1, 1, 1, 1)
+               * tile + ci).reshape(tiles, st.o * lanes, lanes)
+        gidx = src[:, : st.b * st.cr].reshape(
+            st.p, st.tau_in, st.b, st.cr, lanes).transpose(1, 2).contiguous()
+        flat = cur.reshape(-1)
+        del ci, src
+        require(bitwise_equal(torch, flat[gidx], got.contiguous()),
+                f"stage_call {si} ({gname}): composed-index gather differs")
+        nbytes = (cur.numel() * 4 + st.idx.numel()
+                  + st.p * st.b * st.tau_in * st.cr * lanes * 4)
+        _record(records, "stage_call", gname,
+                f"plan_m stage {si} {tuple(st[:6])}", list(st.idx.shape),
+                err, cuda_ms(torch, lambda: ex.stage_call(st, cur, unit), 20),
+                cuda_ms(torch, lambda: ex.stage_call_plain(st, cur, unit), 3),
+                nbytes, cuda_ms(torch, lambda: flat[gidx], 20), "x[idx]")
+        del gidx, out_p
+        cur = out_k
+    fin, nt_out = dp.final, dp.nt_out
+    out_k = ex.final_call(fin, nt_out, cur, unit)
+    out_p = ex.final_call_plain(fin, nt_out, cur, unit)
+    err = max_abs_err(torch, out_k, out_p)
+    require(bitwise_equal(torch, out_k, out_p),
+            f"final_call ({gname}) differs from its plain version: max abs "
+            f"err {err}")
+    ci = ex.composed_route_index(fin.idx, unit)
+    bits = ex.final_bits(fin.mask)
+    base = torch.arange(nt_out * fin.k, device=x.device).view(
+        nt_out, fin.k, 1, 1) * tile
+    x_ext = torch.cat([cur[: nt_out * fin.k].reshape(-1),
+                       torch.zeros(1, device=x.device)])
+    sel = torch.full((nt_out, lanes, lanes), x_ext.numel() - 1,
+                     dtype=torch.long, device=x.device)
+    for kk in range(fin.k):
+        sel = torch.where(bits[:, kk], base[:, kk] + ci[:, kk], sel)
+    del ci, bits, base
+    require(bitwise_equal(torch, x_ext[sel], out_k),
+            f"final_call ({gname}): composed-index gather differs")
+    nbytes = (nt_out * fin.k * tile * 4 + fin.idx.numel()
+              + fin.mask.numel() + out_k.numel() * 4)
+    _record(records, "final_call", gname, f"plan_m final k={fin.k}",
+            list(fin.idx.shape), err,
+            cuda_ms(torch, lambda: ex.final_call(fin, nt_out, cur, unit), 20),
+            cuda_ms(torch, lambda: ex.final_call_plain(fin, nt_out, cur,
+                                                       unit), 3),
+            nbytes, cuda_ms(torch, lambda: x_ext[sel], 20), "x[idx]")
+    return out_k.reshape(-1)
+
+
+def phase_routed(torch, pallas_runs):
+    from gossipprotocol_tpu_torch import native
+    from gossipprotocol_tpu_torch.cli import main
+    from gossipprotocol_tpu_torch.ops import (
+        kernel_launches, reset_kernel_launches,
+    )
+    from gossipprotocol_tpu_torch.ops.delivery import _apply_chain
+    from gossipprotocol_tpu_torch.ops.plancache import (
+        pallas_delivery_cached, routed_delivery_cached,
+    )
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    records = []
+    for gname in ROUTED_CLI_RUNS:
+        n, topo_name, kw = GRAPHS[gname]
+        topo = build_topology(topo_name, n, **kw)
+        t0 = time.perf_counter()
+        rd, prov = routed_delivery_cached(topo, device="cuda")
+        build_s = time.perf_counter() - t0
+        require(native.backend() == "native" and native._LIB.lib is not None,
+                "the routed plans were not colored by the native library")
+        geo = {g: [(tuple(st[:6]), p.final.k) for p in getattr(rd, g)
+                   for st in p.stages] for g in ("plan_in", "plan_m",
+                                                 "plan_out")}
+        say(f"(g) {gname}: routed plans {prov} in {build_s:.1f} s "
+            f"(coloring backend: native {native._LIB.path.parent.name}/"
+            f"{native._LIB.path.name}, {native.threads_note()}); "
+            f"m_pairs={rd.m_pairs} classes="
+            f"{[(c, k) for c, k, *_ in rd.classes]}; stages {geo}")
+        # the first round's shares, as the round computes them
+        st = pushsum_init(topo.num_nodes, device="cuda")
+        deg = rd.degree.float()
+        inv = torch.ones_like(deg) / (deg + 1)
+        share_s, share_w = st.s * inv, st.w * inv
+        flat = torch.cat([share_s, share_w])
+        cls_pairs = _apply_chain(rd.plan_in, flat, take_f32=2 * rd.nu)
+        e1 = check_expands(torch, records, gname, rd, cls_pairs) * rd.realmask
+        p0, p1 = rd.plan_m
+        x1 = _apply_chain((p0,), e1)
+        x1 = torch.nn.functional.pad(x1, (0, p1.m_in_f32 - x1.numel()))[
+            : p1.m_in_f32]
+        check_route(torch, records, gname, p1, x1)
+        del e1, x1, cls_pairs
+        # the routed matvec against the pallas matvec, bitwise
+        pd, _ = pallas_delivery_cached(topo, device="cuda")
+        a = rd.matvec(share_s, share_w)
+        b = pd.matvec(share_s, share_w)
+        for u, v, what in zip(a, b, ("s", "w")):
+            require(bitwise_equal(torch, u, v),
+                    f"routed matvec ({gname}) differs from the pallas "
+                    f"matvec in {what}: max abs err {max_abs_err(torch, u, v)}")
+        r_ms = cuda_ms(torch, lambda: rd.matvec(share_s, share_w), 10)
+        p_ms = cuda_ms(torch, lambda: pd.matvec(share_s, share_w), 10)
+        say(f"(g) {gname}: routed matvec == pallas matvec bitwise (s, w); "
+            f"{r_ms:.4f} ms per routed matvec, {p_ms:.4f} ms per pallas "
+            "matvec (CUDA events, host-paced)")
+        del rd, pd, a, b
+        torch.cuda.empty_cache()
+    totals = {k: 0 for k in ROUTED_KERNELS}
+    for gname, argv in ROUTED_CLI_RUNS.items():
+        argv = argv + ["--device", "cuda", "--max-rounds", MAX_ROUNDS]
+        buf = io.StringIO()
+        reset_kernel_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        counts = kernel_launches()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            say(f"(g) {gname} | {line}")
+        require(rc == 0, f"routed CLI run {gname} exited {rc}: "
+                f"{' '.join(argv)}")
+        conv = re.search(r"Convergence Time: ([0-9.]+) ms", text)
+        rounds = re.search(r"rounds: (\d+) \((\d+) executed\)", text)
+        err = re.search(r"max \|s/w - mean\| = (\S+)", text)
+        require(conv and rounds and err, f"routed CLI run {gname}: output "
+                "lines missing")
+        n_rounds, n_exec = int(rounds.group(1)), int(rounds.group(2))
+        want_rounds, want_err = pallas_runs[gname]
+        require(n_rounds == want_rounds,
+                f"routed CLI run {gname}: {n_rounds} rounds, the pallas run "
+                f"{want_rounds}")
+        require(err.group(1) == want_err,
+                f"routed CLI run {gname}: estimate error {err.group(1)}, the "
+                f"pallas run {want_err}")
+        for k in ROUTED_KERNELS:
+            if k == "class_expand_split" and gname == "imp3D_1M":
+                continue  # imp3D has no hub class
+            require(counts[k] > 0, f"routed CLI run {gname}: kernel {k} "
+                    "was never launched")
+        wall_ms = float(conv.group(1))
+        say(f"(g) {gname}: rc 0, {n_rounds} rounds (= pallas), {wall_ms:.3f} "
+            f"ms, {wall_ms / max(n_exec, 1):.4f} ms per executed round "
+            f"({n_exec}), estimate_error {err.group(1)} (= pallas), "
+            f"launches {counts}")
+        for k in totals:
+            totals[k] += counts[k]
+    return records, totals
+
+
 def summarize(records, totals):
     """One record per kernel: its largest main-path call."""
     out = []
@@ -637,10 +887,13 @@ def main(argv=None) -> int:
         try:
             card = phase_card(torch)
             records, expected = phase_kernels(torch)
-            totals = phase_cli(torch, expected)
+            totals, pallas_runs = phase_cli(torch, expected)
             phase_card_vs_cpu(torch)
             records += phase_megakernel(torch)
             totals["megakernel"] = phase_megakernel_cli(torch)
+            routed_records, routed_totals = phase_routed(torch, pallas_runs)
+            records += routed_records
+            totals.update(routed_totals)
             kernels = summarize(records, totals)
         except SmokeFailure as e:
             print(f"FAIL: {e}", flush=True)

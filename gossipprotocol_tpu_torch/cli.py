@@ -1,7 +1,8 @@
 """Command-line entry point of the PyTorch port.
 
     python -m gossipprotocol_tpu_torch N TOPOLOGY push-sum \\
-        --fanout all --delivery pallas|megakernel [--rounds-per-kernel K]
+        --fanout all --delivery pallas|routed|megakernel
+        [--rounds-per-kernel K]
         [--plan-cache DIR|none] [--device cuda|cpu]
 
 The positional surface and the output follow the JAX package's CLI (the
@@ -58,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gossipprotocol_tpu_torch",
         description="PyTorch/CUDA port of the gossip / push-sum simulator "
-                    "(fanout-all push-sum over the fused gather delivery "
-                    "and the K-round megakernel)",
+                    "(fanout-all push-sum over the fused gather delivery, "
+                    "the Clos-routed delivery and the K-round megakernel)",
     )
     p.add_argument("num_nodes", type=int)
     p.add_argument("topology", type=str)
@@ -86,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["scatter", "invert", "routed", "pallas",
                             "megakernel"],
                    default="scatter",
-                   help="fanout-all delivery; 'pallas' (the routed "
+                   help="fanout-all delivery; 'routed' (expand, Clos "
+                        "routing plans, class folds), 'pallas' (the routed "
                         "pipeline fused into two gathers around the class "
                         "folds) and 'megakernel' (the pallas path with the "
                         "whole protocol round fused into one persistent "
@@ -142,7 +144,7 @@ def main(argv=None) -> int:
     bad = _unported(argv)
     if bad is not None:
         print(f"option not yet ported: {bad} (the PyTorch port runs "
-              "push-sum --fanout all --delivery pallas|megakernel; use "
+              "push-sum --fanout all --delivery pallas|routed|megakernel; use "
               "python -m gossipprotocol_tpu for the rest)", file=sys.stderr)
         return 2
     try:
@@ -158,15 +160,15 @@ def main(argv=None) -> int:
     if algo != "push-sum":
         print(f"option not yet ported: algorithm {algo!r} (the PyTorch "
               "port runs push-sum --fanout all --delivery "
-              "pallas|megakernel)", file=sys.stderr)
+              "pallas|routed|megakernel)", file=sys.stderr)
         return 2
     if args.fanout != "all":
         print(f"option not yet ported: --fanout {args.fanout} (only "
               "--fanout all is ported)", file=sys.stderr)
         return 2
-    if args.delivery not in ("pallas", "megakernel"):
+    if args.delivery not in ("pallas", "routed", "megakernel"):
         print(f"option not yet ported: --delivery {args.delivery} (only "
-              "--delivery pallas and megakernel are ported)",
+              "--delivery pallas, routed and megakernel are ported)",
               file=sys.stderr)
         return 2
 

@@ -2,11 +2,11 @@
 
 The system has no weights; what stands in for them is the push-sum state
 and the delivery's plan tables. These converters take them as numpy
-arrays — for example the fields of a JAX-package ``PushSumState`` or of a
-``PallasDelivery`` built with ``device=False`` — and place them on a
-torch device, checking shapes, types and index bounds on the way. The
-device is ``cuda`` unless the caller asks for ``cpu``; asking for ``cuda``
-with no card present raises.
+arrays — for example the fields of a JAX-package ``PushSumState``, or of
+a ``PallasDelivery`` or ``RoutedDelivery`` built with ``device=False`` —
+and place them on a torch device, checking shapes, types and index
+bounds on the way. The device is ``cuda`` unless the caller asks for
+``cpu``; asking for ``cuda`` with no card present raises.
 """
 
 from __future__ import annotations
@@ -117,3 +117,109 @@ def megakernel_delivery_from_numpy(pd_arrays, device="cuda"):
     return build_megakernel_delivery(delivery_from_numpy(
         p.n, p.nu, p.m_pairs, p.classes, p.gather_pre, p.gather_out,
         p.degree, device=device))
+
+
+def _int8_planes(a, want, what: str, lane_max: int) -> np.ndarray:
+    """Index planes as int8 ``want``; the kernels read them without
+    bounds checks, so every value is checked here: 0..127, and at most
+    ``lane_max`` in the pair-halved lane planes (0 and 2 of unit-2
+    plans), whose widened value adds one."""
+    a = np.ascontiguousarray(a)
+    if a.dtype != np.int8 or a.shape != want:
+        raise ValueError(f"{what}: index planes must be int8 {want}, got "
+                         f"{a.dtype} {a.shape}")
+    if a.size and a.min() < 0:
+        raise ValueError(f"{what}: negative index")
+    if a.size and lane_max < 127 and max(
+            int(a[..., 0, :, :].max()), int(a[..., 2, :, :].max())) > lane_max:
+        raise ValueError(f"{what}: pair-halved lane index above {lane_max}")
+    return a
+
+
+def plan_from_numpy(dp, device="cuda"):
+    """A placed :class:`~gossipprotocol_tpu_torch.ops.exec.DevicePlan`
+    from one in host form (the port's, or a JAX-package ``DevicePlan``
+    with numpy leaves: same field names), with its geometry and index
+    bounds checked."""
+    from gossipprotocol_tpu_torch.ops.exec import (
+        DeviceFinal, DevicePlan, DeviceStage,
+    )
+
+    dev = resolve_device(device)
+    unit, nt_in, nt_out = int(dp.unit), int(dp.nt_in), int(dp.nt_out)
+    if unit not in (1, 2):
+        raise ValueError(f"routing plan: unit {unit} (1 or 2)")
+    iw, lane_max = (64, 126) if unit == 2 else (LANES, 127)
+    tiles = nt_in
+    stages = []
+    for i, st in enumerate(dp.stages):
+        p, tau_in, b, cr, o, tau_slab = (int(v) for v in tuple(st)[:6])
+        if min(p, tau_in, b, cr, o, tau_slab) < 1 or p * tau_in != tiles \
+                or LANES % cr or o * LANES < b * cr \
+                or (o - 1) * LANES >= b * cr or tau_slab < tau_in \
+                or (tau_slab * cr) % LANES:
+            raise ValueError(f"routing plan: stage {i} geometry "
+                             f"{(p, tau_in, b, cr, o, tau_slab)} does not "
+                             f"chain from {tiles} tiles")
+        idx = _int8_planes(st.idx, (tiles, o, 3, iw, LANES),
+                           f"routing plan stage {i}", lane_max)
+        stages.append(DeviceStage(p, tau_in, b, cr, o, tau_slab,
+                                  torch.from_numpy(idx).to(dev)))
+        tiles = p * b * tau_slab * cr // LANES
+    k = int(dp.final.k)
+    if k < 1 or tiles < nt_out * k:
+        raise ValueError(f"routing plan: final k={k} over {tiles} tiles "
+                         f"does not give {nt_out} output tiles")
+    fidx = _int8_planes(dp.final.idx, (nt_out, k, 3, iw, LANES),
+                        "routing plan final", lane_max)
+    mask = np.ascontiguousarray(dp.final.mask)
+    if mask.dtype != np.uint8 or mask.shape != (nt_out, k, 16, LANES):
+        raise ValueError(f"routing plan final: masks must be uint8 "
+                         f"{(nt_out, k, 16, LANES)}, got {mask.dtype} "
+                         f"{mask.shape}")
+    return DevicePlan(unit, nt_in, nt_out, tuple(stages), DeviceFinal(
+        k, torch.from_numpy(fidx).to(dev), torch.from_numpy(mask).to(dev)))
+
+
+def routed_delivery_from_numpy(rd, device="cuda"):
+    """A :class:`~gossipprotocol_tpu_torch.ops.delivery.RoutedDelivery` on
+    ``device`` from one in host form — the port's
+    (:func:`~gossipprotocol_tpu_torch.ops.delivery.build_routed_delivery_np`,
+    the plan cache) or the JAX package's built with ``device=False`` (same
+    field names). Checks the class geometry against ``m_pairs``, the
+    chain of plans against the matvec's lengths, and every plan's shapes
+    and index bounds."""
+    from gossipprotocol_tpu_torch.ops.delivery import RoutedDelivery
+
+    dev = resolve_device(device)
+    n, nu, m_pairs = int(rd.n), int(rd.nu), int(rd.m_pairs)
+    classes = tuple(tuple(int(v) for v in c) for c in rd.classes)
+    degree = np.asarray(rd.degree)
+    if degree.shape != (n,):
+        raise ValueError(f"degree shape {degree.shape} != ({n},)")
+    if sum(c[1] for c in classes) != nu:
+        raise ValueError("class node counts do not sum to nu")
+    cursor = 0
+    for c, n_c, start, rows, cap in classes:
+        if c < 1 or c & (c - 1) or start != cursor or n_c > cap \
+                or rows * LANES != 2 * cap * c:
+            raise ValueError(f"class {(c, n_c, start, rows, cap)} does not "
+                             f"tile the layout at pair {cursor}")
+        cursor += cap * c
+    if cursor != m_pairs:
+        raise ValueError(f"classes cover {cursor} pairs, m_pairs {m_pairs}")
+    realmask = np.ascontiguousarray(rd.realmask, np.float32)
+    if realmask.shape != (2 * m_pairs,) or not (
+            (realmask == 0.0) | (realmask == 1.0)).all():
+        raise ValueError(f"realmask must be 0/1 float32 [{2 * m_pairs}]")
+    groups = {}
+    for name, need_out in (("plan_in", 2 * nu), ("plan_m", 2 * m_pairs),
+                           ("plan_out", 2 * n)):
+        plans = tuple(plan_from_numpy(p, dev) for p in getattr(rd, name))
+        if not plans or plans[-1].m_out_f32 < need_out:
+            raise ValueError(f"{name} yields fewer than {need_out} values")
+        groups[name] = plans
+    return RoutedDelivery(
+        n=n, nu=nu, m_pairs=m_pairs, classes=classes,
+        realmask=torch.from_numpy(realmask.copy()).to(dev),
+        degree=torch.from_numpy(degree.astype(np.int32)).to(dev), **groups)

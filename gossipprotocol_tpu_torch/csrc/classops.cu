@@ -1,4 +1,5 @@
-// Degree-class fold kernels of the fused gather delivery, for Hopper (sm_90a).
+// Degree-class fold kernels of the fanout-all deliveries and the expand
+// kernels of the routed delivery, for Hopper (sm_90a).
 //
 // The only arithmetic of `--delivery pallas` is these folds, and the port
 // is held bitwise to the JAX package's Pallas kernels, so each kernel
@@ -100,6 +101,65 @@ reduce_split_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+// class_expand_small — replaces gossipprotocol_tpu/ops/classops.py:129
+// (class_expand_small's pallas_call).
+//
+// Input: f32 [rows * 128 / c], each row's packed (s, w) pairs; output:
+// f32 [rows * 128], output lane j of a row reading packed lane
+// 2*(j / 2c) + j%2 of the same row (each pair replicated across its
+// 2c-lane run; c = 1 is a copy). One thread per four output lanes, one
+// 16-byte store; the packed row is read through L1.
+//
+// Bound on this card: bytes (each packed value read once, each output
+// written once; no arithmetic).
+template <int C>
+__global__ void expand_small_kernel(const float* __restrict__ packed,
+                                    float4* __restrict__ out,
+                                    long long n4) {
+  const long long o = blockIdx.x * static_cast<long long>(blockDim.x)
+                      + threadIdx.x;
+  if (o >= n4) return;
+  const float* src = packed + (o >> 5) * (GOSSIP_LANES / C);
+  const int j = static_cast<int>(o & 31) * 4;
+  float v[4];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    v[l] = __ldg(src + 2 * ((j + l) / (2 * C)) + ((j + l) & 1));
+  }
+  out[o] = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// class_expand_split — replaces gossipprotocol_tpu/ops/classops.py:216
+// (class_expand_split's pallas_call).
+//
+// Input: f32 [2 * cap] packed (s, w) per node slot; output f32
+// [q * cap * 128], row j*cap + r carrying node slot r's s on its even and
+// w on its odd lanes (q = 2c/128 sub-class rows per node: 2,048 for the
+// c = 131,072 hub class of a 1M-node power-law graph). One thread per
+// four output lanes. Bound on this card: bytes (the output is 64*q times
+// the input; the input stays in L1/L2).
+__global__ void expand_split_kernel(const float2* __restrict__ packed,
+                                    float4* __restrict__ out, long long cap,
+                                    long long n4) {
+  const long long o = blockIdx.x * static_cast<long long>(blockDim.x)
+                      + threadIdx.x;
+  if (o >= n4) return;
+  const float2 p = __ldg(packed + (o >> 5) % cap);
+  out[o] = make_float4(p.x, p.y, p.x, p.y);
+}
+
+constexpr int EXPAND_THREADS = 256;
+
+template <int C>
+cudaError_t launch_expand_small(const float* packed, float* out,
+                                long long rows, cudaStream_t stream) {
+  const long long n4 = rows * (GOSSIP_LANES / 4);
+  expand_small_kernel<C>
+      <<<gossip_blocks(n4, EXPAND_THREADS), EXPAND_THREADS, 0, stream>>>(
+          packed, reinterpret_cast<float4*>(out), n4);
+  return cudaGetLastError();
+}
+
 constexpr int SMALL_THREADS = 256;
 
 template <int C>
@@ -141,5 +201,34 @@ GOSSIP_EXPORT int gossip_class_reduce_split(const float* x, float* out,
   if (cap == 0) return 0;
   reduce_split_kernel<<<static_cast<unsigned int>(cap), SPLIT_THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(x, out, cap, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+GOSSIP_EXPORT int gossip_class_expand_small(const float* packed, float* out,
+                                            long long rows, int c,
+                                            void* stream) {
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (c) {
+    case 1: return launch_expand_small<1>(packed, out, rows, s);
+    case 2: return launch_expand_small<2>(packed, out, rows, s);
+    case 4: return launch_expand_small<4>(packed, out, rows, s);
+    case 8: return launch_expand_small<8>(packed, out, rows, s);
+    case 16: return launch_expand_small<16>(packed, out, rows, s);
+    case 32: return launch_expand_small<32>(packed, out, rows, s);
+    case 64: return launch_expand_small<64>(packed, out, rows, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+GOSSIP_EXPORT int gossip_class_expand_split(const float* packed, float* out,
+                                            long long cap, int q,
+                                            void* stream) {
+  if (cap == 0) return 0;
+  const long long n4 = static_cast<long long>(q) * cap * (GOSSIP_LANES / 4);
+  expand_split_kernel<<<gossip_blocks(n4, EXPAND_THREADS), EXPAND_THREADS,
+                        0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(packed),
+      reinterpret_cast<float4*>(out), cap, n4);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 """Experiment driver + convergence supervisor (port of the subset of
 ``gossipprotocol_tpu/engine/driver.py`` that fanout-all push-sum over the
-fused gather delivery and the K-round megakernel reads).
+fused gather delivery, the Clos-routed delivery and the K-round
+megakernel reads).
 
 The loop is chunked like the JAX engine's: one chunk advances rounds
 until a host-known ``round_limit`` or global convergence, whichever comes
@@ -16,8 +17,8 @@ with no host round-trip per round. The megakernel path
 the kernel itself stops at convergence.
 
 What is not yet ported exits as a :class:`NotPortedError` naming itself:
-gossip, the single-target sender, every delivery but ``pallas`` and
-``megakernel``, faults, checkpoints, telemetry, sharding, sweeps.
+gossip, the single-target sender, the ``scatter`` and ``invert``
+deliveries, faults, checkpoints, telemetry, sharding, sweeps.
 """
 
 from __future__ import annotations
@@ -48,7 +49,11 @@ ALGORITHMS = ("gossip", "push-sum")
 # multiple of the megakernel's K.
 DEFAULT_CHUNK_ROUNDS = 16
 
-DELIVERIES = ("pallas", "megakernel")
+# the deliveries the port runs, and those of them whose fused kernel can
+# loop rounds (--rounds-per-kernel > 1); routed dispatches one round per
+# launch by construction
+DELIVERIES = ("pallas", "megakernel", "routed")
+FUSED_DELIVERIES = ("pallas", "megakernel")
 
 
 class NotPortedError(ValueError):
@@ -85,24 +90,24 @@ class RunConfig:
         if self.algorithm != "push-sum":
             raise NotPortedError(
                 f"algorithm {self.algorithm!r} is not yet ported to the "
-                "PyTorch package (only push-sum --fanout all --delivery "
-                "pallas is)")
+                "PyTorch package (only push-sum --fanout all is)")
         if self.fanout != "all":
             raise NotPortedError(
                 f"fanout {self.fanout!r} is not yet ported (only "
                 "--fanout all is)")
         if self.rounds_per_kernel < 1:
             raise ValueError("rounds_per_kernel must be >= 1")
-        if self.rounds_per_kernel > 1 and self.delivery not in DELIVERIES:
+        if (self.rounds_per_kernel > 1
+                and self.delivery not in FUSED_DELIVERIES):
             raise ValueError(
                 "rounds_per_kernel > 1 loops rounds inside the fused "
                 "kernel — it requires delivery='pallas' (or "
-                "'megakernel'); the other deliveries dispatch one round "
-                "per launch by construction")
+                f"'megakernel'); --delivery {self.delivery} dispatches "
+                "one round per launch by construction")
         if self.delivery not in DELIVERIES:
             raise NotPortedError(
                 f"delivery {self.delivery!r} is not yet ported (only "
-                "--delivery pallas and megakernel are)")
+                "--delivery pallas, routed and megakernel are)")
         if (use_megakernel(self) and self.chunk_rounds is not None
                 and self.chunk_rounds % self.rounds_per_kernel):
             raise ValueError(
@@ -220,11 +225,19 @@ def build_protocol(topo: Topology, cfg: RunConfig,
 
 
 def device_arrays(topo: Topology, cfg: RunConfig):
-    """The delivery the round reads: the fused gather plan through the
-    plan cache (``cfg.plan_cache``), placed on the run's device; under
+    """The delivery the round reads, through the plan cache
+    (``cfg.plan_cache``), placed on the run's device: the routed plans
+    for ``delivery='routed'``, else the fused gather plan; under
     :func:`use_megakernel` wrapped for the K-round kernel, whose
     eligibility (resident gathers) is checked here, before any launch."""
-    from gossipprotocol_tpu_torch.ops.plancache import pallas_delivery_cached
+    from gossipprotocol_tpu_torch.ops.plancache import (
+        pallas_delivery_cached, routed_delivery_cached,
+    )
+
+    if cfg.delivery == "routed":
+        rd, _prov = routed_delivery_cached(
+            topo, cache_dir=cfg.plan_cache, device=resolve_device(cfg.device))
+        return rd
 
     pd, _prov = pallas_delivery_cached(topo, cache_dir=cfg.plan_cache,
                                        device=resolve_device(cfg.device))

@@ -1,0 +1,290 @@
+"""ctypes loader of the routing plan compiler's host library (the routing
+half of ``gossipprotocol_tpu/native.py``).
+
+``csrc/host/routecolor.cpp`` is a byte-for-byte copy of the JAX package's
+``native/routecolor.cpp`` (a test holds the two equal), so both packages
+run the same Euler-split coloring and stage planner and produce
+byte-equal routing tables. The shared library is not in git: it compiles
+at first use with ``g++`` (the flags of ``native/Makefile``) into
+``gossipprotocol_tpu_torch/_build/host-<hash>/``, keyed on the source and
+the flags. A compiler without OpenMP (no ``libgomp``) builds the same
+source single-threaded — the source guards every pragma with
+``_OPENMP``, and the thread count never changes a result, only the build
+time — and :func:`threads_note` says which build loaded. A compile that
+fails both ways raises with the compiler's output.
+
+``GOSSIP_TPU_NATIVE=0`` asks for the numpy mirror instead (every entry
+point returns None and the callers in ``ops/clos.py`` and ``ops/plan.py``
+take their numpy spelling). Nothing else selects it: at 1M nodes the
+python Hierholzer coloring turns a build of seconds into hours.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+_PKG_DIR = Path(__file__).resolve().parent
+SOURCE = _PKG_DIR / "csrc" / "host" / "routecolor.cpp"
+BUILD_ROOT = _PKG_DIR / "_build"   # ops/build.py's directory (gitignored)
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-fopenmp", "-shared")
+SERIAL_FLAGS = tuple(f for f in CXX_FLAGS if f != "-fopenmp")
+
+_I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_I8P = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+
+
+class NativeBuildError(RuntimeError):
+    """g++ refused the routing library (the message carries its output)."""
+
+
+class _Lib:
+    """The process's loaded routing library (None until first use)."""
+
+    lib: Optional[ctypes.CDLL] = None
+    path: Optional[Path] = None
+    flags: Tuple[str, ...] = ()
+
+
+_LIB = _Lib()
+
+
+def enabled() -> bool:
+    """False under ``GOSSIP_TPU_NATIVE=0`` (the numpy mirror runs)."""
+    return os.environ.get("GOSSIP_TPU_NATIVE", "1") != "0"
+
+
+def backend() -> str:
+    """Which coloring backend the next plan build runs: ``native`` or
+    ``numpy``."""
+    return "native" if enabled() else "numpy"
+
+
+def threads_note() -> str:
+    """How the loaded library runs: OpenMP or single-threaded."""
+    if _LIB.lib is None:
+        return "not loaded"
+    return ("OpenMP" if "-fopenmp" in _LIB.flags
+            else "single-threaded (the compiler has no OpenMP)")
+
+
+def library_path(flags=CXX_FLAGS) -> Path:
+    """Where the library for the current source and ``flags`` lives."""
+    h = hashlib.blake2b(digest_size=8)
+    h.update(" ".join(flags).encode())
+    h.update(SOURCE.read_bytes())
+    return BUILD_ROOT / f"host-{h.hexdigest()}" / "libroutecolor.so"
+
+
+def _compile(lib_path: Path, flags) -> None:
+    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: concurrent builders (test
+    # workers) never load a half-written file
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run([cxx, *flags, "-o", tmp, str(SOURCE)],
+                              capture_output=True, text=True)
+    except OSError as e:
+        os.unlink(tmp)
+        raise NativeBuildError(f"cannot run the C++ compiler {cxx!r}: "
+                               f"{e}") from e
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise NativeBuildError(
+            f"{cxx} {' '.join(flags)} failed (rc {proc.returncode}) on "
+            f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.route_color_tiles.restype = ctypes.c_int64
+    lib.route_color_tiles.argtypes = [
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, _I32P, _I32P, _I32P,
+    ]
+    lib.route_tiles_full.restype = ctypes.c_int64
+    lib.route_tiles_full.argtypes = [
+        ctypes.c_int64, ctypes.c_int32, _I64P, _I8P,
+    ]
+    lib.set_native_threads.restype = None
+    lib.set_native_threads.argtypes = [ctypes.c_int32]
+    lib.plan_stage_count.restype = ctypes.c_int64
+    lib.plan_stage_count.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        _I64P, _I32P, _I32P, ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.plan_stage_place.restype = ctypes.c_int64
+    # new_pos/perm as raw pointers: perm is optional (NULL skips the
+    # permutation fill on geometry-only passes)
+    lib.plan_stage_place.argtypes = [
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        _I64P, _I32P, _I32P, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    """The routing library, compiled on first use (with OpenMP, else
+    single-threaded); None under ``GOSSIP_TPU_NATIVE=0``. Raises
+    :class:`NativeBuildError` when both compiles fail."""
+    if not enabled():
+        return None
+    if _LIB.lib is None:
+        errors = []
+        for flags in (CXX_FLAGS, SERIAL_FLAGS):
+            path = library_path(flags)
+            if not path.exists():
+                try:
+                    _compile(path, flags)
+                except NativeBuildError as e:
+                    errors.append(str(e))
+                    continue
+            lib = ctypes.CDLL(str(path))
+            _configure(lib)
+            _LIB.lib, _LIB.path, _LIB.flags = lib, path, flags
+            break
+        else:
+            raise NativeBuildError("\n".join(errors))
+    return _LIB.lib
+
+
+def route_color_tiles(src_rows: np.ndarray, dst_rows: np.ndarray, n: int,
+                      deg: int) -> Optional[np.ndarray]:
+    """Batch Euler-split edge coloring (``routecolor.cpp``).
+
+    ``src_rows``/``dst_rows``: int32 ``[T, n*deg]`` row ids in ``[0, n)``
+    forming, per tile, a ``deg``-regular bipartite multigraph. Returns a
+    proper coloring ``[T, n*deg]`` with colors in ``[0, deg)``, or None
+    under ``GOSSIP_TPU_NATIVE=0``.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src_rows, dtype=np.int32)
+    dst = np.ascontiguousarray(dst_rows, dtype=np.int32)
+    if src.shape != dst.shape or src.shape[-1] != n * deg:
+        raise ValueError(f"route_color_tiles: src {src.shape} and dst "
+                         f"{dst.shape} must be [T, {n * deg}]")
+    tiles = int(np.prod(src.shape[:-1], dtype=np.int64)) if src.ndim > 1 else 1
+    color = np.empty_like(src)
+    rc = lib.route_color_tiles(tiles, n, deg, src.reshape(-1),
+                               dst.reshape(-1), color.reshape(-1))
+    if rc != 0:
+        raise ValueError(f"route_color_tiles: malformed input (rc={rc})")
+    return color
+
+
+def route_tiles_full(perms: np.ndarray, unit: int) -> Optional[np.ndarray]:
+    """Fused tile router (``routecolor.cpp``): per-tile unit permutations
+    ``[T, U]`` (``-1`` slots completed to bijections with the fill rule of
+    ``ops.plan._complete_bijections``) to stacked gather triples int8
+    ``[T, 3, 128, 128]`` in ``ops.clos.route_tile_perms``'s convention;
+    None under ``GOSSIP_TPU_NATIVE=0``."""
+    lib = _load()
+    if lib is None:
+        return None
+    perms = np.ascontiguousarray(perms, dtype=np.int64)
+    # the C side derives U from unit alone and strides the buffer by it:
+    # a mismatched width would read out of bounds, not raise
+    if perms.ndim != 2 or perms.shape[1] != 16384 // unit:
+        raise ValueError(
+            f"route_tiles_full: perms must be [T, {16384 // unit}] for "
+            f"unit={unit}, got {perms.shape}")
+    t = perms.shape[0]
+    idx = np.empty((t, 3, 128, 128), np.int8)
+    # a single-threaded build spreads the tiles over threads here instead
+    # (ctypes releases the GIL; tiles are independent, writes disjoint)
+    workers = 1 if "-fopenmp" in _LIB.flags else min(os.cpu_count() or 1,
+                                                      t // 16)
+    bounds = np.linspace(0, t, max(workers, 1) + 1).astype(np.int64)
+
+    def run(lo_hi):
+        lo, hi = (int(v) for v in lo_hi)
+        return lib.route_tiles_full(hi - lo, unit, perms[lo:hi].reshape(-1),
+                                    idx[lo:hi].reshape(-1))
+
+    spans = list(zip(bounds[:-1], bounds[1:]))
+    if len(spans) == 1:
+        rcs = [run(spans[0])]
+    else:
+        with ThreadPoolExecutor(len(spans)) as pool:
+            rcs = list(pool.map(run, spans))
+    if any(rcs):
+        raise ValueError(f"route_tiles_full: non-injective perm (rc={rcs})")
+    return idx
+
+
+def set_native_threads(n: int) -> None:
+    """Clamp the library's OpenMP thread count (results never depend on
+    it); a no-op under ``GOSSIP_TPU_NATIVE=0``."""
+    lib = _load()
+    if lib is not None:
+        lib.set_native_threads(int(n))
+
+
+def plan_stage_pack(pos: np.ndarray, bucket: np.ndarray, u: int, b: int,
+                    t_grid: int) -> Optional[Tuple[np.ndarray, int]]:
+    """Counting-sort run packing for one compiler stage
+    (``routecolor.cpp::plan_stage_count``): ``(rank, max_run)``, each
+    flow's rank within its (tile, bucket) run in ascending-``pos`` order
+    and the longest run in units; None under ``GOSSIP_TPU_NATIVE=0``."""
+    lib = _load()
+    if lib is None:
+        return None
+    pos = np.ascontiguousarray(pos, dtype=np.int64)
+    bucket32 = np.ascontiguousarray(bucket, dtype=np.int32)
+    if bucket32.shape != pos.shape:
+        raise ValueError("plan_stage_pack: pos and bucket differ in shape")
+    rank = np.empty(pos.size, np.int32)
+    max_run = ctypes.c_int64(0)
+    rc = lib.plan_stage_count(pos.size, t_grid, u, b, pos, bucket32, rank,
+                              ctypes.byref(max_run))
+    if rc != 0:
+        raise ValueError(
+            f"plan_stage_count: malformed flows (rc={rc}: "
+            f"{'duplicate pos' if rc == 2 else 'out of range'})")
+    return rank, int(max_run.value)
+
+
+def plan_stage_place(pos: np.ndarray, bucket: np.ndarray, rank: np.ndarray,
+                     u: int, unit: int, b: int, cr: int, o: int,
+                     tau_in: int, tau_slab: int,
+                     perm: Optional[np.ndarray] = None
+                     ) -> Optional[np.ndarray]:
+    """Fused flow placement for one compiler stage
+    (``routecolor.cpp::plan_stage_place``): ``new_pos`` int64 ``[F]``,
+    and when ``perm`` (int64 ``[t_grid * o, u]`` pre-filled with -1) is
+    given, each flow's source unit scattered into it in place. None under
+    ``GOSSIP_TPU_NATIVE=0``."""
+    lib = _load()
+    if lib is None:
+        return None
+    pos = np.ascontiguousarray(pos, dtype=np.int64)
+    bucket32 = np.ascontiguousarray(bucket, dtype=np.int32)
+    rank32 = np.ascontiguousarray(rank, dtype=np.int32)
+    if not (bucket32.shape == rank32.shape == pos.shape):
+        raise ValueError("plan_stage_place: pos, bucket, rank differ in "
+                         "shape")
+    if perm is not None and (perm.dtype != np.int64
+                             or not perm.flags.c_contiguous):
+        raise ValueError("plan_stage_place: perm must be C-contiguous "
+                         "int64")
+    new_pos = np.empty(pos.size, np.int64)
+    rc = lib.plan_stage_place(
+        pos.size, u, unit, b, cr, o, tau_in, tau_slab, pos, bucket32,
+        rank32, new_pos.ctypes.data,
+        perm.ctypes.data if perm is not None else None)
+    if rc != 0:
+        raise ValueError(f"plan_stage_place: malformed geometry (rc={rc})")
+    return new_pos

@@ -1,13 +1,15 @@
 """Hand-written CUDA kernels of the port and their host-side plans.
 
-``classops`` (the degree-class folds), ``pallasdelivery`` (the two tile
-gathers and the fused delivery) and ``megakernel`` (K whole rounds per
-launch) each keep a plain PyTorch version beside the kernel;
-``plancache`` caches the delivery's plans on disk; ``build`` compiles
+``classops`` (the degree-class folds and expands), ``pallasdelivery``
+(the two tile gathers and the fused delivery), ``exec`` (the Clos
+routing passes of the routed delivery, ``delivery``) and ``megakernel``
+(K whole rounds per launch) each keep a plain PyTorch version beside the
+kernel; ``plan`` and ``clos`` compile the routing plans on the host;
+``plancache`` caches the deliveries' plans on disk; ``build`` compiles
 ``csrc/*.cu`` at first use.
 """
 
-from gossipprotocol_tpu_torch.ops import classops, pallasdelivery
+from gossipprotocol_tpu_torch.ops import classops, exec, pallasdelivery
 
 
 def _tables():
@@ -15,7 +17,8 @@ def _tables():
     # imports this package
     from gossipprotocol_tpu_torch.ops import megakernel
 
-    return classops.LAUNCHES, pallasdelivery.LAUNCHES, megakernel.LAUNCHES
+    return (classops.LAUNCHES, exec.LAUNCHES, pallasdelivery.LAUNCHES,
+            megakernel.LAUNCHES)
 
 
 def kernel_launches() -> dict:

@@ -29,7 +29,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 
 # one shared library per source; the launchers each library exports
-SOURCES = ("classops", "gather", "megakernel")
+SOURCES = ("classops", "gather", "megakernel", "route")
 
 # sm_90a (Hopper). No --use_fast_math: the folds must keep denormals and
 # IEEE rounding; --fmad=false forbids contraction, so the one fused
@@ -51,6 +51,8 @@ _SIGNATURES = {
     "classops": {
         "gossip_class_reduce_small": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
         "gossip_class_reduce_split": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
+        "gossip_class_expand_small": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
+        "gossip_class_expand_split": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
     },
     "gather": {
         "gossip_gather_resident": (_VOIDP, _VOIDP, _VOIDP, _LL, _VOIDP),
@@ -66,6 +68,14 @@ _SIGNATURES = {
             *(_VOIDP,) * 9, _VOIDP, _LL, _VOIDP, _LL, _LL,
             *(_VOIDP,) * 5, _INT, _INT, _LL, _INT, _F32, _F32, _INT, _INT,
             _LL, _INT, _VOIDP),
+    },
+    "route": {
+        # x, idx, out, tiles, o, b, cr, tau_in, tau_slab, unit, stream
+        "gossip_route_stage": (_VOIDP, _VOIDP, _VOIDP, _LL, _INT, _INT,
+                               _INT, _INT, _INT, _INT, _VOIDP),
+        # x, idx, mask, out, nt_out, k, unit, stream
+        "gossip_route_final": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _LL, _INT,
+                               _INT, _VOIDP),
     },
 }
 

@@ -1,7 +1,8 @@
-"""Degree-class folds over the class-padded delivery layout.
+"""Degree-class folds and expands over the class-padded delivery layout.
 
-Port of ``gossipprotocol_tpu/ops/classops.py`` (the two reduce kernels
-the fused gather delivery runs). Layout contract (``ops/delivery.py``):
+Port of ``gossipprotocol_tpu/ops/classops.py``: the two reduce kernels
+every fanout-all delivery runs and the two expand kernels of the routed
+delivery. Layout contract (``ops/delivery.py``):
 every class region covers whole 128-f32 rows; small classes (2c <= 128)
 hold 128/(2c) node runs per row, hub classes (2c > 128) split each node
 into q = 2c/128 one-row sub-classes stored sub-class-major (row
@@ -28,7 +29,8 @@ BLK = 256          # row alignment of small-class regions (layout contract)
 
 # kernel launches since the last reset (counted where each wrapper
 # launches its kernel; the CPU path launches nothing)
-LAUNCHES = {"class_reduce_small": 0, "class_reduce_split": 0}
+LAUNCHES = {"class_reduce_small": 0, "class_reduce_split": 0,
+            "class_expand_small": 0, "class_expand_split": 0}
 
 
 def _require_cuda_f32(x: torch.Tensor, what: str) -> None:
@@ -156,4 +158,100 @@ def class_reduce_split(region: torch.Tensor, c: int) -> torch.Tensor:
         build.stream_handle(region.device))
     build.check(lib, rc, "class_reduce_split")
     LAUNCHES["class_reduce_split"] += 1
+    return out
+
+
+# ---- class_expand_small ------------------------------------------------
+
+def class_expand_small_plain(packed: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain PyTorch body: widen the packed row to 128 lanes with zeros,
+    then the lane gather ``2*(j // 2c) + j % 2``."""
+    in_lanes = LANES // c
+    view = packed.reshape(-1, in_lanes)
+    if in_lanes == LANES:      # c == 1: runs are already pair-wide
+        wide = view
+    else:
+        wide = torch.cat([view, torch.zeros(
+            (view.shape[0], LANES - in_lanes), dtype=view.dtype,
+            device=view.device)], dim=1)
+    col = torch.arange(LANES, device=packed.device)
+    idx = (2 * (col // (2 * c)) + col % 2).expand(view.shape[0], LANES)
+    return torch.take_along_dim(wide, idx, dim=1).reshape(-1)
+
+
+def class_expand_small(packed: torch.Tensor, c: int) -> torch.Tensor:
+    """Inverse packing: replicate each packed (s, w) pair across its
+    2c-lane run. ``packed``: f32 [rows * 128 // c], rows % BLK == 0;
+    returns f32 [rows * 128].
+
+    On CUDA: ``csrc/classops.cu`` ``expand_small_kernel``, replacing the
+    Pallas kernel at ``gossipprotocol_tpu/ops/classops.py:129``. Bound by
+    bytes (each packed value read once, each output written once); one
+    thread per four output lanes, loads served from L1."""
+    if c < 1 or LANES % (2 * c):
+        raise ValueError(f"class_expand_small: c={c} must divide 64")
+    if packed.numel() % (BLK * LANES // c):
+        raise ValueError(
+            f"class_expand_small: {packed.numel()} values is not a whole "
+            f"number of {BLK}-row blocks")
+    if packed.device.type == "cpu":
+        return class_expand_small_plain(packed, c)
+    _require_cuda_f32(packed, "class_expand_small")
+    rows = packed.numel() * c // LANES
+    out = torch.empty(rows * LANES, dtype=torch.float32,
+                      device=packed.device)
+    lib = build.library("classops")
+    rc = lib.gossip_class_expand_small(
+        packed.data_ptr(), out.data_ptr(), rows, c,
+        build.stream_handle(packed.device))
+    build.check(lib, rc, "class_expand_small")
+    LAUNCHES["class_expand_small"] += 1
+    return out
+
+
+# ---- class_expand_split ------------------------------------------------
+
+def _expand_split_geometry(numel: int, c: int):
+    q = (2 * c) // LANES
+    if q * LANES != 2 * c or q < 1:
+        raise ValueError(f"class_expand_split: 2c={2 * c} is not a "
+                         f"multiple of {LANES}")
+    if numel % 2:
+        raise ValueError("class_expand_split: packed (s, w) pairs expected")
+    return q, numel // 2
+
+
+def class_expand_split_plain(packed: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain PyTorch body: each node slot's row carries s on even lanes
+    and w on odd lanes; the q sub-class regions repeat it."""
+    q, cap = _expand_split_geometry(packed.numel(), c)
+    x = packed.reshape(cap, 2)
+    col = torch.arange(LANES, device=packed.device)
+    row = torch.where(col % 2 == 0, x[:, 0:1], x[:, 1:2])   # [cap, 128]
+    return row.repeat(q, 1).reshape(-1)
+
+
+def class_expand_split(packed: torch.Tensor, c: int) -> torch.Tensor:
+    """Replicate each node pair across its q = 2c/128 sub-class rows (the
+    inverse of :func:`class_reduce_split`'s layout). ``packed``: f32
+    [2 * cap]; returns f32 [q * cap * 128], row j*cap + r carrying node
+    slot r's pair on every lane run.
+
+    On CUDA: ``csrc/classops.cu`` ``expand_split_kernel``, replacing the
+    Pallas kernel at ``gossipprotocol_tpu/ops/classops.py:216``. Bound by
+    bytes (the output is q*64 times the input); one thread per four
+    output lanes."""
+    q, cap = _expand_split_geometry(packed.numel(), c)
+    if packed.device.type == "cpu":
+        return class_expand_split_plain(packed, c)
+    _require_cuda_f32(packed, "class_expand_split")
+    require_aligned(packed, "class_expand_split")
+    out = torch.empty(q * cap * LANES, dtype=torch.float32,
+                      device=packed.device)
+    lib = build.library("classops")
+    rc = lib.gossip_class_expand_split(
+        packed.data_ptr(), out.data_ptr(), cap, q,
+        build.stream_handle(packed.device))
+    build.check(lib, rc, "class_expand_split")
+    LAUNCHES["class_expand_split"] += 1
     return out

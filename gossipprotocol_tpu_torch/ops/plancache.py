@@ -1,17 +1,19 @@
-"""Disk cache of the fused gather delivery's plans (the pallas half of
-``gossipprotocol_tpu/ops/plancache.py``; the routed, sharded and push
+"""Disk cache of the single-chip delivery plans (the routed and pallas
+halves of ``gossipprotocol_tpu/ops/plancache.py``; the sharded and push
 entry families are not yet ported).
 
-The plan build is O(E) single-core host work, while its tables are a pure
-function of the adjacency. They are cached keyed by a blake2b digest of
-the CSR, one uncompressed ``.npz`` per topology, published through
-``os.replace`` so a crashed build never leaves a truncated entry behind.
+The plan build is O(E) host work, while its tables are a pure function
+of the adjacency. They are cached keyed by a blake2b digest of the CSR,
+one uncompressed ``.npz`` per topology, published through ``os.replace``
+so a crashed build never leaves a truncated entry behind.
 
 The on-disk format is the JAX package's, byte for byte in layout and key:
-``routedpl_v2_<key>.npz`` under the same directory
-(``$GOSSIP_TPU_PLAN_CACHE``, else ``~/.cache/gossipprotocol_tpu/
-routed-plans``), so an entry written by either package is read by the
-other (``tests/test_torch_plancache.py``).
+``routed_v2_<key>.npz`` (routed) and ``routedpl_v2_<key>.npz`` (pallas)
+under the same directory (``$GOSSIP_TPU_PLAN_CACHE``, else
+``~/.cache/gossipprotocol_tpu/routed-plans``), so an entry written by
+either package is read by the other (``tests/test_torch_plancache.py``).
+The routed realmask, the one highly compressible array, is stored
+bit-packed.
 """
 
 from __future__ import annotations
@@ -27,9 +29,15 @@ from typing import Optional
 
 import numpy as np
 
+from gossipprotocol_tpu_torch.ops.delivery import (
+    RoutedDelivery, build_routed_delivery_np,
+)
+from gossipprotocol_tpu_torch.ops.exec import (
+    DeviceFinal, DevicePlan, DeviceStage,
+)
 from gossipprotocol_tpu_torch.ops.pallasdelivery import (
     HostGatherPlan, HostPallasDelivery, PallasDelivery,
-    build_pallas_delivery, build_pallas_delivery_np,
+    build_pallas_delivery_np,
 )
 
 # Bumped whenever the table layout changes (the JAX package's constant:
@@ -39,6 +47,8 @@ FORMAT_VERSION = 2
 # Provenance stamp only, not an invalidation key: builders must produce
 # bitwise-identical plans (the JAX package's constant).
 BUILDER_VERSION = 2
+
+_PLAN_GROUPS = ("plan_in", "plan_m", "plan_out")
 
 
 def _provenance(build_s: float, build_workers: int) -> dict:
@@ -139,6 +149,167 @@ def cache_key(topo) -> str:
     return f"{topo.num_nodes}-{h.hexdigest()}"
 
 
+# ---- routed delivery ----------------------------------------------------
+
+def entry_path(cache_dir: str, key: str) -> str:
+    return os.path.join(cache_dir, f"routed_v{FORMAT_VERSION}_{key}.npz")
+
+
+def _pack_plan(prefix: str, dp, arrays: dict) -> dict:
+    meta = {
+        "unit": int(dp.unit), "nt_in": int(dp.nt_in),
+        "nt_out": int(dp.nt_out),
+        "stages": [[int(v) for v in tuple(st)[:6]] for st in dp.stages],
+        "final_k": int(dp.final.k),
+    }
+    for i, st in enumerate(dp.stages):
+        arrays[f"{prefix}.s{i}"] = np.asarray(st.idx)
+    arrays[f"{prefix}.fidx"] = np.asarray(dp.final.idx)
+    arrays[f"{prefix}.fmask"] = np.asarray(dp.final.mask)
+    return meta
+
+
+def _unpack_plan(prefix: str, meta: dict, z) -> DevicePlan:
+    stages = tuple(
+        DeviceStage(*geom, idx=z[f"{prefix}.s{i}"])
+        for i, geom in enumerate(meta["stages"]))
+    fin = DeviceFinal(meta["final_k"], z[f"{prefix}.fidx"],
+                      z[f"{prefix}.fmask"])
+    return DevicePlan(meta["unit"], meta["nt_in"], meta["nt_out"],
+                      stages, fin)
+
+
+def save(rd, path: str, provenance: Optional[dict] = None) -> None:
+    """Serialize a host-side routed delivery (numpy leaves: the port's
+    :func:`~gossipprotocol_tpu_torch.ops.delivery.build_routed_delivery_np`
+    or the JAX package's ``device=False`` build)."""
+    arrays: dict = {}
+    meta = {
+        "format": FORMAT_VERSION,
+        "n": int(rd.n), "nu": int(rd.nu), "m_pairs": int(rd.m_pairs),
+        "classes": [[int(v) for v in c] for c in rd.classes],
+        "realmask_len": int(np.asarray(rd.realmask).shape[0]),
+    }
+    if provenance:
+        meta["provenance"] = provenance
+    for group in _PLAN_GROUPS:
+        meta[group] = [_pack_plan(f"{group}{i}", dp, arrays)
+                       for i, dp in enumerate(getattr(rd, group))]
+    arrays["realmask_bits"] = np.packbits(
+        np.asarray(rd.realmask).astype(bool))
+    arrays["degree"] = np.asarray(rd.degree, np.int32)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + f".tmp{os.getpid()}.npz"
+    try:
+        np.savez(tmp, __meta__=json.dumps(meta), **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load(path: str) -> Optional[RoutedDelivery]:
+    """The host-side routed delivery of a cache entry, or None (absent,
+    unreadable, or of another format)."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["__meta__"]))
+            if meta.get("format") != FORMAT_VERSION:
+                return None
+            realmask = np.unpackbits(
+                z["realmask_bits"],
+                count=meta["realmask_len"]).astype(np.float32)
+            try:
+                os.utime(path)  # LRU signal for _evict_over_budget
+            except OSError:
+                pass
+            return RoutedDelivery(
+                n=meta["n"], nu=meta["nu"], m_pairs=meta["m_pairs"],
+                classes=tuple(tuple(c) for c in meta["classes"]),
+                plan_in=tuple(_unpack_plan(f"plan_in{i}", m, z)
+                              for i, m in enumerate(meta["plan_in"])),
+                plan_m=tuple(_unpack_plan(f"plan_m{i}", m, z)
+                             for i, m in enumerate(meta["plan_m"])),
+                plan_out=tuple(_unpack_plan(f"plan_out{i}", m, z)
+                               for i, m in enumerate(meta["plan_out"])),
+                realmask=realmask,
+                degree=z["degree"],
+            )
+    except (OSError, ValueError, KeyError, json.JSONDecodeError,
+            zipfile.BadZipFile):
+        # a corrupt entry (torn write, truncation) rebuilds, never crashes
+        return None
+
+
+def _place_routed(host, device) -> RoutedDelivery:
+    from gossipprotocol_tpu_torch.convert import routed_delivery_from_numpy
+
+    return routed_delivery_from_numpy(host, device=device)
+
+
+def routed_delivery_cached(topo, cache_dir: Optional[str] = None,
+                           progress=None, device="cuda"):
+    """Cache-aware :func:`~gossipprotocol_tpu_torch.ops.delivery.
+    build_routed_delivery`: ``(delivery on device, provenance)`` with
+    provenance ``"hit"``, ``"miss"`` (built and saved) or ``"off"``
+    (``cache_dir == "none"``, or the implicit complete graph, whose build
+    raises the user-facing error)."""
+    return _cached(topo, cache_dir, progress, device, "routed", entry_path,
+                   load, save,
+                   lambda t: build_routed_delivery_np(t, progress=progress),
+                   _place_routed)
+
+
+def _cached(topo, cache_dir, progress, device, what, path_of, load_fn,
+            save_fn, build_np, place):
+    """The cache front end both delivery families share: load the entry
+    of ``topo`` or build it (once per entry across processes, under
+    :func:`_single_flight`), save it, and place it on ``device``."""
+    from gossipprotocol_tpu_torch.ops.build import resolve_device
+
+    dev = resolve_device(device)  # fail before the host build
+    cache_dir = cache_dir or default_cache_dir()
+    if cache_dir == "none" or topo.implicit_full:
+        return place(build_np(topo), dev), "off"
+    path = path_of(cache_dir, cache_key(topo))
+    host = load_fn(path)
+    if host is not None:
+        if progress:
+            progress(f"{what} delivery: plan cache hit ({path})"
+                     f"{_provenance_note(path)}")
+        return place(host, dev), "hit"
+    with _single_flight(path) as wait_s:
+        if wait_s:
+            host = load_fn(path)
+            if host is not None:
+                if progress:
+                    progress(f"{what} delivery: plan cache hit after "
+                             f"single-flight wait ({wait_s:.2f}s; {path})"
+                             f"{_provenance_note(path)}")
+                return place(host, dev), "hit"
+        t0 = time.perf_counter()
+        host = build_np(topo)
+        prov = _provenance(time.perf_counter() - t0, build_workers=1)
+        if wait_s:
+            prov["single_flight_wait_s"] = round(wait_s, 3)
+        try:
+            save_fn(host, path, provenance=prov)
+            _evict_over_budget(cache_dir, keep=path)
+            if progress:
+                progress(f"{what} delivery: plan cached ({path}); "
+                         f"built in {prov['build_s']}s")
+        except OSError as e:
+            # a full disk or read-only cache dir must not cost the user
+            # the build just paid for: continue uncached, loudly
+            warnings.warn(f"{what} plan cache write failed ({e}); "
+                          "continuing uncached")
+    return place(host, dev), "miss"
+
+
+# ---- pallas (fused gather) delivery -------------------------------------
+
 def pallas_entry_path(cache_dir: str, key: str) -> str:
     # the "routed" prefix keeps the entry under _evict_over_budget's
     # family filter (the JAX package's naming)
@@ -209,7 +380,7 @@ def load_pallas(path: str) -> Optional[HostPallasDelivery]:
         return None
 
 
-def _place(host: HostPallasDelivery, device) -> PallasDelivery:
+def _place_pallas(host: HostPallasDelivery, device) -> PallasDelivery:
     from gossipprotocol_tpu_torch.convert import delivery_from_numpy
 
     return delivery_from_numpy(*host, device=device)
@@ -221,45 +392,9 @@ def pallas_delivery_cached(topo, cache_dir: Optional[str] = None,
     build_pallas_delivery`: ``(delivery on device, provenance)`` with
     provenance ``"hit"``, ``"miss"`` (built and saved) or ``"off"``
     (``cache_dir == "none"``, or the implicit complete graph)."""
-    from gossipprotocol_tpu_torch.ops.build import resolve_device
-
-    dev = resolve_device(device)  # fail before the host build
-    cache_dir = cache_dir or default_cache_dir()
-    if cache_dir == "none" or topo.implicit_full:
-        return build_pallas_delivery(topo, device=dev), "off"
-    path = pallas_entry_path(cache_dir, cache_key(topo))
-    host = load_pallas(path)
-    if host is not None:
-        if progress:
-            progress(f"pallas delivery: plan cache hit ({path})"
-                     f"{_provenance_note(path)}")
-        return _place(host, dev), "hit"
-    with _single_flight(path) as wait_s:
-        if wait_s:
-            host = load_pallas(path)
-            if host is not None:
-                if progress:
-                    progress(f"pallas delivery: plan cache hit after "
-                             f"single-flight wait ({wait_s:.2f}s; {path})"
-                             f"{_provenance_note(path)}")
-                return _place(host, dev), "hit"
-        t0 = time.perf_counter()
-        host = build_pallas_delivery_np(topo)
-        prov = _provenance(time.perf_counter() - t0, build_workers=1)
-        if wait_s:
-            prov["single_flight_wait_s"] = round(wait_s, 3)
-        try:
-            save_pallas(host, path, provenance=prov)
-            _evict_over_budget(cache_dir, keep=path)
-            if progress:
-                progress(f"pallas delivery: plan cached ({path}); "
-                         f"built in {prov['build_s']}s")
-        except OSError as e:
-            # a full disk or read-only cache dir must not cost the user
-            # the build just paid for: continue uncached, loudly
-            warnings.warn(f"pallas plan cache write failed ({e}); "
-                          "continuing uncached")
-    return _place(host, dev), "miss"
+    return _cached(topo, cache_dir, progress, device, "pallas",
+                   pallas_entry_path, load_pallas, save_pallas,
+                   build_pallas_delivery_np, _place_pallas)
 
 
 def _evict_over_budget(cache_dir: str, keep: str) -> None:

@@ -1,4 +1,4 @@
-"""Fanout-all diffusion push-sum over the fused gather delivery (port of
+"""Fanout-all diffusion push-sum over a single-chip delivery (port of
 ``pushsum_diffusion_round_routed``, ``gossipprotocol_tpu/protocols/
 diffusion.py``; the poisson-clock branch is not yet ported).
 
@@ -39,7 +39,7 @@ def _keep(x: torch.Tensor, share: torch.Tensor,
 
 def pushsum_diffusion_round_routed(
     state: PushSumState,
-    delivery,  # ops.pallasdelivery.PallasDelivery
+    delivery,  # ops.pallasdelivery.PallasDelivery or ops.delivery.RoutedDelivery
     *,
     eps: float = 1e-10,
     streak_target: int = 3,

@@ -7,19 +7,23 @@ megakernel's K cost (the port's counterpart of
     python -m gossipprotocol_tpu_torch.utils.profiling \\
         --nodes 512000 --topology imp3D --delivery megakernel \\
         --rounds-per-kernel 16 [--predicate delta --eps 1e-7]
+    python -m gossipprotocol_tpu_torch.utils.profiling \\
+        --nodes 1000000 --topology power_law --delivery routed
 
 Builds the graph and its delivery on ``cuda``, then:
 
-  1. profiles ROUNDS rounds with ``torch.profiler`` (the per-round path,
-     or ROUNDS / K launches of the K-round kernel with the predicate
-     disabled, so every round runs): device time per kernel name per
-     round, and the host time spent enqueuing a round; times the same
-     rounds with CUDA events, and reports the device's idle share of that
-     window (1 - busy / event time);
+  1. profiles ROUNDS rounds with ``torch.profiler`` (the per-round path
+     over the pallas or the routed delivery, or ROUNDS / K launches of
+     the K-round kernel, with the predicate disabled, so every round
+     runs): device time per kernel name per round, and the host time
+     spent enqueuing a round; times the same rounds with CUDA events, and
+     reports the device's idle share of that window (1 - busy / event
+     time);
   2. runs the protocol to convergence once per setting, in mirrored
-     order: per chunk size in CHUNKS (``--delivery pallas``), or per K in
-     KS against the per-round pallas path (``--delivery megakernel``),
-     reporting the convergence time, the rounds, and the rounds executed.
+     order: per chunk size in CHUNKS (``--delivery pallas``), per K in KS
+     against the per-round pallas path (``--delivery megakernel``), or
+     routed against pallas (``--delivery routed``), reporting the
+     convergence time, the rounds, and the rounds executed.
 
 Prints a table and one JSON line; ``--out FILE`` also writes the JSON
 there. Needs a CUDA device.
@@ -59,7 +63,7 @@ def main(argv=None) -> int:
     ap.add_argument("--topology", default="imp3D")
     ap.add_argument("--predicate", default="global")
     ap.add_argument("--eps", type=float, default=1e-10)
-    ap.add_argument("--delivery", choices=["pallas", "megakernel"],
+    ap.add_argument("--delivery", choices=["pallas", "megakernel", "routed"],
                     default="pallas")
     ap.add_argument("--rounds-per-kernel", type=int, default=1)
     ap.add_argument("--out", default=None)
@@ -86,8 +90,14 @@ def main(argv=None) -> int:
     if ROUNDS % k:
         ap.error(f"--rounds-per-kernel must divide {ROUNDS}")
     delivery = device_arrays(topo, cfg)
-    # the per-round path reads the plain delivery the megakernel wraps
-    pd = delivery.pd if fused else delivery
+    # the per-round path's deliveries by name (pallas reads the plain
+    # delivery the megakernel wraps); built once each
+    per_round = {"pallas": delivery.pd} if fused else {cfg.delivery: delivery}
+
+    def per_round_delivery(c):
+        if c.delivery not in per_round:
+            per_round[c.delivery] = device_arrays(topo, c)
+        return per_round[c.delivery]
 
     def make_step(c):
         state0, core, done_fn, _ = build_protocol(topo, c)
@@ -97,7 +107,7 @@ def main(argv=None) -> int:
             dlv = delivery
         else:
             runner = make_chunk_runner(core, done_fn)
-            dlv = pd
+            dlv = per_round_delivery(c)
 
         def step(s, start_round, round_limit):
             return runner(s, dlv, start_round, round_limit)
@@ -141,15 +151,19 @@ def main(argv=None) -> int:
     event_ms = start.elapsed_time(stop) / ROUNDS
     idle = max(0.0, 1 - busy_ms / event_ms)
 
-    # 2. convergence time against the chunk size, or against K
+    # 2. convergence time against the chunk size, K, or the delivery
     if fused:
         settings = [("pallas", 1)] + [("megakernel", kk) for kk in KS]
+    elif cfg.delivery == "routed":
+        settings = [("routed", None), ("pallas", None)]
     else:
         settings = [("pallas", c) for c in CHUNKS]
     conv = []
     for dl, v in settings + settings[::-1]:
         if fused:
             c = dataclasses.replace(cfg, delivery=dl, rounds_per_kernel=v)
+        elif cfg.delivery == "routed":
+            c = dataclasses.replace(cfg, delivery=dl)
         else:
             c = dataclasses.replace(cfg, chunk_rounds=v)
         s0, st = (state0, step) if c == cfg else make_step(c)
@@ -161,7 +175,7 @@ def main(argv=None) -> int:
 
     name = torch.cuda.get_device_name(dev)
     what = (f"megakernel K={k}, {ROUNDS // k} launches" if fused
-            else "per-round pallas path")
+            else f"per-round {cfg.delivery} path")
     print(f"{args.topology} {topo.num_nodes} nodes on {name}, {ROUNDS} "
           f"rounds, {what}")
     print(f"device busy {busy_ms:.4f} ms/round (profiler), {event_ms:.4f} "

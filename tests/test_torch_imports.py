@@ -42,4 +42,5 @@ def test_no_jax_import(path):
 def test_walk_finds_the_package():
     names = {p.name for p in _FILES}
     assert {"classops.py", "pallasdelivery.py", "driver.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "exec.py", "clos.py", "plan.py", "native.py",
+            "delivery.py"} <= names

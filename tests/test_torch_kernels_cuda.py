@@ -162,3 +162,101 @@ def test_megakernel_kernel(cuda, graph, k, predicate):
         else:
             assert torch.equal(a, b)
     assert 0 < int(ms_k.round) < 48  # converged inside the budget
+
+
+# ---- the routed slice: expand kernels, Clos stage and final passes -----
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32, 64])
+def test_expand_small_kernel(cuda, c):
+    x = torch.from_numpy(_mixed(np.random.default_rng(c),
+                                2 * co.BLK * 128 // c)).to(cuda)
+    before = co.LAUNCHES["class_expand_small"]
+    got = co.class_expand_small(x, c)
+    torch.cuda.synchronize()
+    assert co.LAUNCHES["class_expand_small"] == before + 1
+    assert _bits_equal(got, co.class_expand_small_plain(x, c))
+
+
+@pytest.mark.parametrize("q,cap", [(2, 8), (8, 256), (2048, 8)])
+def test_expand_split_kernel(cuda, q, cap):
+    x = torch.from_numpy(_mixed(np.random.default_rng(q + cap),
+                                2 * cap)).to(cuda)
+    got = co.class_expand_split(x, 64 * q)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, co.class_expand_split_plain(x, 64 * q))
+
+
+def _placed_plan(src_of, m_in, unit, device):
+    from gossipprotocol_tpu_torch.convert import plan_from_numpy
+    from gossipprotocol_tpu_torch.ops.exec import device_plan
+    from gossipprotocol_tpu_torch.ops.plan import build_route_plan
+
+    return plan_from_numpy(device_plan(build_route_plan(
+        src_of, m_in=m_in, unit=unit)), device)
+
+
+# nt 130 unit-2 tiles: two radix stages, tau_slab > tau_in
+@pytest.mark.parametrize("unit,nt,dont_care", [
+    (1, 3, False), (2, 5, False), (2, 4, True), (1, 2, True),
+    (2, 130, False)])
+def test_route_kernels(cuda, unit, nt, dont_care):
+    """Each stage's written rows and the final pass against their plain
+    versions, bitwise, and the whole plan against ``x[perm]``."""
+    from gossipprotocol_tpu_torch.ops import exec as ex
+
+    rng = np.random.default_rng(nt + unit)
+    u = 16384 // unit
+    m = nt * u
+    perm = rng.permutation(m).astype(np.int64)
+    if dont_care:
+        perm[rng.random(m) < 0.4] = -1
+    dp = _placed_plan(perm, m, unit, cuda)
+    x = torch.from_numpy(_mixed(rng, nt * 16384)).to(cuda)
+    cur = x.view(-1, 128, 128)
+    before = dict(ex.LAUNCHES)
+    for st in dp.stages:
+        got = ex.stage_call(st, cur, unit)
+        want = ex.stage_call_plain(st, cur, unit)
+        torch.cuda.synchronize()
+        assert _bits_equal(ex.stage_rows_written(st, got),
+                           ex.stage_rows_written(st, want))
+        cur = want
+    got = ex.final_call(dp.final, dp.nt_out, cur, unit)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, ex.final_call_plain(dp.final, dp.nt_out, cur,
+                                                unit))
+    assert ex.LAUNCHES["stage_call"] == before["stage_call"] + len(dp.stages)
+    assert ex.LAUNCHES["final_call"] == before["final_call"] + 1
+    y = ex.apply_plan(dp, x).view(-1, unit).cpu()
+    real = np.flatnonzero(perm >= 0)
+    src = x.view(-1, unit).cpu()[torch.from_numpy(perm[real])]
+    assert _bits_equal(y[torch.from_numpy(real)], src)
+    assert bool((y[torch.from_numpy(np.flatnonzero(perm < 0))] == 0).all())
+
+
+@pytest.mark.parametrize("graph", [("imp3D", 20_000, {"seed": 1}),
+                                   ("power_law", 20_000, {"seed": 1, "m": 4})])
+def test_routed_matvec_equals_pallas_on_card(cuda, graph):
+    """The routed matvec on the card against the fused gather delivery
+    on the card and against itself on the CPU, bitwise."""
+    from gossipprotocol_tpu_torch.convert import routed_delivery_from_numpy
+    from gossipprotocol_tpu_torch.ops.delivery import build_routed_delivery_np
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    name, n, kw = graph
+    topo = build_topology(name, n, **kw)
+    n = topo.num_nodes  # imp3D rounds up to a cube
+    host = build_routed_delivery_np(topo)
+    rd = routed_delivery_from_numpy(host, cuda)
+    rd_cpu = routed_delivery_from_numpy(host, "cpu")
+    pd = pdm.build_pallas_delivery(topo, device=cuda)
+    rng = np.random.default_rng(7)
+    xs = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    xw = torch.from_numpy(rng.random(n).astype(np.float32))
+    a = rd.matvec(xs.to(cuda), xw.to(cuda))
+    b = pd.matvec(xs.to(cuda), xw.to(cuda))
+    c = rd_cpu.matvec(xs, xw)
+    torch.cuda.synchronize()
+    for u, v, w in zip(a, b, c):
+        assert _bits_equal(u, v)
+        assert _bits_equal(u.cpu(), w)

@@ -173,3 +173,86 @@ def test_run_uses_cache(tmp_path):
     for r in runs[1:]:
         for a, b in zip(r.final_state, runs[0].final_state):
             assert torch.equal(a, b)
+
+
+# ---- routed entries (routed_v2_<key>.npz) ----------------------------------
+
+def _routed_matvec(host, n):
+    from gossipprotocol_tpu_torch.convert import routed_delivery_from_numpy
+
+    rng = np.random.default_rng(n)
+    xs = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    xw = torch.from_numpy(rng.random(n).astype(np.float32))
+    rd = routed_delivery_from_numpy(host, "cpu")
+    return [t.view(torch.int32) for t in rd.matvec(xs, xw)]
+
+
+def _assert_same_routed(a, b):
+    assert (int(a.n), int(a.nu), int(a.m_pairs)) == \
+        (int(b.n), int(b.nu), int(b.m_pairs))
+    assert tuple(map(tuple, a.classes)) == tuple(map(tuple, b.classes))
+    for g in ("plan_in", "plan_m", "plan_out"):
+        for pa, pb in zip(getattr(a, g), getattr(b, g), strict=True):
+            assert (pa.unit, pa.nt_in, pa.nt_out, pa.final.k) == \
+                (pb.unit, pb.nt_in, pb.nt_out, pb.final.k)
+            for sa, sb in zip(pa.stages, pb.stages, strict=True):
+                assert tuple(sa)[:6] == tuple(sb)[:6]
+                assert np.array_equal(_np(sa.idx), _np(sb.idx))
+            assert np.array_equal(_np(pa.final.idx), _np(pb.final.idx))
+            assert np.array_equal(_np(pa.final.mask), _np(pb.final.mask))
+    assert np.array_equal(_np(a.realmask), _np(b.realmask))
+    assert np.array_equal(_np(a.degree), _np(b.degree))
+
+
+@pytest.mark.parametrize("graph", list(_GRAPHS))
+def test_routed_entries_cross_read(graph, tmp_path):
+    """An entry the port writes, the JAX package's ``load`` reads, and the
+    reverse; matvecs from both entries are bitwise equal."""
+    from gossipprotocol_tpu_torch.ops.delivery import build_routed_delivery_np
+
+    name, n, kw = _GRAPHS[graph]
+    jtopo, ttopo = jax_build(name, n, **kw), torch_build(name, n, **kw)
+    key = tpc.cache_key(ttopo)
+    a, b = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert tpc.entry_path(a, key) == jpc.entry_path(a, jpc.cache_key(jtopo))
+    assert os.path.basename(tpc.entry_path(a, key)) == f"routed_v2_{key}.npz"
+    # the port writes, the JAX package reads
+    _, prov = tpc.routed_delivery_cached(ttopo, cache_dir=a, device="cpu")
+    assert prov == "miss"
+    from_port = jpc.load(jpc.entry_path(a, key))
+    assert from_port is not None
+    _, jprov = jpc.routed_delivery_cached(jtopo, cache_dir=a, device=False)
+    assert jprov == "hit"
+    # the JAX package writes, the port reads
+    jpc.routed_delivery_cached(jtopo, cache_dir=b, device=False)
+    from_jax = tpc.load(tpc.entry_path(b, key))
+    assert from_jax is not None
+    _, tprov = tpc.routed_delivery_cached(ttopo, cache_dir=b, device="cpu")
+    assert tprov == "hit"
+    _assert_same_routed(from_port, from_jax)
+    _assert_same_routed(from_jax, build_routed_delivery_np(ttopo))
+    for u, v in zip(_routed_matvec(from_port, n), _routed_matvec(from_jax, n)):
+        assert torch.equal(u, v)
+
+
+def test_routed_provenance_and_run(tmp_path):
+    """miss, hit, off for the routed family; the engine's routed run goes
+    through the cache and equals the uncached run bitwise."""
+    import gossipprotocol_tpu_torch as tx
+
+    topo = torch_build("powerlaw", 400, seed=3, m=3)
+    d = str(tmp_path)
+    notes = []
+    provs = [tpc.routed_delivery_cached(topo, cache_dir=c, device="cpu",
+                                        progress=notes.append)[1]
+             for c in (d, d, "none")]
+    assert provs == ["miss", "hit", "off"]
+    assert any("plan cached" in s for s in notes)
+    assert any("plan cache hit" in s for s in notes)
+    path = tpc.entry_path(d, tpc.cache_key(topo))
+    assert tpc.entry_provenance(path)["builder"] == tpc.BUILDER_VERSION
+    runs = [tx.run_simulation(topo, tx.RunConfig(
+        device="cpu", plan_cache=cache, delivery="routed", max_rounds=16))
+        for cache in (d, "none")]
+    for x, y in zip(*(r.final_state for r in runs)):
+        assert torch.equal(x, y)

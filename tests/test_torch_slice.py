@@ -249,7 +249,7 @@ def test_entry_point_defaults_to_cuda(entry):
 
 @pytest.mark.parametrize("kw", [dict(algorithm="gossip"),
                                 dict(fanout="one"),
-                                dict(delivery="routed")])
+                                dict(delivery="scatter")])
 def test_unported_config_raises(kw):
     with pytest.raises(NotPortedError):
         dataclasses.replace(tx.RunConfig(device="cpu"), **kw)
@@ -282,8 +282,8 @@ def test_cli_not_converged_exit_1(capsys):
     (["64", "imp3D", "gossip", "--device", "cpu"], "gossip"),
     (["64", "imp3D", "push-sum", "--delivery", "pallas", "--device", "cpu"],
      "--fanout one"),
-    (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "routed",
-      "--device", "cpu"], "--delivery routed"),
+    (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "scatter",
+      "--device", "cpu"], "--delivery scatter"),
     (["64", "imp3D", *_CLI, "--fail-fraction=0.1"], "--fail-fraction"),
     (["report", "/tmp/x"], "report"),
     (["64", "torus", *_CLI], "unknown topology"),
