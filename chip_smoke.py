@@ -44,7 +44,24 @@ Phases (each prints its lines; any failure exits non-zero):
       expands); the routed matvec bitwise against the pallas matvec; and
       two routed CLI runs with phase (c)'s argv, each converging in the
       pallas run's round count with the same printed estimate error and
-      every routed kernel launched.
+      every routed kernel launched;
+  (h) the sharded push design (``--devices 4``, every shard on the one
+      card) at imp3D 1M and power_law 400,000 (the push compiler rejects
+      power_law 1M and 500,000 on 4 shards, as the JAX package's does):
+      the 4-shard plans built once per graph through the plan cache (build seconds, exchange bytes per
+      round, table bytes, peak device memory after placement); the
+      exchange kernel at the real slab shapes — f32, bf16, int8 and the
+      int8 wire's [S, 1] scales, both schedules — bitwise against its
+      plain version and ``exchange_plain``, with its time, bytes bound,
+      plain time and one PyTorch call's (``transpose(0, 1).contiguous()``
+      of the stacked slabs); the 4-shard matvec on every transport
+      bitwise against the single-card routed matvec (phase (g)'s outputs
+      kept for imp3D 1M, not rebuilt); and three CLI runs per graph with
+      phase (c)'s argv plus ``--devices 4`` (``--delivery pallas``,
+      ``routed``, and ``pallas --exchange-overlap``), each converging in
+      the single-card pallas run's round count with its printed estimate
+      error (a stop one round apart prints the gap of the global mean,
+      summed in shard order), exchange launches counted.
 
 Each end-to-end run reads the launch counts it caused (reset just before,
 read just after). The plan cache lives in a temporary directory for the
@@ -131,6 +148,8 @@ KERNELS = {
                    "gossipprotocol_tpu/ops/exec.py:154"),
     "final_call": ("gossipprotocol_tpu_torch/csrc/route.cu",
                    "gossipprotocol_tpu/ops/exec.py:193"),
+    "pallas_exchange": ("gossipprotocol_tpu_torch/csrc/exchange.cu",
+                        "gossipprotocol_tpu/ops/pallasdelivery.py:491"),
 }
 PER_ROUND_KERNELS = ("class_reduce_small", "class_reduce_split",
                      "gather_resident", "gather_bucket")
@@ -141,6 +160,29 @@ ROUTED_KERNELS = ("class_expand_small", "class_expand_split", "stage_call",
 ROUTED_CLI_RUNS = {
     g: [("routed" if a == "pallas" else a) for a in CLI_RUNS[g]]
     for g in ("imp3D_1M", "power_law_1M")}
+
+
+# phase (h): the sharded push design, 4 shards on the card, on imp3D 1M
+# and power_law 400,000: the push compiler (the JAX package's, copied)
+# rejects power_law at 1M and 500,000 on 4 shards (its plan_in routing
+# concentrates, O = 5 > 4 stacked tiles), and accepts 400,000. The CLI
+# runs take phase (c)'s argv (power_law's at 400,000) plus --devices 4;
+# power_law 400,000 also gets its single-card pallas run, for the rounds
+SHARDS = 4
+SHARDED_GRAPHS = {
+    "imp3D_1M": GRAPHS["imp3D_1M"],
+    "power_law_400000": (400_000, "power_law", {"seed": 0, "m": 4}),
+}
+_SHARDED_ARGV = {
+    "imp3D_1M": CLI_RUNS["imp3D_1M"],
+    "power_law_400000": ["400000"] + CLI_RUNS["power_law_1M"][1:],
+}
+SHARDED_CLI_RUNS = {
+    g: {name: [("routed" if a == "pallas" and name == "routed" else a)
+               for a in argv] + ["--devices", str(SHARDS)] + extra
+        for name, extra in (("pallas", []), ("routed", []),
+                            ("pallas_overlap", ["--exchange-overlap"]))}
+    for g, argv in _SHARDED_ARGV.items()}
 
 
 class SmokeFailure(RuntimeError):
@@ -757,6 +799,7 @@ def phase_routed(torch, pallas_runs):
     from gossipprotocol_tpu_torch.topology import build_topology
 
     records = []
+    matvecs = {}
     for gname in ROUTED_CLI_RUNS:
         n, topo_name, kw = GRAPHS[gname]
         topo = build_topology(topo_name, n, **kw)
@@ -800,7 +843,8 @@ def phase_routed(torch, pallas_runs):
         say(f"(g) {gname}: routed matvec == pallas matvec bitwise (s, w); "
             f"{r_ms:.4f} ms per routed matvec, {p_ms:.4f} ms per pallas "
             "matvec (CUDA events, host-paced)")
-        del rd, pd, a, b
+        matvecs[gname] = (share_s, share_w, a, r_ms)
+        del rd, pd, b
         torch.cuda.empty_cache()
     totals = {k: 0 for k in ROUTED_KERNELS}
     for gname, argv in ROUTED_CLI_RUNS.items():
@@ -840,6 +884,265 @@ def phase_routed(torch, pallas_runs):
             f"launches {counts}")
         for k in totals:
             totals[k] += counts[k]
+    return records, totals, matvecs
+
+
+# ---------------------------------------------------------------- (h)
+
+def _as_bytes(torch, t):
+    return t.contiguous().view(torch.int8)
+
+
+def exchange_kernel_ms(torch, slabs, overlap, iters=50):
+    """Device time of one exchange (one launch, or S on the ring): the
+    launcher called straight with prebuilt pointer tables, since the
+    wrapper's checks and allocation take longer on the host than the copy
+    takes on the card."""
+    import ctypes
+
+    from gossipprotocol_tpu_torch.ops import build
+
+    ns, block = slabs[0].shape
+    out = torch.empty((ns, ns, block), dtype=slabs[0].dtype, device="cuda")
+    src = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in slabs])
+    dst = (ctypes.c_void_p * ns)(*[out[d].data_ptr() for d in range(ns)])
+    lib = build.library("exchange")
+    stream = build.stream_handle(out.device)
+    row = block * slabs[0].element_size()
+    offsets = list(range(ns)) if overlap else [-1]
+
+    def launch():
+        for o in offsets:
+            lib.gossip_exchange(src, dst, ns, row, o, stream)
+
+    return cuda_ms(torch, launch, iters)
+
+
+def check_exchange(torch, records, gname, slabs, wire):
+    """The exchange kernel on one wire's real slabs, both schedules,
+    against its plain version and the one-permutation spelling."""
+    from gossipprotocol_tpu_torch.ops import pallasdelivery as pdm
+
+    ns, block = slabs[0].shape
+    nbytes = 2 * ns * ns * block * slabs[0].element_size()
+    stacked = torch.stack(slabs)
+    lib = lambda: stacked.transpose(0, 1).contiguous()  # noqa: E731
+    perm = pdm.exchange_plain(slabs)
+    for overlap in (False, True):
+        got = pdm.pallas_exchange(slabs, overlap=overlap)
+        plain = pdm.pallas_exchange_plain(slabs, overlap=overlap)
+        for d in range(ns):
+            for other, what in ((plain, "its plain version"),
+                                (perm, "exchange_plain")):
+                require(torch.equal(_as_bytes(torch, got[d]),
+                                    _as_bytes(torch, other[d])),
+                        f"pallas_exchange ({gname} {wire}, overlap "
+                        f"{overlap}) differs from {what} at shard {d}")
+        sched = "ring" if overlap else "all"
+        ms = exchange_kernel_ms(torch, slabs, overlap)
+        wrapper_ms = cuda_ms(torch, lambda: pdm.pallas_exchange(
+            slabs, overlap=overlap), 20)
+        plain_ms = cuda_ms(torch, lambda: pdm.pallas_exchange_plain(
+            slabs, overlap=overlap), 5)
+        lib_ms = cuda_ms(torch, lib, 20)
+        b_ms, b_by = bound(nbytes, 0)
+        records.append(dict(name="pallas_exchange", graph=gname,
+                            call=f"{wire} {sched}", shape=[ns, ns, block],
+                            max_abs_err=0.0, ms=ms, wrapper_ms=wrapper_ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib_ms, bytes=nbytes))
+        say(f"(h) pallas_exchange    {gname} {wire} {sched} "
+            f"[{ns}, {ns}, {block}] {slabs[0].dtype}: bitwise ok, "
+            f"{ms:.4f} ms ({'%d launches' % ns if overlap else '1 launch'}"
+            f"; through the wrapper {wrapper_ms:.4f}, host-paced), plain "
+            f"{plain_ms:.4f}, library transpose(0,1).contiguous() "
+            f"{lib_ms:.4f}, bound {b_ms:.4f} by {b_by}, "
+            f"{nbytes / 1e6:.2f} MB")
+
+
+def _run_cli(argv):
+    """``(rc, stdout, stderr, launch counts)`` of one in-process CLI run."""
+    from gossipprotocol_tpu_torch.cli import main
+    from gossipprotocol_tpu_torch.ops import (
+        kernel_launches, reset_kernel_launches,
+    )
+
+    buf, ebuf = io.StringIO(), io.StringIO()
+    reset_kernel_launches()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(ebuf):
+        rc = main(argv)
+    return rc, buf.getvalue(), ebuf.getvalue(), kernel_launches()
+
+
+def _routed_matvec(torch, topo):
+    """The single-card routed matvec on the first round's shares, for a
+    graph phase (g) did not build: ``(share_s, share_w, (in_s, in_w),
+    ms)``."""
+    from gossipprotocol_tpu_torch.ops.plancache import routed_delivery_cached
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+
+    rd, _ = routed_delivery_cached(topo, device="cuda")
+    st = pushsum_init(topo.num_nodes, device="cuda")
+    deg = rd.degree.float()
+    inv = torch.ones_like(deg) / (deg + 1)
+    share_s, share_w = st.s * inv, st.w * inv
+    out = rd.matvec(share_s, share_w)
+    ms = cuda_ms(torch, lambda: rd.matvec(share_s, share_w), 10)
+    del rd
+    torch.cuda.empty_cache()
+    return share_s, share_w, out, ms
+
+
+def _mean_gap(torch, topo, argv):
+    """|mean summed in shard order - torch.sum's mean| on the final state
+    of the sharded run of ``argv``'s delivery, run again."""
+    from gossipprotocol_tpu_torch.engine import RunConfig
+    from gossipprotocol_tpu_torch.parallel import run_simulation_sharded
+    from gossipprotocol_tpu_torch.parallel.sharded import shard_sum
+
+    res = run_simulation_sharded(topo, RunConfig(
+        device="cuda", predicate="global", tol=1e-4,
+        delivery=argv[argv.index("--delivery") + 1]), num_devices=SHARDS)
+    st = res.final_state
+    s, w = st.s.cuda(), st.w.cuda()
+    pad = (-s.numel()) % SHARDS
+    s = torch.nn.functional.pad(s, (0, pad))
+    w = torch.nn.functional.pad(w, (0, pad))
+    mine = shard_sum(SHARDS)(s) / torch.clamp(shard_sum(SHARDS)(w),
+                                              min=1e-30)
+    lib = s.sum() / torch.clamp(w.sum(), min=1e-30)
+    return abs(float(mine) - float(lib))
+
+
+def phase_sharded(torch, pallas_runs, matvecs):
+    from gossipprotocol_tpu_torch.convert import shard_push_from_numpy
+    from gossipprotocol_tpu_torch.ops import sharddelivery as sdm
+    from gossipprotocol_tpu_torch.ops.plancache import (
+        shard_push_deliveries_cached,
+    )
+    from gossipprotocol_tpu_torch.parallel import padded_size
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    records = []
+    topos = {}
+    for gname, (n, topo_name, kw) in SHARDED_GRAPHS.items():
+        topo = topos[gname] = build_topology(topo_name, n, **kw)
+        if gname not in matvecs:
+            matvecs[gname] = _routed_matvec(torch, topo)
+        n_padded = padded_size(topo.num_nodes, SHARDS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        host, prov = shard_push_deliveries_cached(topo, n_padded, SHARDS)
+        build_s = time.perf_counter() - t0
+        plans = shard_push_from_numpy(host, "cuda")
+        wire_bytes = {w: sdm.push_exchange_wire_bytes_per_round(host, w)
+                      for w in sdm.WIRES}
+        say(f"(h) {gname}: {SHARDS}-shard push plans {prov} in {build_s:.1f}"
+            f" s (workers {sdm.resolve_build_workers(None, SHARDS)}); "
+            f"local_n {host.local_n}, block_pairs {host.block_pairs}, "
+            f"m_pairs {host.m_pairs}, classes "
+            f"{[(c, k) for c, k, *_ in host.classes]}; exchange bytes per "
+            f"shard per round {wire_bytes}; tables "
+            f"{sdm.table_bytes(host) / 1e6:.1f} MB; peak device memory "
+            f"after placement {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+            " MiB")
+        share_s, share_w, routed, routed_ms = matvecs[gname]
+        # the exchange kernel at the real slab shapes
+        f_locals, slabs = plans.send(share_s, share_w)
+        qs, scales = sdm.quantize_int8(slabs)
+        for wire, payload in (("f32", slabs),
+                              ("bf16", [x.to(torch.bfloat16)
+                                        for x in slabs]),
+                              ("int8", qs), ("int8-scales", scales)):
+            check_exchange(torch, records, gname, payload, wire)
+        del f_locals, slabs, qs, scales
+        # the sharded matvec against (g)'s single-card routed matvec,
+        # timed in mirrored order
+        for exchange in sdm.EXCHANGES + sdm.EXCHANGES[::-1]:
+            got = plans.matvec(share_s, share_w, exchange=exchange)
+            for u, v, what in zip(got, routed, ("s", "w")):
+                require(bitwise_equal(torch, u, v),
+                        f"{SHARDS}-shard matvec ({gname}, {exchange}) "
+                        f"differs from the single-card routed matvec in "
+                        f"{what}: max abs err {max_abs_err(torch, u, v)}")
+            ms = cuda_ms(torch, lambda: plans.matvec(
+                share_s, share_w, exchange=exchange), 10)
+            say(f"(h) {gname}: {SHARDS}-shard matvec ({exchange}) == "
+                f"single-card routed matvec bitwise (s, w); {ms:.4f} ms "
+                f"per matvec against {routed_ms:.4f} single-card (CUDA "
+                "events, host-paced)")
+        for wire in ("bf16", "int8"):
+            got = plans.matvec(share_s, share_w, exchange="pallas",
+                               wire=wire)
+            err = max(max_abs_err(torch, u, v)
+                      for u, v in zip(got, routed))
+            rel = err / float(routed[0].abs().max())
+            say(f"(h) {gname}: {wire} wire matvec, max abs err against f32 "
+                f"{err:.3e} ({rel:.3e} of the largest in_s)")
+        del plans, host, got
+        torch.cuda.empty_cache()
+    totals = {"pallas_exchange": 0}
+    for gname, runs in SHARDED_CLI_RUNS.items():
+        if gname not in pallas_runs:
+            argv = _SHARDED_ARGV[gname] + ["--device", "cuda",
+                                          "--max-rounds", MAX_ROUNDS]
+            rc, text, _, _ = _run_cli(argv)
+            for line in text.splitlines():
+                say(f"(h) {gname} single-card pallas | {line}")
+            rounds = re.search(r"rounds: (\d+) \((\d+) executed\)", text)
+            err = re.search(r"max \|s/w - mean\| = (\S+)", text)
+            require(rc == 0 and rounds and err, f"single-card pallas CLI "
+                    f"run {gname} failed (rc {rc})")
+            pallas_runs[gname] = (int(rounds.group(1)), err.group(1))
+        want_rounds, want_err = pallas_runs[gname]
+        for name, argv in runs.items():
+            argv = argv + ["--device", "cuda", "--max-rounds", MAX_ROUNDS]
+            rc, text, etext, counts = _run_cli(argv)
+            for line in (etext + text).splitlines():
+                say(f"(h) {gname} {name} | {line}")
+            require(rc == 0, f"sharded CLI run {gname} {name} exited {rc}: "
+                    f"{' '.join(argv)}")
+            require(f"{SHARDS} shards on 1 card" in etext,
+                    f"sharded CLI run {gname} {name}: no placement line")
+            conv = re.search(r"Convergence Time: ([0-9.]+) ms", text)
+            rounds = re.search(r"rounds: (\d+) \((\d+) executed\)", text)
+            err = re.search(r"max \|s/w - mean\| = (\S+)", text)
+            require(conv and rounds and err, f"sharded CLI run {gname} "
+                    f"{name}: output lines missing")
+            n_rounds, n_exec = int(rounds.group(1)), int(rounds.group(2))
+            est = float(err.group(1))
+            require(est == est and est <= 2e-4, f"sharded CLI run {gname} "
+                    f"{name}: estimate error {est} above 2e-4")
+            if n_rounds == want_rounds:
+                require(err.group(1) == want_err,
+                        f"sharded CLI run {gname} {name}: estimate error "
+                        f"{err.group(1)}, the pallas run {want_err}")
+                note = "= pallas"
+            else:
+                require(abs(n_rounds - want_rounds) == 1,
+                        f"sharded CLI run {gname} {name}: {n_rounds} rounds, "
+                        f"the pallas run {want_rounds}")
+                gap = _mean_gap(torch, topos[gname], argv)
+                note = (f"one round from pallas's {want_rounds}; gap of the "
+                        f"shard-order mean to torch.sum's {gap:.3e}")
+            exch = counts["pallas_exchange"]
+            if name == "routed":
+                require(exch == 0, f"sharded CLI run {gname} routed: the "
+                        "exchange kernel ran on the all_to_all transport")
+            else:
+                require(exch > 0, f"sharded CLI run {gname} {name}: the "
+                        "exchange kernel was never launched")
+            for k in ("stage_call", "final_call", "class_expand_small",
+                      "class_reduce_small"):
+                require(counts[k] > 0, f"sharded CLI run {gname} {name}: "
+                        f"kernel {k} was never launched")
+            wall_ms = float(conv.group(1))
+            say(f"(h) {gname} {name}: rc 0, {n_rounds} rounds ({note}), "
+                f"{wall_ms:.3f} ms, {wall_ms / max(n_exec, 1):.4f} ms per "
+                f"executed round ({n_exec}), estimate_error {err.group(1)}, "
+                f"launches {counts}")
+            totals["pallas_exchange"] += exch
     return records, totals
 
 
@@ -891,9 +1194,15 @@ def main(argv=None) -> int:
             phase_card_vs_cpu(torch)
             records += phase_megakernel(torch)
             totals["megakernel"] = phase_megakernel_cli(torch)
-            routed_records, routed_totals = phase_routed(torch, pallas_runs)
+            routed_records, routed_totals, matvecs = phase_routed(
+                torch, pallas_runs)
             records += routed_records
             totals.update(routed_totals)
+            sharded_records, sharded_totals = phase_sharded(
+                torch, pallas_runs, matvecs)
+            del matvecs
+            records += sharded_records
+            totals.update(sharded_totals)
             kernels = summarize(records, totals)
         except SmokeFailure as e:
             print(f"FAIL: {e}", flush=True)

@@ -4,9 +4,11 @@ The JAX package (``gossipprotocol_tpu``) is the reference; this package
 grows beside it slice by slice and imports neither JAX nor it. Ported so
 far: fanout-all diffusion push-sum over the fused gather delivery
 (``python -m gossipprotocol_tpu_torch N topology push-sum --fanout all
---delivery pallas``) and over the K-round megakernel (``--delivery
-megakernel --rounds-per-kernel K``), with their five TPU kernels
-rewritten as CUDA for Hopper (``csrc/``), and the pallas plan cache.
+--delivery pallas``), the Clos-routed delivery (``--delivery routed``),
+the K-round megakernel (``--delivery megakernel --rounds-per-kernel K``)
+and sharded over S shards with the push design (``--devices S``), with
+their ten TPU kernels rewritten as CUDA for Hopper (``csrc/``), and the
+plan cache.
 Entry points run on ``cuda`` unless asked for ``cpu``, where each
 kernel's plain PyTorch version runs instead.
 """

@@ -1,3 +1,4 @@
 from gossipprotocol_tpu_torch.cli import main
 
-raise SystemExit(main())
+if __name__ == "__main__":
+    raise SystemExit(main())

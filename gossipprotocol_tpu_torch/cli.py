@@ -3,6 +3,8 @@
     python -m gossipprotocol_tpu_torch N TOPOLOGY push-sum \\
         --fanout all --delivery pallas|routed|megakernel
         [--rounds-per-kernel K]
+        [--devices S [--exchange-overlap] [--payload-wire f32|bf16|int8]
+         [--build-workers W] [--routed-design push]]
         [--plan-cache DIR|none] [--device cuda|cpu]
 
 The positional surface and the output follow the JAX package's CLI (the
@@ -27,9 +29,7 @@ _ALGO_ALIASES = {
 
 # flags of the JAX package's CLI that this port does not have yet
 UNPORTED_FLAGS = (
-    "--backend", "--devices", "--threshold", "--semantics",
-    "--routed-design", "--payload-wire",
-    "--exchange-overlap", "--build-workers", "--build",
+    "--backend", "--threshold", "--semantics", "--build",
     "--build-memory-budget", "--value-mode", "--payload-dim", "--workload", "--clock",
     "--activation-rate", "--groups", "--accel", "--accel-lambda", "--lr",
     "--local-steps", "--sgp-samples", "--loss-tol", "--x64",
@@ -69,6 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the run executes: cuda (the hand-written "
                         "kernels; fails without a card) or cpu (their "
                         "plain PyTorch versions)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="shard the node state over this many shards (the "
+                        "push design; every shard lives on the --device "
+                        "card, run in lockstep)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eps", type=float, default=1e-10,
                    help="push-sum: |Δ(s/w)| tolerance (Program.fs:116)")
@@ -95,6 +99,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernel, running --rounds-per-kernel rounds per "
                         "launch; all-alive, resident gather plans) are "
                         "ported")
+    p.add_argument("--routed-design", choices=["pull", "push"], default=None,
+                   help="sharded routed delivery variant (requires "
+                        "--delivery routed or pallas with --devices N). "
+                        "'push' (default): owner-computes — each shard "
+                        "expands only its owned rows and one exchange "
+                        "moves the edge shares, every table O(E/S + "
+                        "local_n). 'pull' is not yet ported")
+    p.add_argument("--payload-wire", choices=["f32", "bf16", "int8"],
+                   default="f32",
+                   help="wire format of the sharded push exchange "
+                        "(requires --devices N with --delivery "
+                        "routed/pallas). bf16 halves and int8 quarters "
+                        "the exchange bytes; accumulation stays f32. f32 "
+                        "(default) is the bitwise path")
+    p.add_argument("--exchange-overlap", action="store_true",
+                   help="the sharded push exchange on the ring schedule "
+                        "(one exchange-kernel launch per ring offset) "
+                        "instead of every copy in one launch (requires "
+                        "--devices N with --delivery routed/pallas; the "
+                        "same bytes move)")
+    p.add_argument("--build-workers", type=int, default=None, metavar="N",
+                   help="processes for cold sharded-plan builds (default "
+                        "min(num_shards, cpu_count)); plans are "
+                        "bitwise-identical for every N. 1 forces the "
+                        "serial builder")
     p.add_argument("--rounds-per-kernel", type=_positive_int, default=1,
                    metavar="K",
                    help="protocol rounds fused into one kernel launch "
@@ -139,6 +168,34 @@ def _unported(argv) -> str | None:
     return None
 
 
+def _check_sharding(args, cfg) -> None:
+    """The JAX CLI's rejections of the sharding flags (its messages),
+    raised as ValueError (exit 2)."""
+    if args.routed_design is not None and (
+            cfg.delivery not in ("routed", "pallas") or args.devices <= 1):
+        raise ValueError(
+            "--routed-design selects between the sharded routed "
+            "delivery variants — it needs --delivery routed (or "
+            "pallas, push-only) AND --devices N (got delivery=%r, "
+            "devices=%d)" % (cfg.delivery, args.devices))
+    if args.devices > 1 and (
+            cfg.delivery == "megakernel" or cfg.rounds_per_kernel > 1):
+        raise ValueError(
+            "the round-loop megakernel is single-chip only (the "
+            "in-kernel round has no exchange step) — drop --devices "
+            "or --rounds-per-kernel")
+    if cfg.payload_wire != "f32" and args.devices <= 1:
+        raise ValueError(
+            "--payload-wire compresses the sharded edge-share "
+            "exchange; a single-chip run has no wire — drop the flag "
+            "or add --devices N")
+    if cfg.exchange_overlap and args.devices <= 1:
+        raise ValueError(
+            "--exchange-overlap rewrites the sharded exchange; a "
+            "single-chip run has no exchange — drop the flag or add "
+            "--devices N")
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     bad = _unported(argv)
@@ -173,7 +230,7 @@ def main(argv=None) -> int:
         return 2
 
     from gossipprotocol_tpu_torch.engine.driver import (
-        RunConfig, resolve_device, run_simulation,
+        NotPortedError, RunConfig, resolve_device, run_simulation,
     )
     from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
     from gossipprotocol_tpu_torch.topology import build_topology
@@ -182,6 +239,12 @@ def main(argv=None) -> int:
     )
 
     try:
+        if args.routed_design == "pull":
+            raise NotPortedError(
+                "option not yet ported: --routed-design pull (the "
+                "sharded push design is ported)")
+        if args.devices < 1:
+            raise ValueError(f"--devices must be >= 1, got {args.devices}")
         device = resolve_device(args.device)
         cfg = RunConfig(
             algorithm=algo, seed=args.seed, eps=args.eps,
@@ -191,17 +254,29 @@ def main(argv=None) -> int:
             chunk_rounds=args.chunk_rounds,
             rounds_per_kernel=args.rounds_per_kernel,
             plan_cache=args.plan_cache, device=args.device,
+            routed_design=args.routed_design or "push",
+            payload_wire=args.payload_wire,
+            exchange_overlap=args.exchange_overlap,
+            build_workers=args.build_workers,
         )
         topo = build_topology(
             args.topology, args.num_nodes, seed=args.seed,
             avg_degree=args.avg_degree, m=args.attach, k=args.ws_k,
             beta=args.ws_beta,
         )
+        _check_sharding(args, cfg)
         if topo.implicit_full:
             raise ValueError(
                 f"delivery='{cfg.delivery}' needs an explicit edge list; "
                 "the complete graph has none (diffusion on K_n mixes in "
                 "one round via two reductions) — use delivery='scatter'")
+        if args.devices > 1:
+            from gossipprotocol_tpu_torch.parallel import (
+                make_mesh, placement_line,
+            )
+
+            mesh = make_mesh(args.devices, device)
+            print(placement_line(mesh), file=sys.stderr)
     except (ValueError, RuntimeError, NotImplementedError) as e:
         print(str(e), file=sys.stderr)
         return 2
@@ -211,7 +286,14 @@ def main(argv=None) -> int:
     if not args.quiet:
         print_start_banner(algo)
     try:
-        result = run_simulation(topo, cfg)
+        if args.devices > 1:
+            from gossipprotocol_tpu_torch.parallel import (
+                run_simulation_sharded,
+            )
+
+            result = run_simulation_sharded(topo, cfg, mesh=mesh)
+        else:
+            result = run_simulation(topo, cfg)
     except RoutedConfigError as e:
         print(str(e), file=sys.stderr)
         return 2

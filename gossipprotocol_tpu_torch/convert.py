@@ -223,3 +223,87 @@ def routed_delivery_from_numpy(rd, device="cuda"):
         n=n, nu=nu, m_pairs=m_pairs, classes=classes,
         realmask=torch.from_numpy(realmask.copy()).to(dev),
         degree=torch.from_numpy(degree.astype(np.int32)).to(dev), **groups)
+
+
+def _unstack_plan(dp, k: int):
+    """Shard ``k``'s plan of a stacked host-form plan (leading shard axis
+    on every table)."""
+    from gossipprotocol_tpu_torch.ops.exec import (
+        DeviceFinal, DevicePlan, DeviceStage,
+    )
+
+    return DevicePlan(
+        int(dp.unit), int(dp.nt_in), int(dp.nt_out),
+        tuple(DeviceStage(*(int(v) for v in tuple(st)[:6]),
+                          idx=np.asarray(st.idx)[k]) for st in dp.stages),
+        DeviceFinal(int(dp.final.k), np.asarray(dp.final.idx)[k],
+                    np.asarray(dp.final.mask)[k]))
+
+
+def shard_push_from_numpy(sd, device="cuda"):
+    """The placed :class:`~gossipprotocol_tpu_torch.ops.sharddelivery.
+    ShardPushDelivery` on ``device`` from a stacked host form — the
+    port's (``build_shard_push_deliveries``, the plan cache) or the JAX
+    package's ``build_shard_push_deliveries`` (same field names, numpy
+    leaves with a leading shard axis): one chain of placed plans per
+    shard. Checks the class geometry, the shard axis of every table, the
+    chain of plans against the matvec's lengths, and every plan's shapes
+    and index bounds."""
+    from gossipprotocol_tpu_torch.ops.sharddelivery import ShardPushDelivery
+
+    dev = resolve_device(device)
+    n, loc, ns = int(sd.n), int(sd.local_n), int(sd.num_shards)
+    nu, m_pairs, bp = int(sd.nu), int(sd.m_pairs), int(sd.block_pairs)
+    if ns < 1 or loc < 1 or n > ns * loc or ns * loc - n >= ns:
+        raise ValueError(f"partition of {n} nodes into {ns} shards of "
+                         f"{loc} rows is not the padded one")
+    if bp < 1 or bp % 64:
+        raise ValueError(f"block_pairs {bp} is not a positive multiple "
+                         "of 64")
+    classes = tuple(tuple(int(v) for v in c) for c in sd.classes)
+    cursor = caps = 0
+    for c, n_c, start, rows, cap in classes:
+        if c < 1 or c & (c - 1) or start != cursor or n_c > cap \
+                or rows * LANES != 2 * cap * c:
+            raise ValueError(f"class {(c, n_c, start, rows, cap)} does not "
+                             f"tile the layout at pair {cursor}")
+        cursor += cap * c
+        caps += cap
+    if cursor != m_pairs or caps != nu:
+        raise ValueError(f"classes cover {cursor} pairs and {caps} node "
+                         f"slots; m_pairs {m_pairs}, nu {nu}")
+    realmask = np.ascontiguousarray(sd.realmask, np.float32)
+    if realmask.shape != (ns, 2 * m_pairs) or not (
+            (realmask == 0.0) | (realmask == 1.0)).all():
+        raise ValueError(f"realmask must be 0/1 float32 "
+                         f"[{ns}, {2 * m_pairs}]")
+    degree = np.asarray(sd.degree)
+    if degree.shape != (ns, loc):
+        raise ValueError(f"degree shape {degree.shape} != ({ns}, {loc})")
+    slab = 2 * ns * bp
+    groups = {}
+    for name, need_in, need_out in (
+            ("plan_in", 2 * loc, 2 * nu),
+            ("plan_send", 2 * m_pairs, 2 * m_pairs + slab),
+            ("plan_recv", 2 * m_pairs + slab, 2 * m_pairs),
+            ("plan_out", 2 * nu, 2 * loc)):
+        stacked = getattr(sd, name)
+        for dp in stacked:
+            for a in ([st.idx for st in dp.stages]
+                      + [dp.final.idx, dp.final.mask]):
+                if np.asarray(a).shape[:1] != (ns,):
+                    raise ValueError(f"{name}: tables lack the leading "
+                                     f"axis of {ns} shards")
+        chains = tuple(tuple(plan_from_numpy(_unstack_plan(dp, k), dev)
+                             for dp in stacked) for k in range(ns))
+        c0 = chains[0]
+        if not c0 or c0[0].m_in_f32 < need_in \
+                or c0[-1].m_out_f32 < need_out:
+            raise ValueError(f"{name} does not take {need_in} values to "
+                             f"{need_out}")
+        groups[name] = chains
+    return ShardPushDelivery(
+        n=n, local_n=loc, num_shards=ns, nu=nu, m_pairs=m_pairs,
+        block_pairs=bp, classes=classes,
+        realmask=torch.from_numpy(realmask.copy()).to(dev),
+        degree=torch.from_numpy(degree.astype(np.int32)).to(dev), **groups)

@@ -16,9 +16,15 @@ with no host round-trip per round. The megakernel path
 (:func:`use_megakernel`) enqueues one launch per K rounds instead, and
 the kernel itself stops at convergence.
 
+The sharded push design (``--devices S``) has its own engine in
+``parallel/sharded.py`` over the same chunk runner; its fields here are
+``routed_design``, ``exchange_overlap``, ``payload_wire`` and
+``build_workers``.
+
 What is not yet ported exits as a :class:`NotPortedError` naming itself:
 gossip, the single-target sender, the ``scatter`` and ``invert``
-deliveries, faults, checkpoints, telemetry, sharding, sweeps.
+deliveries, the sharded pull design, faults, checkpoints, telemetry,
+sweeps.
 """
 
 from __future__ import annotations
@@ -81,6 +87,19 @@ class RunConfig:
                                    # ($GOSSIP_TPU_PLAN_CACHE or ~/.cache/
                                    # ...), "none" = off. A hit loads the
                                    # tables a build would produce
+    build_workers: Optional[int] = None  # processes for cold sharded-plan
+                                   # builds; None = min(shards, cpus).
+                                   # Plans do not depend on it
+    routed_design: str = "push"    # sharded routed delivery: "push"
+                                   # (owner-computes + edge-share
+                                   # exchange); "pull" is not yet ported
+    payload_wire: str = "f32"      # sharded edge-share slab wire dtype:
+                                   # "f32" (bitwise) | "bf16" | "int8"
+                                   # (quantized on the wire, f32
+                                   # accumulation)
+    exchange_overlap: bool = False  # sharded exchange on the ring
+                                   # schedule (pallas_exchange
+                                   # overlap=True); the same bytes move
     device: str = "cuda"
 
     def __post_init__(self):
@@ -114,6 +133,36 @@ class RunConfig:
                 f"chunk_rounds ({self.chunk_rounds}) must be a multiple "
                 f"of rounds_per_kernel ({self.rounds_per_kernel}) so "
                 "chunk boundaries land on super-step boundaries")
+        if self.delivery == "pallas" and self.routed_design == "pull":
+            raise ValueError(
+                "delivery='pallas' shards with the push design only "
+                "(the async remote-copy exchange replaces the push "
+                "path's all_to_all; pull has no edge-share exchange "
+                "to replace) — drop routed_design='pull'")
+        if self.routed_design not in ("push", "pull"):
+            raise ValueError("routed_design must be 'push' or 'pull'")
+        if self.routed_design == "pull":
+            raise NotPortedError(
+                "routed_design 'pull' is not yet ported (the sharded "
+                "push design is)")
+        if self.payload_wire not in ("f32", "bf16", "int8"):
+            raise ValueError(
+                "payload_wire must be 'f32', 'bf16', or 'int8'")
+        if self.payload_wire != "f32" \
+                and self.delivery not in ("routed", "pallas"):
+            raise ValueError(
+                "payload_wire compresses the sharded push-design "
+                "edge-share slab; it requires delivery='routed' or "
+                "'pallas' (the scatter paths ship no slab, and the "
+                "megakernel is single-chip)")
+        if self.exchange_overlap \
+                and self.delivery not in ("routed", "pallas"):
+            raise ValueError(
+                "exchange_overlap schedules the sharded push-design "
+                "exchange on the double-buffered DMA ring; it "
+                "requires delivery='routed' or 'pallas'")
+        if self.build_workers is not None and self.build_workers < 1:
+            raise ValueError("build_workers must be >= 1")
         if self.predicate not in ("delta", "global"):
             raise ValueError("predicate must be 'delta' or 'global'")
         if self.value_mode not in ("scaled", "index"):
@@ -316,9 +365,10 @@ def warm_start(step, state) -> None:
 
 
 def _drive(cfg: RunConfig, state, step, num_nodes: int,
-           compile_ms: float) -> RunResult:
+           compile_ms: float, trim=None) -> RunResult:
     """Host loop: chunks up to ``max_rounds`` and the convergence
-    verdict."""
+    verdict. ``trim`` cuts a padded final state to the real rows (the
+    sharded engine)."""
     cur_round = int(state.round)
     done = False
     executed = 0
@@ -336,6 +386,8 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
     if state.s.is_cuda:
         torch.cuda.synchronize(state.s.device)
     wall_ms = (time.perf_counter() - t0) * 1e3
+    if trim is not None:
+        state = trim(state)
     return RunResult(
         converged=bool(done), rounds=cur_round, wall_ms=wall_ms,
         compile_ms=compile_ms, num_nodes=num_nodes,

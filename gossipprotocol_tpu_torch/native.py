@@ -58,6 +58,11 @@ class _Lib:
 
 _LIB = _Lib()
 
+# threads a single-threaded build spreads route_tiles_full over (None:
+# one per core); set_native_threads lowers it in build-pool workers so
+# W workers x their threads stay within the host's cores
+_THREADS: Optional[int] = None
+
 
 def enabled() -> bool:
     """False under ``GOSSIP_TPU_NATIVE=0`` (the numpy mirror runs)."""
@@ -205,8 +210,8 @@ def route_tiles_full(perms: np.ndarray, unit: int) -> Optional[np.ndarray]:
     idx = np.empty((t, 3, 128, 128), np.int8)
     # a single-threaded build spreads the tiles over threads here instead
     # (ctypes releases the GIL; tiles are independent, writes disjoint)
-    workers = 1 if "-fopenmp" in _LIB.flags else min(os.cpu_count() or 1,
-                                                      t // 16)
+    workers = 1 if "-fopenmp" in _LIB.flags else min(
+        _THREADS or os.cpu_count() or 1, t // 16)
     bounds = np.linspace(0, t, max(workers, 1) + 1).astype(np.int64)
 
     def run(lo_hi):
@@ -226,8 +231,12 @@ def route_tiles_full(perms: np.ndarray, unit: int) -> Optional[np.ndarray]:
 
 
 def set_native_threads(n: int) -> None:
-    """Clamp the library's OpenMP thread count (results never depend on
-    it); a no-op under ``GOSSIP_TPU_NATIVE=0``."""
+    """Clamp the library's thread count — OpenMP's, or the Python threads
+    a single-threaded build spreads the tile router over (results never
+    depend on it); the OpenMP half is a no-op under
+    ``GOSSIP_TPU_NATIVE=0``."""
+    global _THREADS
+    _THREADS = max(1, int(n))
     lib = _load()
     if lib is not None:
         lib.set_native_threads(int(n))

@@ -1,12 +1,13 @@
 """Hand-written CUDA kernels of the port and their host-side plans.
 
 ``classops`` (the degree-class folds and expands), ``pallasdelivery``
-(the two tile gathers and the fused delivery), ``exec`` (the Clos
-routing passes of the routed delivery, ``delivery``) and ``megakernel``
-(K whole rounds per launch) each keep a plain PyTorch version beside the
-kernel; ``plan`` and ``clos`` compile the routing plans on the host;
-``plancache`` caches the deliveries' plans on disk; ``build`` compiles
-``csrc/*.cu`` at first use.
+(the two tile gathers, the fused delivery and the sharded edge-share
+exchange), ``exec`` (the Clos routing passes of the routed delivery,
+``delivery``) and ``megakernel`` (K whole rounds per launch) each keep a
+plain PyTorch version beside the kernel; ``plan`` and ``clos`` compile
+the routing plans on the host, ``sharddelivery`` the sharded push
+design's per-shard plans; ``plancache`` caches the deliveries' plans on
+disk; ``build`` compiles ``csrc/*.cu`` at first use.
 """
 
 from gossipprotocol_tpu_torch.ops import classops, exec, pallasdelivery

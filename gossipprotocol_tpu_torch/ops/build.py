@@ -29,7 +29,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 
 # one shared library per source; the launchers each library exports
-SOURCES = ("classops", "gather", "megakernel", "route")
+SOURCES = ("classops", "exchange", "gather", "megakernel", "route")
 
 # sm_90a (Hopper). No --use_fast_math: the folds must keep denormals and
 # IEEE rounding; --fmad=false forbids contraction, so the one fused
@@ -44,6 +44,7 @@ _VOIDP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
 _F32 = ctypes.c_float
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
 
 # argtypes of every exported launcher (pointers and the stream as void*,
 # so ctypes never truncates them to 32 bits)
@@ -53,6 +54,11 @@ _SIGNATURES = {
         "gossip_class_reduce_split": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
         "gossip_class_expand_small": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
         "gossip_class_expand_split": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
+    },
+    "exchange": {
+        # src pointers, dst pointers, shards, row bytes, ring offset
+        # (-1: all pairs), stream
+        "gossip_exchange": (_PTRS, _PTRS, _INT, _LL, _INT, _VOIDP),
     },
     "gather": {
         "gossip_gather_resident": (_VOIDP, _VOIDP, _VOIDP, _LL, _VOIDP),

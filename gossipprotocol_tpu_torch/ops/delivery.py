@@ -84,10 +84,9 @@ def class_order(cls: np.ndarray, n: int, shuffle_seed: int = 0xC105):
     return order, rank, nu
 
 
-def class_layout(c_sorted: np.ndarray):
-    """(classes, node_start_pair, m_pairs, pair_stride) from the sorted
-    class vector (the single-chip form of the JAX package's
-    ``class_layout``: no forced per-shard capacities).
+def class_layout(c_sorted: np.ndarray, caps: dict | None = None):
+    """(classes, node_start_pair, m_pairs, cap_node_pos, pair_stride)
+    from the sorted class vector.
 
     Pallas-aligned regions (see ops/classops): small classes pad to
     BLK-row multiples with phantom node slots; hub classes (2c > 128)
@@ -102,33 +101,59 @@ def class_layout(c_sorted: np.ndarray):
     consecutive sub-class chunks (``cap * 64`` for split-class nodes;
     64 for small-class nodes, where it is never exercised because
     k < c <= 64 keeps every slot in chunk 0).
+
+    ``caps``: optional forced per-class node-capacity minima
+    (``{class: n_c_min}``) — the geometry-uniformization hook of the
+    per-shard plans (``ops/sharddelivery.py``), which run one program
+    geometry on every shard; classes present in ``caps`` but absent
+    from this shard's data are injected with ``n_c = 0``.
+
+    ``cap_node_pos``: int64 [nu] — each dense-ordered node's position in
+    the capacity-padded node-slot sequence (classes occupy ``cap`` node
+    slots each); the shard deliveries address that sequence.
     """
     nu = len(c_sorted)
-    cb = np.r_[0, np.flatnonzero(np.diff(c_sorted)) + 1, nu] if nu else []
+    if nu:
+        cb = np.r_[0, np.flatnonzero(np.diff(c_sorted)) + 1, nu]
+        present = {int(c_sorted[i]): (int(i), int(j))
+                   for i, j in zip(cb[:-1], cb[1:])}
+    else:
+        present = {}
+    all_cls = sorted(set(present) | set(caps or {}))
     classes = []
     node_start_pair = np.zeros(nu, np.int64)
+    cap_node_pos = np.zeros(nu, np.int64)
     pair_stride = np.full(nu, 64, np.int64)
     cursor = 0
-    for i, j in zip(cb[:-1], cb[1:]):
-        c, n_c = int(c_sorted[i]), int(j - i)
+    cap_nodes = 0
+    for c in all_cls:
+        i, j = present.get(c, (0, 0))
+        n_c = j - i
+        n_eff = max(n_c, (caps or {}).get(c, 0))
+        if n_eff == 0:
+            continue
         if 2 * c <= 128:
-            rows = -(-(n_c * 2 * c) // 128)
+            rows = -(-(n_eff * 2 * c) // 128)
             rows = -(-rows // BLK) * BLK
             cap = rows * 128 // (2 * c)
             node_start_pair[i:j] = (cursor
                                     + np.arange(n_c, dtype=np.int64) * c)
         else:
-            # hub split: q sub-classes of 64 pairs, sub-class-major
+            # hub split: q sub-classes of 64 pairs, sub-class-major; the
+            # alignment is idempotent under forced caps
             q = (2 * c) // 128
-            align = 8 if n_c <= BLK else BLK
-            cap = -(-n_c // align) * align
+            align = 8 if n_eff <= BLK else BLK
+            cap = -(-n_eff // align) * align
             rows = q * cap
             node_start_pair[i:j] = (cursor
                                     + np.arange(n_c, dtype=np.int64) * 64)
             pair_stride[i:j] = cap * 64
+        cap_node_pos[i:j] = cap_nodes + np.arange(n_c, dtype=np.int64)
         classes.append((c, n_c, int(cursor), int(rows), int(cap)))
         cursor += cap * c
-    return tuple(classes), node_start_pair, int(cursor), pair_stride
+        cap_nodes += cap
+    return (tuple(classes), node_start_pair, int(cursor), cap_node_pos,
+            pair_stride)
 
 
 def edge_pair_slot(node_start_pair: np.ndarray, pair_stride: np.ndarray,
@@ -274,7 +299,7 @@ def build_routed_delivery_np(topo, progress=None) -> RoutedDelivery:
     # sub-class-major hub-splitting layout, with aligned node capacity.
     # Phantom/class-pad slots are -1 (never routed) and read as exact
     # zeros out of the final pass.
-    classes, node_start_pair, m_pairs, pair_stride = class_layout(
+    classes, node_start_pair, m_pairs, _, pair_stride = class_layout(
         cls[order])
 
     if progress:

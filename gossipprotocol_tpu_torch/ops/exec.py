@@ -27,6 +27,7 @@ On the card the three gathers compose into one per output element
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, NamedTuple, Tuple
 
 import numpy as np
@@ -116,6 +117,27 @@ def device_plan(plan: RoutePlan) -> DevicePlan:
 
 # ---- the Clos route, plain -----------------------------------------------
 
+# The plain path decodes the same int8 tables every round. On the CPU the
+# decoded form of a small table is kept for the table's lifetime (keyed
+# by the tensor object); a large table, or one on the card, is decoded
+# per call.
+_DECODED: dict = {}
+_MEMO_MAX_ELEMS = 1 << 22
+
+
+def _memo(table: torch.Tensor, tag, fn):
+    if table.device.type != "cpu" or table.numel() > _MEMO_MAX_ELEMS:
+        return fn()
+    key = (id(table), tag)
+    hit = _DECODED.get(key)
+    if hit is not None and hit[0]() is table:
+        return hit[1]
+    value = fn()
+    _DECODED[key] = (weakref.ref(table, lambda _r, k=key:
+                                 _DECODED.pop(k, None)), value)
+    return value
+
+
 def widen_idx(planes: torch.Tensor, unit: int):
     """Stored index planes ``[..., 3, 64|128, 128]`` int8 -> the three
     lane-gather index arrays ``(i1, i2, i3)``, int64 ``[..., 128, 128]``.
@@ -139,7 +161,7 @@ def route_plain(x: torch.Tensor, planes: torch.Tensor,
     """The JAX kernel's ``_route_one``, batched: ``a = G(x, i1)``,
     ``b = G(aᵀ, i2)``, ``y = G(bᵀ, i3)`` over the last two dims
     (``x`` [..., 128, 128] broadcast against the planes' batch dims)."""
-    i1, i2, i3 = widen_idx(planes, unit)
+    i1, i2, i3 = _memo(planes, unit, lambda: widen_idx(planes, unit))
     x = x.expand(i1.shape)
     a = torch.gather(x, -1, i1)
     b = torch.gather(a.transpose(-1, -2), -1, i2)
@@ -275,7 +297,7 @@ def final_call_plain(fin: DeviceFinal, nt_out: int, cur: torch.Tensor,
                      "final_call")
     _check_mask(fin, nt_out)
     y = route_plain(cur.view(nt_out, fin.k, LANES, LANES), fin.idx, unit)
-    bits = final_bits(fin.mask)
+    bits = _memo(fin.mask, "bits", lambda: final_bits(fin.mask))
     acc = torch.zeros((nt_out, LANES, LANES), dtype=cur.dtype,
                       device=cur.device)
     for kk in range(fin.k):

@@ -20,6 +20,10 @@ per-gather mode:
 The gathers run as CUDA kernels on the card (``csrc/gather.cu``) and as
 their plain PyTorch versions on the CPU. The name of the option and of
 this module stay the JAX package's, so each module has one counterpart.
+
+The sharded push design's edge-share exchange lives here too, as in the
+JAX package: :func:`pallas_exchange` (``csrc/exchange.cu`` on the card)
+and :func:`exchange_plain`, the one-permutation spelling.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ RESIDENT_ROWS_DEFAULT = 8192
 
 # kernel launches since the last reset (counted where each wrapper
 # launches its kernel; the CPU path launches nothing)
-LAUNCHES = {"gather_resident": 0, "gather_bucket": 0}
+LAUNCHES = {"gather_resident": 0, "gather_bucket": 0, "pallas_exchange": 0}
 
 
 def _resident_rows() -> int:
@@ -355,7 +359,7 @@ def build_pallas_delivery_np(topo: Topology,
             f"pallas delivery: max degree {int(degree.max())} >= 2**28")
     cls = degree_classes(degree)
     order, rank, nu = class_order(cls, n)
-    classes, node_start_pair, m_pairs, pair_stride = class_layout(
+    classes, node_start_pair, m_pairs, _, pair_stride = class_layout(
         cls[order])
 
     # fold-input slot of every directed edge u->v: position of the
@@ -415,3 +419,94 @@ def build_pallas_delivery(topo: Topology, device="cuda",
         topo, resident_rows)
     return delivery_from_numpy(n, nu, m_pairs, classes, pre, out, degree,
                                device=device)
+
+
+# ---- sharded edge-share exchange ----------------------------------------
+
+MAX_EXCHANGE_SHARDS = 64   # csrc/exchange.cu's pointer table
+
+
+def _check_slabs(slabs, what: str):
+    """S slabs, each ``[S, block]``, of one dtype, shape and device."""
+    slabs = list(slabs)
+    if not slabs:
+        raise ValueError(f"{what}: no slabs")
+    ns, s0 = len(slabs), slabs[0]
+    for t in slabs:
+        if t.dim() != 2 or t.shape[0] != ns:
+            raise ValueError(f"{what}: each of the {ns} slabs must be "
+                             f"[{ns}, block], got {tuple(t.shape)}")
+        if t.shape != s0.shape or t.dtype != s0.dtype \
+                or t.device != s0.device:
+            raise ValueError(f"{what}: slabs differ in shape, dtype or "
+                             "device")
+    return slabs, ns, int(s0.shape[1])
+
+
+def exchange_plain(slabs):
+    """``out_d[s] = slab_s[d]`` as one PyTorch permutation of the stacked
+    ``[S, S, block]`` slabs — the counterpart of the JAX package's
+    ``jax.lax.all_to_all`` (``--delivery routed`` without
+    ``--exchange-overlap``), and the kernel's reference. Returns the S
+    outputs ``[S, block]``."""
+    slabs, _, _ = _check_slabs(slabs, "exchange_plain")
+    return list(torch.stack(slabs).transpose(0, 1).contiguous().unbind(0))
+
+
+def pallas_exchange_plain(slabs, overlap: bool = False):
+    """Plain PyTorch body of :func:`pallas_exchange`: the TPU kernel's
+    row copies in its order — every ``(me, d)`` copy, or the ring steps
+    ``o = 0 .. S-1`` (row ``me`` to shard ``(me + o) % S``)."""
+    slabs, ns, block = _check_slabs(slabs, "pallas_exchange")
+    out = torch.empty((ns, ns, block), dtype=slabs[0].dtype,
+                      device=slabs[0].device)
+    if overlap:
+        for o in range(ns):
+            for me in range(ns):
+                d = (me + o) % ns
+                out[d, me] = slabs[me][d]
+    else:
+        for me in range(ns):
+            for d in range(ns):
+                out[d, me] = slabs[me][d]
+    return list(out.unbind(0))
+
+
+def pallas_exchange(slabs, overlap: bool = False):
+    """The push design's edge-share exchange: shard ``s``'s ``slabs[s]``
+    (``[S, block]``, f32, bf16 or int8 — any dtype, the copy moves bytes)
+    to the S outputs, ``out[d][s] = slabs[s][d]``.
+
+    On CUDA: ``csrc/exchange.cu`` ``exchange_kernel``, replacing the
+    Pallas kernel at ``gossipprotocol_tpu/ops/pallasdelivery.py:491``
+    (``pallas_call`` at :542). The slabs need not be one tensor: the
+    kernel takes their base pointers. ``overlap=False`` copies every
+    ``(s, d)`` row in one launch; ``overlap=True`` (``--exchange-overlap``)
+    issues the JAX ring order as S launches, one per offset. Bound by
+    bytes. A CPU tensor takes :func:`pallas_exchange_plain`."""
+    slabs, ns, block = _check_slabs(slabs, "pallas_exchange")
+    dev = slabs[0].device
+    if dev.type == "cpu":
+        return pallas_exchange_plain(slabs, overlap)
+    if dev.type != "cuda":
+        raise ValueError(f"pallas_exchange: no kernel for device {dev}")
+    if ns > MAX_EXCHANGE_SHARDS:
+        raise ValueError(f"pallas_exchange: {ns} shards, the kernel's "
+                         f"table holds {MAX_EXCHANGE_SHARDS}")
+    for t in slabs:
+        if not t.is_contiguous():
+            raise ValueError("pallas_exchange: expected contiguous slabs")
+    out = torch.empty((ns, ns, block), dtype=slabs[0].dtype, device=dev)
+    outs = list(out.unbind(0))
+    import ctypes
+
+    src = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in slabs])
+    dst = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in outs])
+    row_bytes = block * slabs[0].element_size()
+    lib = build.library("exchange")
+    stream = build.stream_handle(dev)
+    for offset in (range(ns) if overlap else (-1,)):
+        rc = lib.gossip_exchange(src, dst, ns, row_bytes, offset, stream)
+        build.check(lib, rc, "pallas_exchange")
+        LAUNCHES["pallas_exchange"] += 1
+    return outs

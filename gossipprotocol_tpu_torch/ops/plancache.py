@@ -1,6 +1,6 @@
-"""Disk cache of the single-chip delivery plans (the routed and pallas
-halves of ``gossipprotocol_tpu/ops/plancache.py``; the sharded and push
-entry families are not yet ported).
+"""Disk cache of the delivery plans (the routed, pallas and sharded-push
+halves of ``gossipprotocol_tpu/ops/plancache.py``; the sharded pull
+family is not yet ported).
 
 The plan build is O(E) host work, while its tables are a pure function
 of the adjacency. They are cached keyed by a blake2b digest of the CSR,
@@ -8,8 +8,9 @@ one uncompressed ``.npz`` per topology, published through ``os.replace``
 so a crashed build never leaves a truncated entry behind.
 
 The on-disk format is the JAX package's, byte for byte in layout and key:
-``routed_v2_<key>.npz`` (routed) and ``routedpl_v2_<key>.npz`` (pallas)
-under the same directory (``$GOSSIP_TPU_PLAN_CACHE``, else
+``routed_v2_<key>.npz`` (routed), ``routedpl_v2_<key>.npz`` (pallas) and
+``routedpush_v2_<key>_p<n_padded>x<shards>.npz`` (the sharded push
+design, keyed by the partition too) under the same directory (``$GOSSIP_TPU_PLAN_CACHE``, else
 ``~/.cache/gossipprotocol_tpu/routed-plans``), so an entry written by
 either package is read by the other (``tests/test_torch_plancache.py``).
 The routed realmask, the one highly compressible array, is stored
@@ -395,6 +396,149 @@ def pallas_delivery_cached(topo, cache_dir: Optional[str] = None,
     return _cached(topo, cache_dir, progress, device, "pallas",
                    pallas_entry_path, load_pallas, save_pallas,
                    build_pallas_delivery_np, _place_pallas)
+
+
+# ---- sharded push deliveries ---------------------------------------------
+
+_PUSH_PLAN_GROUPS = ("plan_in", "plan_send", "plan_recv", "plan_out")
+
+
+def push_entry_path(cache_dir: str, key: str, n_padded: int,
+                    num_shards: int) -> str:
+    # the "routedpush_" prefix keeps the entry under _evict_over_budget's
+    # family filter (the JAX package's naming)
+    return os.path.join(
+        cache_dir,
+        f"routedpush_v{FORMAT_VERSION}_{key}_p{n_padded}x{num_shards}.npz")
+
+
+def save_push_shards(stacked, path: str,
+                     provenance: Optional[dict] = None) -> None:
+    """Serialize a stacked host-form push delivery (numpy leaves with a
+    leading shard axis: the port's or the JAX package's
+    ``build_shard_push_deliveries``)."""
+    arrays: dict = {}
+    meta = {
+        "format": FORMAT_VERSION,
+        "n": int(stacked.n), "local_n": int(stacked.local_n),
+        "num_shards": int(stacked.num_shards),
+        "nu": int(stacked.nu), "m_pairs": int(stacked.m_pairs),
+        "block_pairs": int(stacked.block_pairs),
+        "classes": [[int(v) for v in c] for c in stacked.classes],
+        "realmask_shape": list(np.asarray(stacked.realmask).shape),
+    }
+    if provenance:
+        meta["provenance"] = provenance
+    for group in _PUSH_PLAN_GROUPS:
+        meta[group] = [_pack_plan(f"{group}{i}", dp, arrays)
+                       for i, dp in enumerate(getattr(stacked, group))]
+    arrays["realmask_bits"] = np.packbits(
+        np.asarray(stacked.realmask).astype(bool))
+    arrays["degree"] = np.asarray(stacked.degree, np.int32)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + f".tmp{os.getpid()}.npz"
+    try:
+        np.savez(tmp, __meta__=json.dumps(meta), **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load_push_shards(path: str):
+    """The stacked host-form push delivery of a cache entry, or None
+    (absent, unreadable, or of another format)."""
+    from gossipprotocol_tpu_torch.ops.sharddelivery import ShardPushDelivery
+
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["__meta__"]))
+            if meta.get("format") != FORMAT_VERSION:
+                return None
+            shape = tuple(meta["realmask_shape"])
+            realmask = np.unpackbits(
+                z["realmask_bits"], count=int(np.prod(shape))
+            ).astype(np.float32).reshape(shape)
+            try:
+                os.utime(path)  # LRU signal for _evict_over_budget
+            except OSError:
+                pass
+            return ShardPushDelivery(
+                n=meta["n"], local_n=meta["local_n"],
+                num_shards=meta["num_shards"],
+                nu=meta["nu"], m_pairs=meta["m_pairs"],
+                block_pairs=meta["block_pairs"],
+                classes=tuple(tuple(c) for c in meta["classes"]),
+                **{g: tuple(_unpack_plan(f"{g}{i}", m, z)
+                            for i, m in enumerate(meta[g]))
+                   for g in _PUSH_PLAN_GROUPS},
+                realmask=realmask,
+                degree=z["degree"],
+            )
+    except (OSError, ValueError, KeyError, json.JSONDecodeError,
+            zipfile.BadZipFile):
+        return None
+
+
+def shard_push_deliveries_cached(topo, n_padded: int, num_shards: int,
+                                 cache_dir: Optional[str] = None,
+                                 progress=None,
+                                 build_workers: Optional[int] = None):
+    """Cache-aware :func:`~gossipprotocol_tpu_torch.ops.sharddelivery.
+    build_shard_push_deliveries`: ``(stacked host-form delivery,
+    provenance)``, provenance ``"hit"``, ``"miss"`` (built and saved) or
+    ``"off"`` (``cache_dir == "none"``). Entries are keyed by the
+    adjacency digest and the partition; ``build_workers`` is build-side
+    only, never part of the key. The caller places the tables
+    (``convert.shard_push_from_numpy``)."""
+    from gossipprotocol_tpu_torch.ops.sharddelivery import (
+        build_shard_push_deliveries, resolve_build_workers,
+    )
+
+    def build():
+        return build_shard_push_deliveries(
+            topo, n_padded, num_shards, progress=progress,
+            build_workers=build_workers)
+
+    cache_dir = cache_dir or default_cache_dir()
+    if cache_dir == "none":
+        return build(), "off"
+    path = push_entry_path(cache_dir, cache_key(topo), n_padded,
+                           num_shards)
+    stacked = load_push_shards(path)
+    if stacked is not None:
+        if progress:
+            progress(f"push routed delivery: plan cache hit ({path})"
+                     f"{_provenance_note(path)}")
+        return stacked, "hit"
+    with _single_flight(path) as wait_s:
+        if wait_s:
+            stacked = load_push_shards(path)
+            if stacked is not None:
+                if progress:
+                    progress(f"push routed delivery: plan cache hit after "
+                             f"single-flight wait ({wait_s:.2f}s; {path})"
+                             f"{_provenance_note(path)}")
+                return stacked, "hit"
+        t0 = time.perf_counter()
+        stacked = build()
+        prov = _provenance(time.perf_counter() - t0,
+                           resolve_build_workers(build_workers, num_shards))
+        if wait_s:
+            prov["single_flight_wait_s"] = round(wait_s, 3)
+        try:
+            save_push_shards(stacked, path, provenance=prov)
+            _evict_over_budget(cache_dir, keep=path)
+            if progress:
+                progress(f"push routed delivery: plans cached ({path}); "
+                         f"built in {prov['build_s']}s with "
+                         f"{prov['build_workers']} workers")
+        except OSError as e:
+            warnings.warn(f"push plan cache write failed ({e}); "
+                          "continuing uncached")
+    return stacked, "miss"
 
 
 def _evict_over_budget(cache_dir: str, keep: str) -> None:

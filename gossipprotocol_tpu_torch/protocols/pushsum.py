@@ -29,12 +29,14 @@ def rowmask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def finish_pushsum_round(state: PushSumState, s_new: torch.Tensor,
                          w_new: torch.Tensor, *, eps: float,
                          streak_target: int, predicate: str, tol: float,
-                         all_alive: bool) -> PushSumState:
+                         all_alive: bool, all_sum=sum0) -> PushSumState:
     """Shared round tail: estimate refresh + convergence predicate.
 
     The ``1e-30`` floor guards dead rows and alive rows whose weight
     underflowed (0/0 would be NaN). Divisions take tensor divisors (see
     :func:`~gossipprotocol_tpu_torch.protocols.state.pushsum_init`).
+    ``all_sum`` sums over the node axis for the global mean (the sharded
+    engine passes its shard-ordered sum).
     """
     floor = torch.clamp(w_new, min=1e-30)
     ratio_new = s_new / rowmask(floor, s_new)
@@ -43,7 +45,8 @@ def finish_pushsum_round(state: PushSumState, s_new: torch.Tensor,
             rowmask(state.alive, s_new), s_new, torch.zeros_like(s_new))
         w_healthy = w_new if all_alive else torch.where(
             state.alive, w_new, torch.zeros_like(w_new))
-        mean = sum0(s_healthy) / torch.clamp(sum0(w_healthy), min=1e-30)
+        mean = all_sum(s_healthy) / torch.clamp(all_sum(w_healthy),
+                                                min=1e-30)
         near = torch.abs(ratio_new - mean) <= tol
         streak = torch.where(near, state.streak + 1,
                              torch.zeros_like(state.streak))

@@ -9,21 +9,26 @@ megakernel's K cost (the port's counterpart of
         --rounds-per-kernel 16 [--predicate delta --eps 1e-7]
     python -m gossipprotocol_tpu_torch.utils.profiling \\
         --nodes 1000000 --topology power_law --delivery routed
+    python -m gossipprotocol_tpu_torch.utils.profiling \\
+        --nodes 1000000 --topology imp3D --delivery pallas --devices 4
 
 Builds the graph and its delivery on ``cuda``, then:
 
   1. profiles ROUNDS rounds with ``torch.profiler`` (the per-round path
-     over the pallas or the routed delivery, or ROUNDS / K launches of
-     the K-round kernel, with the predicate disabled, so every round
+     over the pallas or the routed delivery, ROUNDS / K launches of the
+     K-round kernel, or with ``--devices S`` the sharded push round over
+     S shards on the card, with the predicate disabled, so every round
      runs): device time per kernel name per round, and the host time
      spent enqueuing a round; times the same rounds with CUDA events, and
      reports the device's idle share of that window (1 - busy / event
      time);
   2. runs the protocol to convergence once per setting, in mirrored
      order: per chunk size in CHUNKS (``--delivery pallas``), per K in KS
-     against the per-round pallas path (``--delivery megakernel``), or
-     routed against pallas (``--delivery routed``), reporting the
-     convergence time, the rounds, and the rounds executed.
+     against the per-round pallas path (``--delivery megakernel``),
+     routed against pallas (``--delivery routed``), or with ``--devices
+     S`` the sharded pallas, routed and ring-exchange runs against the
+     single-card pallas and routed runs, reporting the convergence time,
+     the rounds, and the rounds executed.
 
 Prints a table and one JSON line; ``--out FILE`` also writes the JSON
 there. Needs a CUDA device.
@@ -57,6 +62,137 @@ def _kernel_table(prof, rounds):
     return rows
 
 
+def _profile_rounds(rounds, dev):
+    """Profile, then time, ``rounds()`` (ROUNDS rounds): ``(kernel table,
+    busy ms/round, CUDA-event ms/round, host enqueue ms/round, idle
+    share)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        rounds()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rounds()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / ROUNDS
+        torch.cuda.synchronize(dev)
+    table = _kernel_table(prof, ROUNDS)
+    busy_ms = sum(r[2] for r in table)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rounds()
+    stop.record()
+    stop.synchronize()
+    event_ms = start.elapsed_time(stop) / ROUNDS
+    return table, busy_ms, event_ms, enqueue_ms, max(0.0, 1 - busy_ms
+                                                     / event_ms)
+
+
+def _profile_sharded(topo, cfg, shards: int, out_path) -> int:
+    """``--devices S``: the sharded push round over S shards on the card,
+    then convergence against the single-card paths."""
+    from gossipprotocol_tpu_torch.convert import shard_push_from_numpy
+    from gossipprotocol_tpu_torch.engine.driver import (
+        _drive, build_protocol, device_arrays, make_chunk_runner,
+        warm_start,
+    )
+    from gossipprotocol_tpu_torch.ops.plancache import (
+        shard_push_deliveries_cached,
+    )
+    from gossipprotocol_tpu_torch.parallel import make_mesh, padded_size
+    from gossipprotocol_tpu_torch.parallel.sharded import (
+        exchange_of, make_sharded_chunk_runner, sharded_protocol,
+        trim_state,
+    )
+
+    mesh = make_mesh(shards, "cuda")
+    dev = mesh[0]
+    n = topo.num_nodes
+    t0 = time.perf_counter()
+    host, _ = shard_push_deliveries_cached(
+        topo, padded_size(n, shards), shards, cache_dir="none")
+    build_s = time.perf_counter() - t0
+    plans = shard_push_from_numpy(host, dev)
+    # 1. the sharded round, no freeze and no stop
+    state0, core, _ = sharded_protocol(topo, dataclasses.replace(
+        cfg, streak_target=2**30), mesh)
+
+    def rounds():
+        st = state0
+        for _ in range(ROUNDS):
+            st = core(st, plans)
+
+    table, busy_ms, event_ms, enqueue_ms, idle = _profile_rounds(rounds, dev)
+
+    # 2. convergence: sharded pallas, routed, ring against one card
+    single = {}
+
+    def make_step(c, sharded):
+        if sharded:
+            runner, s0, _ = make_sharded_chunk_runner(topo, c, mesh)
+            dlv = plans
+        else:
+            s0, rc, done_fn, _ = build_protocol(topo, c)
+            runner = make_chunk_runner(rc, done_fn)
+            if c.delivery not in single:
+                single[c.delivery] = device_arrays(topo, c)
+            dlv = single[c.delivery]
+
+        def step(s, start_round, round_limit):
+            return runner(s, dlv, start_round, round_limit)
+
+        warm_start(step, s0)
+        return s0, step
+
+    settings = [("pallas", shards, False), ("routed", shards, False),
+                ("pallas", shards, True), ("pallas", 1, False),
+                ("routed", 1, False)]
+    conv = []
+    for dl, s_count, ring in settings + settings[::-1]:
+        c = dataclasses.replace(cfg, delivery=dl, exchange_overlap=ring)
+        s0, st = make_step(c, s_count > 1)
+        res = _drive(c, s0, st, n, 0.0,
+                     trim=(lambda s: trim_state(s, n)) if s_count > 1
+                     else None)
+        conv.append(dict(delivery=dl, shards=s_count,
+                         exchange=exchange_of(c) if s_count > 1 else None,
+                         chunk=c.chunk, wall_ms=res.wall_ms,
+                         rounds=res.rounds, executed=res.rounds_executed,
+                         converged=res.converged,
+                         estimate_error=res.estimate_error))
+
+    name = torch.cuda.get_device_name(dev)
+    print(f"{topo.kind} {n} nodes on {name}, {ROUNDS} rounds, sharded "
+          f"push round, {shards} shards on one card, exchange "
+          f"{exchange_of(cfg)}; plans built in {build_s:.1f} s")
+    print(f"device busy {busy_ms:.4f} ms/round (profiler), {event_ms:.4f} "
+          f"ms/round by CUDA events, host enqueue {enqueue_ms:.4f} "
+          f"ms/round, idle share {idle:.3f}")
+    print(f"{'kernel':70s} {'calls/round':>11s} {'ms/round':>10s}")
+    for key, calls, ms_r in table:
+        print(f"{key[:70]:70s} {calls:11.2f} {ms_r:10.4f}")
+    for r in conv:
+        print(f"{r['delivery']:7s} shards {r['shards']} exchange "
+              f"{r['exchange']}: {r['rounds']} rounds ({r['executed']} "
+              f"executed), {r['wall_ms']:.3f} ms, converged "
+              f"{r['converged']}, estimate error {r['estimate_error']:.3e}")
+    out = dict(topology=topo.kind, nodes=n, device=name,
+               delivery=cfg.delivery, shards=shards,
+               exchange=exchange_of(cfg), build_s=build_s, rounds=ROUNDS,
+               busy_ms_per_round=busy_ms, event_ms_per_round=event_ms,
+               enqueue_ms_per_round=enqueue_ms, idle_share=idle,
+               kernels=[dict(name=kk, calls_per_round=c, ms_per_round=m)
+                        for kk, c, m in table],
+               convergence=conv)
+    print(json.dumps(out))
+    if out_path:
+        with open(out_path, "w") as fh:
+            json.dump(out, fh, indent=1)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nodes", type=int, default=1_000_000)
@@ -66,10 +202,10 @@ def main(argv=None) -> int:
     ap.add_argument("--delivery", choices=["pallas", "megakernel", "routed"],
                     default="pallas")
     ap.add_argument("--rounds-per-kernel", type=int, default=1)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shards of the push design (pallas or routed)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-
-    from torch.profiler import ProfilerActivity, profile
 
     from gossipprotocol_tpu_torch.engine.driver import (
         RunConfig, _drive, build_protocol, device_arrays, make_chunk_runner,
@@ -89,6 +225,11 @@ def main(argv=None) -> int:
     k = cfg.rounds_per_kernel
     if ROUNDS % k:
         ap.error(f"--rounds-per-kernel must divide {ROUNDS}")
+    shards = args.devices
+    if shards > 1 and fused:
+        ap.error("--devices takes --delivery pallas or routed")
+    if shards > 1:
+        return _profile_sharded(topo, cfg, shards, args.out)
     delivery = device_arrays(topo, cfg)
     # the per-round path's deliveries by name (pallas reads the plain
     # delivery the megakernel wraps); built once each
@@ -131,25 +272,7 @@ def main(argv=None) -> int:
             for _ in range(ROUNDS):
                 st = core(st, delivery)
 
-    for _ in range(2):
-        rounds()
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rounds()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3 / ROUNDS
-        torch.cuda.synchronize(dev)
-    table = _kernel_table(prof, ROUNDS)
-    busy_ms = sum(r[2] for r in table)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    rounds()
-    stop.record()
-    stop.synchronize()
-    event_ms = start.elapsed_time(stop) / ROUNDS
-    idle = max(0.0, 1 - busy_ms / event_ms)
+    table, busy_ms, event_ms, enqueue_ms, idle = _profile_rounds(rounds, dev)
 
     # 2. convergence time against the chunk size, K, or the delivery
     if fused:

@@ -19,6 +19,19 @@ from gossipprotocol_tpu.ops import classops as jco
 from gossipprotocol_tpu_torch.ops import classops as tco
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_openmp_thread():
+    """This module's OpenMP code (torch's CPU kernels) runs on one
+    thread, restored afterwards: once a process has run a parallel region
+    on several threads, GNU OpenMP waits forever in a child forked from
+    it, and the JAX package's shard builds fork their workers, so a later
+    test of that kind in this test worker would hang."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mixed(rng, n):
     mant = rng.standard_normal(n).astype(np.float32)
     x = (mant * np.exp2(rng.integers(-40, 40, n))).astype(np.float32)

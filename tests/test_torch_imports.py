@@ -43,4 +43,5 @@ def test_walk_finds_the_package():
     names = {p.name for p in _FILES}
     assert {"classops.py", "pallasdelivery.py", "driver.py",
             "chip_smoke.py", "exec.py", "clos.py", "plan.py", "native.py",
-            "delivery.py"} <= names
+            "delivery.py", "mesh.py", "sharded.py",
+            "sharddelivery.py"} <= names

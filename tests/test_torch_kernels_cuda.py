@@ -260,3 +260,77 @@ def test_routed_matvec_equals_pallas_on_card(cuda, graph):
     for u, v, w in zip(a, b, c):
         assert _bits_equal(u, v)
         assert _bits_equal(u.cpu(), w)
+
+
+def _exchange_slabs(shards, block, dtype, offset, device):
+    """S slabs [S, block] as views at a byte ``offset`` into one buffer,
+    so rows start unaligned for the bf16 and int8 wires."""
+    rng = np.random.default_rng(shards * 1000 + block + offset)
+    esize = torch.empty(0, dtype=dtype).element_size()
+    raw = torch.from_numpy(rng.integers(
+        -128, 128, shards * (shards * block * esize + 64),
+        dtype=np.int64).astype(np.int8)).to(device)
+    out = []
+    for s in range(shards):
+        lo = s * (shards * block * esize + 64) + offset
+        out.append(raw[lo: lo + shards * block * esize].view(dtype).view(
+            shards, block))
+    return out
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, 8])
+def test_exchange_kernel(cuda, shards, dtype, overlap):
+    """``pallas_exchange`` against its plain version and the one-permutation
+    spelling, bitwise (bytes compared, NaN payloads included): every
+    dtype, row lengths that are not multiples of 16 bytes, rows starting
+    off a 16-byte boundary, and both schedules."""
+    esize = torch.empty(0, dtype=dtype).element_size()
+    for block, offset in ((37, 0), (1, 0), (4096 + 3, 0), (64, esize)):
+        slabs = _exchange_slabs(shards, block, dtype, offset, cuda)
+        before = pdm.LAUNCHES["pallas_exchange"]
+        got = pdm.pallas_exchange(slabs, overlap=overlap)
+        torch.cuda.synchronize()
+        assert pdm.LAUNCHES["pallas_exchange"] == before + (
+            shards if overlap else 1)
+        plain = pdm.pallas_exchange_plain(slabs, overlap=overlap)
+        perm = pdm.exchange_plain(slabs)
+        for g, p, q in zip(got, plain, perm):
+            assert g.dtype == dtype and g.shape == (shards, block)
+            assert torch.equal(g.view(torch.int8), p.view(torch.int8))
+            assert torch.equal(g.view(torch.int8), q.view(torch.int8))
+
+
+def test_sharded_matvec_card_equals_single_card(cuda):
+    """The 4-shard push matvec on the card, every transport and wire,
+    against the single-card routed matvec (f32) and its own CPU run
+    (every wire), bitwise."""
+    from gossipprotocol_tpu_torch.convert import shard_push_from_numpy
+    from gossipprotocol_tpu_torch.ops.delivery import build_routed_delivery
+    from gossipprotocol_tpu_torch.ops.sharddelivery import (
+        build_shard_push_deliveries,
+    )
+    from gossipprotocol_tpu_torch.parallel import padded_size
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology("power_law", 20_000, seed=1, m=4)
+    host = build_shard_push_deliveries(topo, padded_size(20_000, 4), 4,
+                                       build_workers=1)
+    on_card = shard_push_from_numpy(host, cuda)
+    on_cpu = shard_push_from_numpy(host, "cpu")
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.random(20_000).astype(np.float32))
+    xw = torch.from_numpy(rng.random(20_000).astype(np.float32))
+    single = build_routed_delivery(topo, device=cuda).matvec(
+        xs.to(cuda), xw.to(cuda))
+    for wire in ("f32", "bf16", "int8"):
+        want = on_cpu.matvec(xs, xw, wire=wire)
+        for exchange in ("all_to_all", "pallas", "overlap"):
+            got = on_card.matvec(xs.to(cuda), xw.to(cuda),
+                                 exchange=exchange, wire=wire)
+            torch.cuda.synchronize()
+            for g, w, r in zip(got, want, single):
+                assert _bits_equal(g.cpu(), w)
+                if wire == "f32":
+                    assert _bits_equal(g, r)

@@ -22,6 +22,20 @@ from gossipprotocol_tpu_torch.ops import pallasdelivery as tpd
 from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
 from gossipprotocol_tpu_torch.topology import build_topology as torch_build
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_openmp_thread():
+    """This module's OpenMP code (torch's CPU kernels) runs on one
+    thread, restored afterwards: once a process has run a parallel region
+    on several threads, GNU OpenMP waits forever in a child forked from
+    it, and the JAX package's shard builds fork their workers, so a later
+    test of that kind in this test worker would hang."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _GRAPHS = {
     "line": ("line", 130, {}),
     "imp3D": ("imp3D", 216, {"seed": 4}),

@@ -47,6 +47,31 @@ from gossipprotocol_tpu_torch.ops.pallasdelivery import build_pallas_delivery
 from gossipprotocol_tpu_torch.topology import build_topology
 from gossipprotocol_tpu_torch.topology.base import csr_from_edges
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_openmp_thread():
+    """This module's OpenMP code (torch's CPU kernels, the routing
+    libraries) runs on one thread, restored afterwards: once a process
+    has run a parallel region on several threads, GNU OpenMP waits
+    forever in a child forked from it, and the JAX package's shard builds
+    fork their workers, so a later test of that kind in this test worker
+    would hang."""
+    import os
+
+    from gossipprotocol_tpu import native as jnative
+    from gossipprotocol_tpu_torch import native as tnative
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    jnative.set_native_threads(1)
+    tnative.set_native_threads(1)
+    yield
+    torch.set_num_threads(threads)
+    jnative.set_native_threads(os.cpu_count() or 1)
+    tnative.set_native_threads(os.cpu_count() or 1)
+    tnative._THREADS = None
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

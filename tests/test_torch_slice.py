@@ -41,6 +41,20 @@ from gossipprotocol_tpu_torch.protocols.state import (
     pushsum_init as torch_init,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_openmp_thread():
+    """This module's OpenMP code (torch's CPU kernels) runs on one
+    thread, restored afterwards: once a process has run a parallel region
+    on several threads, GNU OpenMP waits forever in a child forked from
+    it, and the JAX package's shard builds fork their workers, so a later
+    test of that kind in this test worker would hang."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _GRAPHS = {
     "imp3D": ("imp3D", 216, {"seed": 4}),
     "powerlaw": ("powerlaw", 400, {"seed": 3, "m": 3}),   # hub split
@@ -211,6 +225,12 @@ def _default_device_calls():
     each returns one of the tensors it placed."""
     from gossipprotocol_tpu_torch import convert
     from gossipprotocol_tpu_torch.ops import pallasdelivery as tpd
+    from gossipprotocol_tpu_torch.ops.sharddelivery import (
+        build_shard_push_deliveries,
+    )
+    from gossipprotocol_tpu_torch.parallel import (
+        make_mesh, run_simulation_sharded,
+    )
 
     topo = tx.build_topology("line", 20)
     n, nu, m_pairs, classes, pre, out, degree = \
@@ -227,6 +247,13 @@ def _default_device_calls():
             *pre).idx,
         "delivery_from_numpy": lambda: convert.delivery_from_numpy(
             n, nu, m_pairs, classes, pre, out, degree).degree,
+        "make_mesh": lambda: torch.zeros(1, device=make_mesh(2)[0]),
+        "shard_push_from_numpy": lambda: convert.shard_push_from_numpy(
+            build_shard_push_deliveries(topo, 20, 2,
+                                        build_workers=1)).degree,
+        "run_simulation_sharded": lambda: run_simulation_sharded(
+            topo, tx.RunConfig(max_rounds=1, plan_cache="none"),
+            num_devices=2).final_state.s,
     }
 
 
@@ -234,7 +261,9 @@ def _default_device_calls():
                                    "build_pallas_delivery",
                                    "state_from_numpy",
                                    "gather_plan_from_numpy",
-                                   "delivery_from_numpy"])
+                                   "delivery_from_numpy", "make_mesh",
+                                   "shard_push_from_numpy",
+                                   "run_simulation_sharded"])
 def test_entry_point_defaults_to_cuda(entry):
     """Left without ``device``, an entry point places its tensors on the
     card, and raises where there is none: it never runs on the CPU
@@ -278,7 +307,8 @@ def test_cli_not_converged_exit_1(capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["64", "imp3D", *_CLI, "--devices", "2"], "--devices"),
+    (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery",
+      "megakernel", "--device", "cpu", "--devices", "2"], "--devices"),
     (["64", "imp3D", "gossip", "--device", "cpu"], "gossip"),
     (["64", "imp3D", "push-sum", "--delivery", "pallas", "--device", "cpu"],
      "--fanout one"),
