@@ -61,7 +61,27 @@ Phases (each prints its lines; any failure exits non-zero):
       ``routed``, and ``pallas --exchange-overlap``), each converging in
       the single-card pallas run's round count with its printed estimate
       error (a stop one round apart prints the gap of the global mean,
-      summed in shard order), exchange launches counted.
+      summed in shard order), exchange launches counted;
+  (i) the node-major hub kernels (``class_reduce_big``,
+      ``class_expand_big``), which no CLI path of either package runs:
+      at every hub class of power_law 1M (the first round's fold input of
+      phase (b), laid out node-major from its split layout), each bitwise
+      against its plain version, with its time, bytes bound, plain time
+      and one PyTorch call's (``view(n_c, q*64, 2).sum(1)``,
+      ``view(n_c, 1, 2).expand(n_c, q*64, 2).contiguous()``); launches
+      are the phase's own calls;
+  (j) the reference surface (gossip and fanout-one push-sum over the
+      scatter delivery, the CLI's defaults) through the CLI entry point
+      at 1M nodes: gossip at imp3D 1M (dense table; the card runs the
+      scatter branch only) and full 1M (implicit complete graph),
+      push-sum with ``--predicate global --tol 1e-4`` at both, each
+      converging; the golden gossip round counts of
+      ``tests/test_golden.py`` exact on the card; card against CPU over 32
+      rounds: gossip bitwise at power_law 1M (CSR) and at imp3D 1M from a
+      saturated state (the CPU run on the gather-inverted branch, the
+      card's on the scatter), the inverted histogram on the card equal to
+      the scatter's there, push-sum at Erdős–Rényi 1M with birth
+      exclusions within ``SCATTER_TOL`` (atomic float adds).
 
 Each end-to-end run reads the launch counts it caused (reset just before,
 read just after). The plan cache lives in a temporary directory for the
@@ -86,6 +106,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50e6               # H100 L2
+
+# fanout-all push-sum over the fused gather delivery (phases (a)-(h))
+DIFFUSION = dict(algorithm="push-sum", fanout="all", delivery="pallas")
 
 # (name, argv of the graph: nodes, topology, seed, builder kwargs)
 GRAPHS = {
@@ -150,7 +173,17 @@ KERNELS = {
                    "gossipprotocol_tpu/ops/exec.py:193"),
     "pallas_exchange": ("gossipprotocol_tpu_torch/csrc/exchange.cu",
                         "gossipprotocol_tpu/ops/pallasdelivery.py:491"),
+    "class_reduce_big": ("gossipprotocol_tpu_torch/csrc/classops.cu",
+                         "gossipprotocol_tpu/ops/classops.py:228"),
+    "class_expand_big": ("gossipprotocol_tpu_torch/csrc/classops.cu",
+                         "gossipprotocol_tpu/ops/classops.py:280"),
 }
+# phase (i): the node-major hub kernels have no CLI path in either
+# package; they run at the hub classes of this graph, and their launch
+# count is the phase's own
+HUB_GRAPH = "power_law_1M"
+HUB_KERNELS = ("class_reduce_big", "class_expand_big")
+NO_CLI_PATH = "phase (i) calls: no CLI path in either package"
 PER_ROUND_KERNELS = ("class_reduce_small", "class_reduce_split",
                      "gather_resident", "gather_bucket")
 # phase (g): the routed delivery on phase (c)'s two 1M graphs, and its
@@ -383,9 +416,24 @@ def check_folds(torch, records, gname, pd, f):
     return torch.cat(ys)
 
 
+def hub_regions(pd, f):
+    """The hub classes (2c > 128) of a delivery's fold input ``f``, each
+    laid out node-major from its split layout (row j*cap + r becomes row
+    r*q + j): ``[(c, n_c, cap, region)]``."""
+    out = []
+    for c, n_c, start, reg_rows, cap in pd.classes:
+        if 2 * c > 128:
+            q = 2 * c // 128
+            split = f[2 * start: 2 * start + reg_rows * 128]
+            out.append((c, n_c, cap, split.view(q, cap, 128).transpose(
+                0, 1).contiguous().view(-1)))
+    return out
+
+
 def phase_kernels(torch):
     records = []
     expected = {}
+    hubs = None
     for gname in GRAPHS:
         _, pd, share_s, share_w = graph_inputs(torch, gname)
         expected[gname] = expected_kernels(pd)
@@ -396,13 +444,15 @@ def phase_kernels(torch):
         f = check_gather(torch, records, gname, "gather_pre", pd.gather_pre,
                          x.view(-1, 128))
         yf = check_folds(torch, records, gname, pd, f)
+        if gname == HUB_GRAPH:
+            hubs = hub_regions(pd, f)
         y = torch.zeros(pd.gather_out.src_rows * 128, device="cuda")
         y[: yf.numel()] = yf
         check_gather(torch, records, gname, "gather_out", pd.gather_out,
                      y.view(-1, 128))
         del pd, f, x, y
         torch.cuda.empty_cache()
-    return records, expected
+    return records, expected, hubs
 
 
 # ---------------------------------------------------------------- (c)
@@ -467,7 +517,7 @@ def phase_card_vs_cpu(torch):
         res = {}
         for dev in ("cuda", "cpu"):
             res[dev] = run_simulation(topo, RunConfig(
-                device=dev, max_rounds=16, chunk_rounds=8))
+                **DIFFUSION, device=dev, max_rounds=16, chunk_rounds=8))
         a, b = res["cuda"].final_state, res["cpu"].final_state
         for field in ("s", "w", "ratio", "streak", "converged", "round"):
             require(bitwise_equal(torch, getattr(a, field),
@@ -559,7 +609,8 @@ def phase_megakernel(torch):
             res = {}
             for dl, k in (("pallas", 1), ("megakernel", 16)):
                 res[dl] = run_simulation(topo, RunConfig(
-                    device="cuda", delivery=dl, rounds_per_kernel=k,
+                    **dict(DIFFUSION, delivery=dl), device="cuda",
+                    rounds_per_kernel=k,
                     predicate=predicate, max_rounds=MK_ROUNDS,
                     chunk_rounds=16, plan_cache="none", **extra))
             a, b = res["megakernel"], res["pallas"]
@@ -579,7 +630,7 @@ def phase_megakernel(torch):
         opts = dict(n=n, eps=1e-7, streak_target=2**30, predicate="delta",
                     tol=1e-4)
         state0, core, _, _ = build_protocol(topo, RunConfig(
-            device="cuda", max_rounds=MK_ROUNDS))
+            **DIFFUSION, device="cuda", max_rounds=MK_ROUNDS))
         per_round_ms = cuda_ms(torch, lambda: core(state0, pd), 20)
         # the bound: each input read once (state, degree, both index
         # tables, round), each output written once (state, round,
@@ -1001,8 +1052,8 @@ def _mean_gap(torch, topo, argv):
     from gossipprotocol_tpu_torch.parallel.sharded import shard_sum
 
     res = run_simulation_sharded(topo, RunConfig(
-        device="cuda", predicate="global", tol=1e-4,
-        delivery=argv[argv.index("--delivery") + 1]), num_devices=SHARDS)
+        **dict(DIFFUSION, delivery=argv[argv.index("--delivery") + 1]),
+        device="cuda", predicate="global", tol=1e-4), num_devices=SHARDS)
     st = res.final_state
     s, w = st.s.cuda(), st.w.cuda()
     pad = (-s.numel()) % SHARDS
@@ -1146,6 +1197,254 @@ def phase_sharded(torch, pallas_runs, matvecs):
     return records, totals
 
 
+# ---------------------------------------------------------------- (i)
+
+def phase_hub_kernels(torch, hubs):
+    """``class_reduce_big`` and ``class_expand_big`` at every hub class of
+    power_law 1M, node-major regions of the first round's fold input."""
+    from gossipprotocol_tpu_torch.ops import classops as co
+    from gossipprotocol_tpu_torch.ops import (
+        kernel_launches, reset_kernel_launches,
+    )
+
+    records = []
+    require(hubs, f"{HUB_GRAPH} has no hub class")
+    reset_kernel_launches()
+    firsts = []
+    for c, _, _, region in hubs:
+        red = co.class_reduce_big(region, c)
+        firsts.append((red, co.class_expand_big(red, c)))
+    launches = kernel_launches()
+    counts = {k: launches[k] for k in HUB_KERNELS}
+    for (c, n_c, cap, region), (pairs, exp) in zip(hubs, firsts):
+        q = 2 * c // co.LANES
+        for name, got, plain, kern, lib, lib_what, nbytes in (
+                ("class_reduce_big", pairs,
+                 lambda: co.class_reduce_big_plain(region, c),
+                 lambda: co.class_reduce_big(region, c),
+                 lambda: region.view(cap, q * 64, 2).sum(1),
+                 "view(n_c, q*64, 2).sum(1)",
+                 region.numel() * 4 + pairs.numel() * 4),
+                ("class_expand_big", exp,
+                 lambda: co.class_expand_big_plain(pairs, c),
+                 lambda: co.class_expand_big(pairs, c),
+                 lambda: pairs.view(cap, 1, 2).expand(
+                     cap, q * 64, 2).contiguous(),
+                 "view(n_c,1,2).expand(n_c,q*64,2).contiguous()",
+                 pairs.numel() * 4 + exp.numel() * 4)):
+            want = plain()
+            err = max_abs_err(torch, got, want)
+            require(bitwise_equal(torch, got, want),
+                    f"{name} c={c} ({HUB_GRAPH}) differs from its plain "
+                    f"version: max abs err {err}")
+            lib_out = lib().reshape(-1)
+            lib_err = max_abs_err(torch, lib_out, got)
+            if name == "class_expand_big":
+                require(bitwise_equal(torch, lib_out, got),
+                        f"class_expand_big c={c}: library call differs")
+            ms = cuda_ms(torch, kern, 50)
+            plain_ms = cuda_ms(torch, plain, 3)
+            lib_ms = cuda_ms(torch, lib, 50)
+            b_ms, b_by = bound(nbytes, region.numel()
+                               if name == "class_reduce_big" else 0)
+            records.append(dict(
+                name=name, graph=HUB_GRAPH, call=f"c={c}",
+                shape=[cap, q, 128], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, bytes=nbytes))
+            say(f"(i) {name:16s} {HUB_GRAPH} c={c} q={q} n_c={cap} "
+                f"({n_c} real nodes): bitwise ok, {ms:.4f} ms (plain "
+                f"{plain_ms:.4f}, library {lib_what} {lib_ms:.4f} "
+                f"[max |diff| {lib_err:.3e}], bound {b_ms:.4f} by {b_by}, "
+                f"{nbytes / 1e6:.2f} MB)")
+        split = co.class_reduce_split(region.view(cap, q, 128).transpose(
+            0, 1).contiguous().view(-1), c)
+        say(f"(i) c={c}: node-major reduce against the split layout's "
+            f"reduce of the same values, max |diff| "
+            f"{max_abs_err(torch, pairs, split):.3e} (another summation "
+            "order)")
+    say(f"(i) launches {counts} ({NO_CLI_PATH})")
+    return records, counts
+
+
+# ---------------------------------------------------------------- (j)
+
+# phase (j): the reference surface (gossip, fanout-one push-sum) through
+# the CLI at 1M nodes. line and 3D are left out: gossip there needs
+# O(n^(1/3)) to O(n) rounds. The golden graphs are tests/test_golden.py's
+REF_CLI_RUNS = {
+    "gossip imp3D_1M": ["1000000", "imp3D", "gossip"],
+    "gossip full_1M": ["1000000", "full", "gossip"],
+    "push-sum imp3D_1M": ["1000000", "imp3D", "push-sum", "--predicate",
+                          "global", "--tol", "1e-4"],
+    "push-sum full_1M": ["1000000", "full", "push-sum", "--predicate",
+                         "global", "--tol", "1e-4"],
+}
+GOLDEN_GOSSIP = {            # tests/test_golden.py, exact on every backend
+    ("line", 64): 113,
+    ("full", 128): 28,
+    ("3D", 64): 29,
+    ("imp3D", 64): 25,
+    ("erdos_renyi", 128): 49,
+    ("power_law", 128): 575,
+}
+CARD_CPU_ROUNDS = 32
+# push-sum scatter, card against CPU: the float adds are atomics on the
+# card, so the two runs agree up to accumulation order; held to this
+# bound on |s|, |w| (32 rounds, values <= 1) and to equal alive sets
+SCATTER_TOL = 1e-5
+
+
+def _count_inverted(torch):
+    """Wrap the gossip round core to count the rounds that took the
+    gather-inverted branch; returns (counter dict, restore)."""
+    from gossipprotocol_tpu_torch.engine import driver as drv
+
+    seen = {"inverted": 0, "scatter": 0}
+    orig = drv.GossipCore.__call__
+
+    def counted(self, state, nbrs, key):
+        seen["inverted" if self.inverted else "scatter"] += 1
+        return orig(self, state, nbrs, key)
+
+    drv.GossipCore.__call__ = counted
+    return seen, lambda: setattr(drv.GossipCore, "__call__", orig)
+
+
+def _inverted_hits_on_card(torch, topo):
+    """The gather-inverted histogram computed on the card equals the
+    scatter's on a saturated state (every node spreads), for 4 round
+    keys: the branch the card's runs do not take, still right there."""
+    from gossipprotocol_tpu_torch.protocols.gossip import (
+        hits_by_inversion, inverted_dense,
+    )
+    from gossipprotocol_tpu_torch.protocols.sampling import (
+        fold_in, key_data, sample_neighbors,
+    )
+
+    nbrs = inverted_dense(topo, device="cuda")
+    n = topo.num_nodes
+    for r in range(4):
+        key = fold_in(key_data(7, "cuda"), r)
+        targets, valid = sample_neighbors(nbrs, n, key)
+        scatter = torch.zeros(n, dtype=torch.int32, device="cuda")
+        scatter.index_add_(0, targets, valid.to(torch.int32))
+        require(torch.equal(hits_by_inversion(nbrs, key), scatter),
+                f"inverted histogram on the card, round {r}: differs "
+                "from the scatter's")
+    return "inverted histogram on the card == scatter's (4 keys)"
+
+
+def phase_reference(torch):
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.protocols.state import gossip_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    for name, argv in REF_CLI_RUNS.items():
+        argv = argv + ["--device", "cuda", "--max-rounds", MAX_ROUNDS]
+        seen, restore = _count_inverted(torch)
+        try:
+            rc, text, etext, counts = _run_cli(argv)
+        finally:
+            restore()
+        for line in (etext + text).splitlines():
+            say(f"(j) {name} | {line}")
+        require(rc == 0, f"reference CLI run {name} exited {rc}: "
+                f"{' '.join(argv)}")
+        banner = "Gossip Starts" if "gossip" in argv else "Push Sum Starts"
+        require(text.startswith(banner + "\n"), f"{name}: no banner")
+        conv = re.search(r"Convergence Time: ([0-9.]+) ms", text)
+        rounds = re.search(r"rounds: (\d+) \((\d+) executed\)", text)
+        require(conv and rounds and "converged: True" in text,
+                f"reference CLI run {name}: output lines missing")
+        wall_ms, n_rounds = float(conv.group(1)), int(rounds.group(1))
+        n_exec = int(rounds.group(2))
+        note = ""
+        if "push-sum" in argv:
+            err = re.search(r"max \|s/w - mean\| = (\S+)", text)
+            require(err and float(err.group(1)) <= 2e-4,
+                    f"{name}: estimate error above 2e-4")
+            note = f", estimate_error {err.group(1)}"
+        else:
+            note = (f", rounds on the inverted branch {seen['inverted']}, "
+                    f"on the scatter branch {seen['scatter']}")
+            require(seen["inverted"] == 0, f"{name}: the card took the "
+                    "inverted branch")
+        say(f"(j) {name}: rc 0, {n_rounds} rounds ({n_exec} executed), "
+            f"{wall_ms:.3f} ms, {wall_ms / max(n_rounds, 1):.4f} ms/round, "
+            f"{wall_ms / max(n_exec, 1):.4f} ms per executed round{note}")
+    # the golden gossip counts, exact on the card
+    for (gname, n), want in GOLDEN_GOSSIP.items():
+        res = run_simulation(build_topology(gname, n, seed=11), RunConfig(
+            algorithm="gossip", seed=42, device="cuda"))
+        require(res.converged and res.rounds == want,
+                f"golden gossip {gname} {n}: {res.rounds} rounds on the "
+                f"card, golden {want}")
+        say(f"(j) golden gossip {gname} {n}: {res.rounds} rounds == golden "
+            f"{want}, {res.wall_ms:.3f} ms")
+    # card against CPU, 32 rounds
+    for gname, n, kw, cfg, saturated in (
+            ("power_law", 1_000_000, {"seed": 0, "m": 4},
+             dict(algorithm="gossip"), False),
+            ("imp3D", 1_000_000, {"seed": 0}, dict(algorithm="gossip"),
+             True),
+            ("erdos_renyi", 1_000_000, {"seed": 5},
+             dict(algorithm="push-sum", predicate="global", tol=1e-4),
+             False)):
+        topo = build_topology(gname, n, **kw)
+        start = None
+        if saturated:
+            start = gossip_init(topo.num_nodes, 0, device="cpu")
+            start = start._replace(counts=torch.ones_like(start.counts))
+        res = {}
+        seen, restore = _count_inverted(torch)
+        try:
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                res[dev] = run_simulation(topo, RunConfig(
+                    device=dev, max_rounds=CARD_CPU_ROUNDS, chunk_rounds=8,
+                    **cfg), initial_state=start)
+                res[dev + "_s"] = time.perf_counter() - t0
+        finally:
+            restore()
+        a, b = res["cuda"].final_state, res["cpu"].final_state
+        require(res["cuda"].rounds == res["cpu"].rounds,
+                f"card vs cpu {gname}: rounds {res['cuda'].rounds} vs "
+                f"{res['cpu'].rounds}")
+        if cfg.get("algorithm") == "gossip":
+            bad = [f for f in a._fields if not torch.equal(
+                getattr(a, f), getattr(b, f))]
+            require(not bad, f"card vs cpu gossip {gname}: fields {bad} "
+                    "differ")
+            what = "bitwise (counts, converged, alive, round)"
+            if saturated:
+                require(seen["inverted"] >= CARD_CPU_ROUNDS - 8,
+                        f"card vs cpu {gname}: the inverted branch ran "
+                        f"{seen['inverted']} rounds on the cpu")
+                what += (f", the cpu run {seen['inverted']} rounds on the "
+                         "inverted branch, the card's on the scatter; "
+                         + _inverted_hits_on_card(torch, topo))
+        else:
+            require(torch.equal(a.alive, b.alive), "scatter: alive differs")
+            errs = {f: max_abs_err(torch, getattr(a, f), getattr(b, f))
+                    for f in ("s", "w", "ratio")}
+            require(errs["s"] <= SCATTER_TOL and errs["w"] <= SCATTER_TOL,
+                    f"card vs cpu push-sum scatter {gname}: {errs} above "
+                    f"{SCATTER_TOL}")
+            bits = sum(int((getattr(a, f).view(torch.int32)
+                            != getattr(b, f).view(torch.int32)).sum())
+                       for f in ("s", "w"))
+            what = (f"within {SCATTER_TOL} (max |diff| s {errs['s']:.3e}, "
+                    f"w {errs['w']:.3e}, ratio {errs['ratio']:.3e}; {bits} "
+                    "of the s and w values differ in some bit: atomic "
+                    "accumulation order)")
+        say(f"(j) card vs cpu {gname} {topo.num_nodes}, "
+            f"{CARD_CPU_ROUNDS} rounds: {what}; card "
+            f"{res['cuda'].wall_ms:.3f} ms, cpu {res['cpu'].wall_ms:.3f} ms "
+            f"(host {res['cuda_s']:.1f} s / {res['cpu_s']:.1f} s with the "
+            "build)")
+
+
 def summarize(records, totals):
     """One record per kernel: its largest main-path call."""
     out = []
@@ -1155,9 +1454,11 @@ def summarize(records, totals):
         # the megakernel's main path runs K = 16
         big = max((r for r in mine if r["call"] != "K=1"),
                   key=lambda r: r["bytes"])
+        extra = {"launches_from": NO_CLI_PATH} if kname in HUB_KERNELS \
+            else {}
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=totals[kname],
+            launches=totals[kname], **extra,
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
             bound_by=big["bound_by"], library_ms=big["library_ms"],
@@ -1189,7 +1490,7 @@ def main(argv=None) -> int:
         os.environ["GOSSIP_TPU_PLAN_CACHE"] = cache
         try:
             card = phase_card(torch)
-            records, expected = phase_kernels(torch)
+            records, expected, hubs = phase_kernels(torch)
             totals, pallas_runs = phase_cli(torch, expected)
             phase_card_vs_cpu(torch)
             records += phase_megakernel(torch)
@@ -1203,6 +1504,11 @@ def main(argv=None) -> int:
             del matvecs
             records += sharded_records
             totals.update(sharded_totals)
+            hub_records, hub_totals = phase_hub_kernels(torch, hubs)
+            del hubs
+            records += hub_records
+            totals.update(hub_totals)
+            phase_reference(torch)
             kernels = summarize(records, totals)
         except SmokeFailure as e:
             print(f"FAIL: {e}", flush=True)

@@ -2,13 +2,15 @@
 
 The JAX package (``gossipprotocol_tpu``) is the reference; this package
 grows beside it slice by slice and imports neither JAX nor it. Ported so
-far: fanout-all diffusion push-sum over the fused gather delivery
-(``python -m gossipprotocol_tpu_torch N topology push-sum --fanout all
---delivery pallas``), the Clos-routed delivery (``--delivery routed``),
-the K-round megakernel (``--delivery megakernel --rounds-per-kernel K``)
-and sharded over S shards with the push design (``--devices S``), with
-their ten TPU kernels rewritten as CUDA for Hopper (``csrc/``), and the
-plan cache.
+far: the reference's own surface (``python -m gossipprotocol_tpu_torch N
+topology gossip|push-sum``: gossip and fanout-one push-sum over the
+scatter delivery, drawing from the counter-based threefry stream),
+fanout-all diffusion push-sum over the fused gather delivery (``--fanout
+all --delivery pallas``), the Clos-routed delivery (``--delivery
+routed``), the K-round megakernel (``--delivery megakernel
+--rounds-per-kernel K``) and sharded over S shards with the push design
+(``--devices S``), with twelve TPU kernels rewritten as CUDA for Hopper
+(``csrc/``), and the plan cache.
 Entry points run on ``cuda`` unless asked for ``cpu``, where each
 kernel's plain PyTorch version runs instead.
 """
@@ -19,7 +21,9 @@ from gossipprotocol_tpu_torch.topology import (
     available_topologies,
     build_topology,
 )
-from gossipprotocol_tpu_torch.protocols import PushSumState, pushsum_init
+from gossipprotocol_tpu_torch.protocols import (
+    GossipState, PushSumState, gossip_init, pushsum_init,
+)
 from gossipprotocol_tpu_torch.engine import RunConfig, RunResult, run_simulation
 
 __all__ = [
@@ -27,7 +31,9 @@ __all__ = [
     "Topology",
     "build_topology",
     "available_topologies",
+    "GossipState",
     "PushSumState",
+    "gossip_init",
     "pushsum_init",
     "RunConfig",
     "RunResult",

@@ -1,5 +1,9 @@
 """Command-line entry point of the PyTorch port.
 
+    python -m gossipprotocol_tpu_torch N TOPOLOGY gossip|push-sum
+        [--threshold H] [--no-keep-alive] [--seed-node I]
+        [--predicate delta|global] [--eps E] [--tol T] [--streak S]
+        [--value-mode scaled|index] [--device cuda|cpu]
     python -m gossipprotocol_tpu_torch N TOPOLOGY push-sum \\
         --fanout all --delivery pallas|routed|megakernel
         [--rounds-per-kernel K]
@@ -7,11 +11,16 @@
          [--build-workers W] [--routed-design push]]
         [--plan-cache DIR|none] [--device cuda|cpu]
 
+With no flags it runs what the JAX package's CLI runs by default (the
+reference's own surface): gossip, or push-sum with one random target per
+node per round (``--fanout one --delivery scatter``).
+
 The positional surface and the output follow the JAX package's CLI (the
 reference's ``N topology algorithm`` → ``Convergence Time: %f ms``). Exit
-codes: 0 converged, 1 not converged (``--max-rounds`` reached), 2 bad
-input. Every flag and combination the port does not have yet exits 2
-and names itself; nothing falls back quietly to another path.
+codes: 0 converged, 1 not converged (``--max-rounds`` reached, or a
+gossip run whose rumor died out), 2 bad input. Every flag and
+combination the port does not have yet exits 2 and names itself;
+nothing falls back quietly to another path.
 """
 
 from __future__ import annotations
@@ -29,11 +38,11 @@ _ALGO_ALIASES = {
 
 # flags of the JAX package's CLI that this port does not have yet
 UNPORTED_FLAGS = (
-    "--backend", "--threshold", "--semantics", "--build",
-    "--build-memory-budget", "--value-mode", "--payload-dim", "--workload", "--clock",
+    "--backend", "--build",
+    "--build-memory-budget", "--payload-dim", "--workload", "--clock",
     "--activation-rate", "--groups", "--accel", "--accel-lambda", "--lr",
     "--local-steps", "--sgp-samples", "--loss-tol", "--x64",
-    "--no-keep-alive", "--seed-node", "--edge-chunks", "--metrics-out",
+    "--edge-chunks", "--metrics-out",
     "--checkpoint-dir", "--checkpoint-every", "--resume", "--auto-resume",
     "--restarted", "--fail-fraction", "--fail-round", "--revive-round",
     "--drop-prob", "--drop-window", "--fault-plan", "--event-plan",
@@ -59,8 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gossipprotocol_tpu_torch",
         description="PyTorch/CUDA port of the gossip / push-sum simulator "
-                    "(fanout-all push-sum over the fused gather delivery, "
-                    "the Clos-routed delivery and the K-round megakernel)",
+                    "(gossip and fanout-one push-sum over the scatter "
+                    "delivery; fanout-all push-sum over the fused gather "
+                    "delivery, the Clos-routed delivery and the K-round "
+                    "megakernel)",
     )
     p.add_argument("num_nodes", type=int)
     p.add_argument("topology", type=str)
@@ -74,6 +85,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "push design; every shard lives on the --device "
                         "card, run in lockstep)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--threshold", type=int, default=10,
+                   help="gossip: hearings to converge (README.md:2)")
+    p.add_argument("--semantics", choices=["intended", "reference"],
+                   default="intended",
+                   help="'reference' (the F# simulator's accidental "
+                        "rules) is not yet ported")
+    p.add_argument("--no-keep-alive", action="store_true",
+                   help="gossip: a node stops spreading at its threshold "
+                        "(the reference's per-node stop rule; a run can "
+                        "stall, and then exits 1)")
+    p.add_argument("--seed-node", type=int, default=None,
+                   help="gossip start node (default: drawn from --seed)")
+    p.add_argument("--value-mode", choices=["scaled", "index"],
+                   default="scaled",
+                   help="push-sum init: i/N or the reference's s_i = i")
     p.add_argument("--eps", type=float, default=1e-10,
                    help="push-sum: |Δ(s/w)| tolerance (Program.fs:116)")
     p.add_argument("--streak", type=int, default=3,
@@ -86,12 +112,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tol", type=float, default=1e-4,
                    help="tolerance for --predicate global")
     p.add_argument("--fanout", choices=["one", "all"], default="one",
-                   help="push-sum sender; only 'all' (diffusion) is ported")
+                   help="push-sum sender: one random neighbor per round "
+                        "(the reference's send) or fanout-all diffusion")
     p.add_argument("--delivery",
                    choices=["scatter", "invert", "routed", "pallas",
                             "megakernel"],
                    default="scatter",
-                   help="fanout-all delivery; 'routed' (expand, Clos "
+                   help="push-sum delivery. fanout one: 'scatter' (an "
+                        "index_add_ of the halves; 'invert' is not yet "
+                        "ported). fanout all: 'routed' (expand, Clos "
                         "routing plans, class folds), 'pallas' (the routed "
                         "pipeline fused into two gathers around the class "
                         "folds) and 'megakernel' (the pallas path with the "
@@ -170,7 +199,14 @@ def _unported(argv) -> str | None:
 
 def _check_sharding(args, cfg) -> None:
     """The JAX CLI's rejections of the sharding flags (its messages),
-    raised as ValueError (exit 2)."""
+    raised as ValueError (exit 2), and the sharded runs not yet ported."""
+    from gossipprotocol_tpu_torch.engine.driver import NotPortedError
+
+    if args.devices > 1 and (cfg.algorithm == "gossip"
+                             or cfg.fanout == "one"):
+        raise NotPortedError(
+            "option not yet ported: --devices with gossip or push-sum "
+            "--fanout one (the sharded push design runs --fanout all)")
     if args.routed_design is not None and (
             cfg.delivery not in ("routed", "pallas") or args.devices <= 1):
         raise ValueError(
@@ -201,8 +237,10 @@ def main(argv=None) -> int:
     bad = _unported(argv)
     if bad is not None:
         print(f"option not yet ported: {bad} (the PyTorch port runs "
-              "push-sum --fanout all --delivery pallas|routed|megakernel; use "
-              "python -m gossipprotocol_tpu for the rest)", file=sys.stderr)
+              "gossip and push-sum --fanout one --delivery scatter, and "
+              "push-sum --fanout all --delivery pallas|routed|megakernel; "
+              "use python -m gossipprotocol_tpu for the rest)",
+              file=sys.stderr)
         return 2
     try:
         args = build_parser().parse_args(argv)
@@ -214,23 +252,10 @@ def main(argv=None) -> int:
         print(f"option invalid: unknown algorithm {args.algorithm!r} "
               f"(valid: gossip, push-sum)", file=sys.stderr)
         return 2
-    if algo != "push-sum":
-        print(f"option not yet ported: algorithm {algo!r} (the PyTorch "
-              "port runs push-sum --fanout all --delivery "
-              "pallas|routed|megakernel)", file=sys.stderr)
-        return 2
-    if args.fanout != "all":
-        print(f"option not yet ported: --fanout {args.fanout} (only "
-              "--fanout all is ported)", file=sys.stderr)
-        return 2
-    if args.delivery not in ("pallas", "routed", "megakernel"):
-        print(f"option not yet ported: --delivery {args.delivery} (only "
-              "--delivery pallas, routed and megakernel are ported)",
-              file=sys.stderr)
-        return 2
 
     from gossipprotocol_tpu_torch.engine.driver import (
-        NotPortedError, RunConfig, resolve_device, run_simulation,
+        DELIVERIES, NotPortedError, RunConfig, resolve_device,
+        run_simulation,
     )
     from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
     from gossipprotocol_tpu_torch.topology import build_topology
@@ -247,9 +272,12 @@ def main(argv=None) -> int:
             raise ValueError(f"--devices must be >= 1, got {args.devices}")
         device = resolve_device(args.device)
         cfg = RunConfig(
-            algorithm=algo, seed=args.seed, eps=args.eps,
-            streak_target=args.streak, predicate=args.predicate,
-            tol=args.tol, fanout=args.fanout, delivery=args.delivery,
+            algorithm=algo, seed=args.seed, threshold=args.threshold,
+            keep_alive=not args.no_keep_alive, seed_node=args.seed_node,
+            semantics=args.semantics,
+            eps=args.eps, streak_target=args.streak,
+            predicate=args.predicate, tol=args.tol, fanout=args.fanout,
+            delivery=args.delivery, value_mode=args.value_mode,
             max_rounds=args.max_rounds,
             chunk_rounds=args.chunk_rounds,
             rounds_per_kernel=args.rounds_per_kernel,
@@ -259,17 +287,22 @@ def main(argv=None) -> int:
             exchange_overlap=args.exchange_overlap,
             build_workers=args.build_workers,
         )
+        _check_sharding(args, cfg)
         topo = build_topology(
             args.topology, args.num_nodes, seed=args.seed,
             avg_degree=args.avg_degree, m=args.attach, k=args.ws_k,
             beta=args.ws_beta,
         )
-        _check_sharding(args, cfg)
-        if topo.implicit_full:
+        if cfg.delivery in DELIVERIES and topo.implicit_full:
             raise ValueError(
                 f"delivery='{cfg.delivery}' needs an explicit edge list; "
                 "the complete graph has none (diffusion on K_n mixes in "
                 "one round via two reductions) — use delivery='scatter'")
+        if cfg.seed_node is not None \
+                and not 0 <= cfg.seed_node < topo.num_nodes:
+            raise ValueError(
+                f"--seed-node {cfg.seed_node} is not a node of the "
+                f"{topo.num_nodes}-node graph")
         if args.devices > 1:
             from gossipprotocol_tpu_torch.parallel import (
                 make_mesh, placement_line,

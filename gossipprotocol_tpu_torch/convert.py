@@ -1,9 +1,11 @@
 """Carry state and plan tables across from host arrays.
 
-The system has no weights; what stands in for them is the push-sum state
-and the delivery's plan tables. These converters take them as numpy
-arrays — for example the fields of a JAX-package ``PushSumState``, or of
-a ``PallasDelivery`` or ``RoutedDelivery`` built with ``device=False`` —
+The system has no weights; what stands in for them is the protocol state
+and the tables the round reads. These converters take them as numpy
+arrays — for example the fields of a JAX-package ``GossipState`` or
+``PushSumState``, of its ``DenseNeighbors``, ``InvertedDense`` or
+``CSRNeighbors``, or of a ``PallasDelivery`` or ``RoutedDelivery`` built
+with ``device=False`` —
 and place them on a torch device, checking shapes, types and index
 bounds on the way. The device is ``cuda`` unless the caller asks for
 ``cpu``; asking for ``cuda`` with no card present raises.
@@ -20,7 +22,12 @@ from gossipprotocol_tpu_torch.ops.build import resolve_device
 from gossipprotocol_tpu_torch.ops.pallasdelivery import (
     LANES, TILE, TILE_ROWS, GatherPlan, PallasDelivery,
 )
-from gossipprotocol_tpu_torch.protocols.state import PushSumState
+from gossipprotocol_tpu_torch.protocols.sampling import (
+    CSRNeighbors, DenseNeighbors, InvertedDense,
+)
+from gossipprotocol_tpu_torch.protocols.state import (
+    GossipState, PushSumState,
+)
 
 
 def state_from_numpy(s, w, ratio, streak, converged, alive, round,
@@ -48,6 +55,68 @@ def state_from_numpy(s, w, ratio, streak, converged, alive, round,
         alive=torch.from_numpy(alive.astype(bool)).to(dev),
         round=torch.tensor(int(round), dtype=torch.int32, device=dev),
     )
+
+
+def gossip_state_from_numpy(counts, converged, alive, round,
+                            device="cuda") -> GossipState:
+    """A :class:`GossipState` on ``device`` from its fields as numpy."""
+    dev = resolve_device(device)
+    counts = np.asarray(counts)
+    n = counts.shape[0]
+    converged, alive = np.asarray(converged), np.asarray(alive)
+    if counts.shape != (n,) or converged.shape != (n,) \
+            or alive.shape != (n,):
+        raise ValueError("gossip state fields counts/converged/alive must "
+                         "be [n]")
+    return GossipState(
+        counts=torch.from_numpy(counts.astype(np.int32)).to(dev),
+        converged=torch.from_numpy(converged.astype(bool)).to(dev),
+        alive=torch.from_numpy(alive.astype(bool)).to(dev),
+        round=torch.tensor(int(round), dtype=torch.int32, device=dev),
+    )
+
+
+def neighbors_from_numpy(*, degree, table=None, rev=None, starts=None,
+                         indices=None, device="cuda"):
+    """The neighbor arrays of the drawing rounds on ``device``, from the
+    fields of a JAX-package ``DenseNeighbors`` (``table``, ``degree``),
+    ``InvertedDense`` (plus ``rev``) or ``CSRNeighbors``
+    (``starts``, ``degree``, ``indices``) as numpy. Neighbor ids and CSR
+    offsets are checked against the node count: the draws index without
+    bounds checks."""
+    dev = resolve_device(device)
+    degree = np.asarray(degree).astype(np.int32)
+    n = degree.shape[0]
+    if table is not None:
+        table = np.asarray(table).astype(np.int32)
+        if table.ndim != 2 or table.shape[0] != n:
+            raise ValueError(f"dense table shape {table.shape}, expected "
+                             f"[{n}, max_degree]")
+        if table.size and (table.min() < 0 or table.max() >= n):
+            raise ValueError("dense table holds ids outside [0, n)")
+        if degree.size and degree.max() > table.shape[1]:
+            raise ValueError("a degree exceeds the dense table's width")
+        out = [torch.from_numpy(table).to(dev),
+               torch.from_numpy(degree).to(dev)]
+        if rev is None:
+            return DenseNeighbors(*out)
+        rev = np.asarray(rev).astype(np.int8)
+        if rev.shape != table.shape:
+            raise ValueError("the inversion table must match the dense "
+                             "table")
+        return InvertedDense(*out, torch.from_numpy(rev).to(dev))
+    starts = np.asarray(starts).astype(np.int64)
+    indices = np.asarray(indices).astype(np.int32)
+    if starts.shape != (n,):
+        raise ValueError(f"CSR starts shape {starts.shape} != ({n},)")
+    if n and (starts.min() < 0
+              or (starts + degree).max() > indices.shape[0]):
+        raise ValueError("CSR rows run outside the index pool")
+    if indices.size and (indices.min() < 0 or indices.max() >= n):
+        raise ValueError("CSR indices hold ids outside [0, n)")
+    return CSRNeighbors(starts=torch.from_numpy(starts).to(dev),
+                        degree=torch.from_numpy(degree).to(dev),
+                        indices=torch.from_numpy(indices).to(dev))
 
 
 def gather_plan_from_numpy(mode: str, src_rows: int, out_len: int,

@@ -1,5 +1,6 @@
-// Degree-class fold kernels of the fanout-all deliveries and the expand
-// kernels of the routed delivery, for Hopper (sm_90a).
+// Degree-class fold kernels of the fanout-all deliveries, the expand
+// kernels of the routed delivery and the two node-major hub kernels, for
+// Hopper (sm_90a).
 //
 // The only arithmetic of `--delivery pallas` is these folds, and the port
 // is held bitwise to the JAX package's Pallas kernels, so each kernel
@@ -148,6 +149,111 @@ __global__ void expand_split_kernel(const float2* __restrict__ packed,
   out[o] = make_float4(p.x, p.y, p.x, p.y);
 }
 
+// class_reduce_big — replaces gossipprotocol_tpu/ops/classops.py:228
+// (class_reduce_big's pallas_call, :265).
+//
+// Input: f32 [n_c * q * 128], node-major: node i owns rows i*q .. i*q+q-1
+// (q = 2c/128); output: f32 [2 * n_c]. The TPU kernel runs one grid step
+// per (node, block of qb = min(q, 1024) rows): it folds every row with the
+// 128-lane roll tree, sums lanes 0 and 1 of the block's rows with
+// `jnp.sum(acc[:, :2], axis=0)`, and adds the block partials in ascending
+// block order. That sum is compiled by XLA, which on the CPU rewrites a
+// reduction longer than 32 into windows of 32 (the rows padded with zeros
+// to whole windows, half the padding, rounded down, in front): each window
+// is a left fold from 0, then the window sums are a left fold from 0 —
+// the order the JAX package's interpret mode runs and the port replays.
+// (Zero padding adds nothing to a sum begun at +0, so only the shift of
+// the window bounds by the leading padding is replayed.)
+//
+// One block per node, its blocks of rows in ascending order inside it
+// (GPU blocks run in no order, so the TPU's carry across grid steps has
+// no counterpart): the 8 warps fold the qb rows (fold_row_warp, the roll
+// tree), the partials go to shared memory, thread t < qb/32 folds window
+// t, and thread 0 folds the windows and adds the block to the node's sum.
+//
+// Bound on this card: bytes (each value read once; one add per value).
+// The widest hub class has one or two nodes, so few blocks are busy.
+constexpr int BIG_THREADS = 256;
+constexpr int BIG_WARPS = BIG_THREADS / 32;
+constexpr int BIGQ = 1024;
+constexpr int BIG_WINDOW = 32;
+
+__global__ void __launch_bounds__(BIG_THREADS)
+reduce_big_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  int q) {
+  __shared__ float2 part[BIGQ];
+  __shared__ float2 win[BIGQ / BIG_WINDOW];
+  const long long node = blockIdx.x;
+  const int t = static_cast<int>(threadIdx.x);
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int qb = min(q, BIGQ);
+  const int nwin = qb <= BIG_WINDOW ? 1 : (qb + BIG_WINDOW - 1) / BIG_WINDOW;
+  const int width = qb <= BIG_WINDOW ? qb : BIG_WINDOW;
+  const int lo = (nwin * width - qb) / 2;  // leading padding
+  float2 acc = make_float2(0.f, 0.f);  // meaningful in thread 0 only
+  for (int j = 0; j < q / qb; ++j) {
+    const float* rows = x + (node * q + static_cast<long long>(j) * qb)
+                            * GOSSIP_LANES;
+    for (int r = warp; r < qb; r += BIG_WARPS) {
+      const float2 p = fold_row_warp(__ldg(
+          reinterpret_cast<const float4*>(rows + r * GOSSIP_LANES) + lane));
+      if (lane == 0) part[r] = p;
+    }
+    __syncthreads();
+    if (t < nwin) {
+      float s = 0.f, w = 0.f;
+      const int r1 = min((t + 1) * width - lo, qb);
+      for (int r = max(t * width - lo, 0); r < r1; ++r) {
+        s = s + part[r].x;
+        w = w + part[r].y;
+      }
+      win[t] = make_float2(s, w);
+    }
+    __syncthreads();
+    if (t == 0) {
+      float s = 0.f, w = 0.f;
+      for (int b = 0; b < nwin; ++b) {
+        s = s + win[b].x;
+        w = w + win[b].y;
+      }
+      if (j == 0) {
+        acc = make_float2(s, w);
+      } else {
+        acc.x = acc.x + s;
+        acc.y = acc.y + w;
+      }
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    out[2 * node] = acc.x;
+    out[2 * node + 1] = acc.y;
+  }
+}
+
+// class_expand_big — replaces gossipprotocol_tpu/ops/classops.py:280
+// (class_expand_big's pallas_call, :302).
+//
+// Input: f32 [2 * n_c] packed (s, w) per node; output f32 [n_c * q * 128],
+// node i's q rows carrying its s on the even and its w on the odd lanes.
+// A grid-stride loop, one 16-byte store per four output lanes. Bound on
+// this card: bytes (the output is 64*q times the input, which stays in
+// L1/L2). An exact copy.
+__global__ void expand_big_kernel(const float2* __restrict__ pairs,
+                                  float4* __restrict__ out, long long q,
+                                  long long n4) {
+  for (long long o = blockIdx.x * static_cast<long long>(blockDim.x)
+                     + threadIdx.x;
+       o < n4; o += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float2 p = __ldg(pairs + (o >> 5) / q);
+    out[o] = make_float4(p.x, p.y, p.x, p.y);
+  }
+}
+
+// grid of the grid-stride copy: enough blocks to fill the 132 SMs
+constexpr long long EXPAND_BIG_MAX_BLOCKS = 132 * 16;
+
 constexpr int EXPAND_THREADS = 256;
 
 template <int C>
@@ -230,5 +336,33 @@ GOSSIP_EXPORT int gossip_class_expand_split(const float* packed, float* out,
                         0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(packed),
       reinterpret_cast<float4*>(out), cap, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+GOSSIP_EXPORT int gossip_class_reduce_big(const float* x, float* out,
+                                          long long n_c, int q,
+                                          void* stream) {
+  if (n_c == 0) return 0;
+  if (q < 1 || (q > BIGQ && q % BIGQ)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  reduce_big_kernel<<<static_cast<unsigned int>(n_c), BIG_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(x, out, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+GOSSIP_EXPORT int gossip_class_expand_big(const float* pairs, float* out,
+                                          long long n_c, int q,
+                                          void* stream) {
+  if (n_c == 0) return 0;
+  const long long n4 = static_cast<long long>(q) * n_c * (GOSSIP_LANES / 4);
+  const long long blocks = gossip_blocks(n4, EXPAND_THREADS);
+  expand_big_kernel<<<static_cast<unsigned int>(
+                          blocks < EXPAND_BIG_MAX_BLOCKS
+                              ? blocks : EXPAND_BIG_MAX_BLOCKS),
+                      EXPAND_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(pairs),
+      reinterpret_cast<float4*>(out), q, n4);
   return static_cast<int>(cudaGetLastError());
 }

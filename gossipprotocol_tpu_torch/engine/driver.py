@@ -1,7 +1,9 @@
 """Experiment driver + convergence supervisor (port of the subset of
-``gossipprotocol_tpu/engine/driver.py`` that fanout-all push-sum over the
-fused gather delivery, the Clos-routed delivery and the K-round
-megakernel reads).
+``gossipprotocol_tpu/engine/driver.py`` that the ported paths read:
+gossip and fanout-one push-sum over the scatter delivery — the
+reference's own ``N topology algorithm`` surface — and fanout-all
+push-sum over the fused gather delivery, the Clos-routed delivery and
+the K-round megakernel).
 
 The loop is chunked like the JAX engine's: one chunk advances rounds
 until a host-known ``round_limit`` or global convergence, whichever comes
@@ -16,15 +18,21 @@ with no host round-trip per round. The megakernel path
 (:func:`use_megakernel`) enqueues one launch per K rounds instead, and
 the kernel itself stops at convergence.
 
+The fanout-one paths draw from the counter-based device RNG; a chunk
+hashes its rounds' keys ``fold_in(key(seed), r)`` in one pass. Gossip's
+gather-inverted branch (on the CPU only: :func:`gossip_inversion_enabled`)
+is chosen per chunk on the host, from the previous chunk's fetched
+summary (see :class:`GossipCore`).
+
 The sharded push design (``--devices S``) has its own engine in
 ``parallel/sharded.py`` over the same chunk runner; its fields here are
 ``routed_design``, ``exchange_overlap``, ``payload_wire`` and
 ``build_workers``.
 
 What is not yet ported exits as a :class:`NotPortedError` naming itself:
-gossip, the single-target sender, the ``scatter`` and ``invert``
-deliveries, the sharded pull design, faults, checkpoints, telemetry,
-sweeps.
+the reference semantics, the ``invert`` delivery, the fanout-all
+``scatter`` delivery, the sharded pull design, faults, checkpoints,
+telemetry, sweeps.
 """
 
 from __future__ import annotations
@@ -41,8 +49,18 @@ from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
 from gossipprotocol_tpu_torch.protocols.diffusion import (
     pushsum_diffusion_round_routed,
 )
-from gossipprotocol_tpu_torch.protocols.pushsum import pushsum_done
-from gossipprotocol_tpu_torch.protocols.state import PushSumState, pushsum_init
+from gossipprotocol_tpu_torch.protocols.gossip import (
+    gossip_done, gossip_round_core, inversion_legal,
+)
+from gossipprotocol_tpu_torch.protocols.pushsum import (
+    pushsum_done, pushsum_round_core,
+)
+from gossipprotocol_tpu_torch.protocols.sampling import (
+    key_data, round_keys, use_dense,
+)
+from gossipprotocol_tpu_torch.protocols.state import (
+    GossipState, PushSumState, gossip_init, pushsum_init,
+)
 from gossipprotocol_tpu_torch.topology.base import Topology
 
 ALGORITHMS = ("gossip", "push-sum")
@@ -55,11 +73,13 @@ ALGORITHMS = ("gossip", "push-sum")
 # multiple of the megakernel's K.
 DEFAULT_CHUNK_ROUNDS = 16
 
-# the deliveries the port runs, and those of them whose fused kernel can
-# loop rounds (--rounds-per-kernel > 1); routed dispatches one round per
-# launch by construction
+# the fanout-all deliveries the port runs, and those of them whose fused
+# kernel can loop rounds (--rounds-per-kernel > 1); routed dispatches one
+# round per launch by construction. The fanout-one sender and gossip run
+# the scatter delivery.
 DELIVERIES = ("pallas", "megakernel", "routed")
 FUSED_DELIVERIES = ("pallas", "megakernel")
+ALL_DELIVERIES = ("scatter", "invert", "routed", "pallas", "megakernel")
 
 
 class NotPortedError(ValueError):
@@ -68,17 +88,27 @@ class NotPortedError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """The fields the ported path reads (names and defaults as in the
-    JAX package's ``RunConfig``), plus ``device``."""
+    """The fields the ported paths read (names and defaults as in the JAX
+    package's ``RunConfig``: gossip, fanout one, the scatter delivery),
+    plus ``device``."""
 
-    algorithm: str = "push-sum"
+    algorithm: str = "gossip"
     seed: int = 0
+    threshold: int = 10            # gossip hits to converge
+    keep_alive: bool = True        # gossip: spreaders keep spreading
+                                   # until global convergence
+    seed_node: Optional[int] = None  # gossip start node; None = drawn
+                                   # from the seed (pick_seed_node)
+    semantics: str = "intended"    # "reference" is not yet ported
     eps: float = 1e-10             # push-sum |Δ(s/w)| tolerance
     streak_target: int = 3         # consecutive rounds within tolerance
     predicate: str = "delta"       # "delta" (local) | "global" (sound)
     tol: float = 1e-4              # global-predicate tolerance
-    fanout: str = "all"
-    delivery: str = "pallas"
+    fanout: str = "one"            # push-sum sender: "one" (a random
+                                   # neighbour) | "all" (diffusion)
+    delivery: str = "scatter"      # "scatter" for gossip and fanout one;
+                                   # fanout all: "pallas" | "routed" |
+                                   # "megakernel"
     value_mode: str = "scaled"     # push-sum init: "scaled" (i/N) | "index" (i)
     max_rounds: int = 1_000_000
     chunk_rounds: Optional[int] = None  # None = DEFAULT_CHUNK_ROUNDS
@@ -106,14 +136,44 @@ class RunConfig:
         if self.algorithm not in ALGORITHMS:
             raise ValueError(
                 f"unknown algorithm {self.algorithm!r}; valid: {ALGORITHMS}")
-        if self.algorithm != "push-sum":
+        if self.semantics not in ("intended", "reference"):
+            raise ValueError("semantics must be 'intended' or 'reference'")
+        if self.semantics == "reference":
             raise NotPortedError(
-                f"algorithm {self.algorithm!r} is not yet ported to the "
-                "PyTorch package (only push-sum --fanout all is)")
-        if self.fanout != "all":
+                "option not yet ported: --semantics reference (the "
+                "reference's quirks: the gossip threshold 11, the "
+                "single-token push-sum walk and the quirk topology "
+                "builders)")
+        if self.fanout not in ("one", "all"):
+            raise ValueError("fanout must be 'one' or 'all'")
+        if self.delivery not in ALL_DELIVERIES:
+            raise ValueError("delivery must be 'scatter', 'invert', "
+                             "'routed', 'pallas', or 'megakernel'")
+        if self.delivery in DELIVERIES and (
+                self.algorithm != "push-sum" or self.fanout != "all"):
+            raise ValueError(
+                f"delivery='{self.delivery}' applies to fanout-all "
+                "diffusion only (the static edge structure is what the "
+                "routing plan compiles; single-target draws fresh targets "
+                "every round — see README 'Performance')")
+        if self.delivery == "invert":
+            if self.algorithm != "push-sum" or self.fanout != "one":
+                raise ValueError(
+                    "delivery='invert' applies to single-target push-sum "
+                    "only (gossip picks its inverted delivery "
+                    "automatically; diffusion walks every edge and has "
+                    "nothing to invert)")
             raise NotPortedError(
-                f"fanout {self.fanout!r} is not yet ported (only "
-                "--fanout all is)")
+                "option not yet ported: --delivery invert (push-sum "
+                "--fanout one runs --delivery scatter)")
+        if (self.algorithm == "push-sum" and self.fanout == "all"
+                and self.delivery == "scatter"):
+            raise NotPortedError(
+                "option not yet ported: --delivery scatter with --fanout "
+                "all (fanout-all push-sum runs --delivery pallas, routed "
+                "and megakernel)")
+        if self.threshold < 1:
+            raise ValueError("threshold must be >= 1")
         if self.rounds_per_kernel < 1:
             raise ValueError("rounds_per_kernel must be >= 1")
         if (self.rounds_per_kernel > 1
@@ -123,10 +183,6 @@ class RunConfig:
                 "kernel — it requires delivery='pallas' (or "
                 f"'megakernel'); --delivery {self.delivery} dispatches "
                 "one round per launch by construction")
-        if self.delivery not in DELIVERIES:
-            raise NotPortedError(
-                f"delivery {self.delivery!r} is not yet ported (only "
-                "--delivery pallas, routed and megakernel are)")
         if (use_megakernel(self) and self.chunk_rounds is not None
                 and self.chunk_rounds % self.rounds_per_kernel):
             raise ValueError(
@@ -197,7 +253,7 @@ class RunResult:
     compile_ms: float         # warm-up: kernel build/load + first round
     num_nodes: int
     algorithm: str
-    final_state: Any          # PushSumState of CPU tensors
+    final_state: Any          # GossipState or PushSumState, CPU tensors
     # round iterations the device ran. The per-round path counts frozen
     # ones (a chunk runs to its limit, up to chunk - 1 rounds past
     # convergence); the megakernel stops at convergence, so its count —
@@ -208,8 +264,11 @@ class RunResult:
     @property
     def estimate_error(self) -> Optional[float]:
         """Push-sum: max |s/w − achievable mean| over healthy nodes (the
-        mean over healthy rows only, in float64 on the host)."""
+        mean over healthy rows only, in float64 on the host); None for
+        gossip."""
         st = self.final_state
+        if not hasattr(st, "ratio"):
+            return None
         ratio = st.ratio.numpy().astype(np.float64)
         alive = st.alive.numpy()
         if not alive.any():
@@ -225,27 +284,154 @@ def initial_alive(topo: Topology) -> Optional[np.ndarray]:
     return topo.birth_alive()
 
 
+def pick_seed_node(num_nodes: int, seed: int, alive=None) -> int:
+    """Random gossip start node, from the run seed (the JAX package's
+    ``seed ^ 0x5EED`` numpy stream); a pick among the birth exclusions is
+    redrawn among the alive nodes."""
+    rng = np.random.default_rng(seed ^ 0x5EED)
+    node = int(rng.integers(0, num_nodes))
+    if alive is not None and not bool(alive[node]):
+        alive_ids = np.flatnonzero(alive)
+        if alive_ids.size:
+            node = int(rng.choice(alive_ids))
+    return node
+
+
+def effective_keep_alive(topo: Topology, cfg: RunConfig) -> bool:
+    """The keep-alive rule in force: ``cfg.keep_alive`` (the JAX
+    package also drops it for full-topology gossip under the reference
+    semantics, which are not ported)."""
+    return cfg.keep_alive
+
+
+def gossip_inversion_enabled(topo: Topology, cfg: RunConfig) -> bool:
+    """Does the gossip run carry the gather-inversion table? The JAX
+    package's rule (every dense-table gossip run of a symmetric graph;
+    its ``GOSSIP_TPU_INVERT=0`` opt-out is not ported), on the CPU only,
+    where the port mirrors the JAX engine branch for branch. On the card
+    the inverted branch converged no faster than the scatter at imp3D
+    and Erdős–Rényi 1M (the round is host-paced) and its table costs a
+    1.4-1.8 s host lexsort, so the card runs the scatter (PERF.md,
+    ``utils/profiling.py --algorithm gossip``). Whether a chunk takes the
+    inverted branch is decided at run time (:class:`GossipCore`)."""
+    return (cfg.algorithm == "gossip" and not topo.asymmetric
+            and use_dense(topo)
+            and torch.device(cfg.device).type == "cpu")
+
+
+def gossip_spreading_count(state: GossipState,
+                           keep_alive: bool) -> torch.Tensor:
+    """Nodes still able to deliver a hit. Zero while unconverged means the
+    rumor is dead (``keep_alive=False`` let every spreader go silent): the
+    driver stops instead of grinding to ``max_rounds``."""
+    heard = (state.counts >= 1) & state.alive
+    if not keep_alive:
+        heard = heard & ~state.converged
+    return torch.sum(heard.to(torch.int32))
+
+
+class GossipCore:
+    """The gossip round of one run, ``core(state, nbrs, key)``, with the
+    delivery branch of the current chunk (``inverted``).
+
+    The JAX package tests the inverted branch's legality on the device
+    every round (``jax.lax.cond``); reading that flag on the host every
+    round would stall the stream. Here the branch is fixed per chunk:
+    :meth:`observe` reads the legality of the state a chunk starts from
+    out of the previous chunk's one fetch, and the chunk takes the
+    inverted branch only if it held and keep-alive is on. Under
+    keep-alive with a fixed alive set (this engine has no alive-changing
+    events) ``heard`` only grows, so a legal state stays legal for the
+    rest of the run; under ``keep_alive=False`` a node converging
+    mid-chunk falls silent and breaks legality, so such a run keeps the
+    scatter branch. On legal rounds both branches give bitwise equal
+    hits, so the trajectory is the JAX package's whichever is taken."""
+
+    def __init__(self, *, n: int, threshold: int, keep_alive: bool,
+                 all_alive: bool, invertible: bool):
+        self.opts = dict(n=n, threshold=threshold, keep_alive=keep_alive,
+                         all_alive=all_alive)
+        self.invertible = invertible
+        self.inverted = False
+
+    def __call__(self, state: GossipState, nbrs, key) -> GossipState:
+        return gossip_round_core(state, nbrs, key, inverted=self.inverted,
+                                 **self.opts)
+
+    def extra_stats(self, state: GossipState, nbrs):
+        """``[spreading, legal]`` of ``state`` (device int32 scalars)."""
+        keep_alive = self.opts["keep_alive"]
+        legal = (inversion_legal(state, nbrs, keep_alive=keep_alive,
+                                 all_alive=self.opts["all_alive"])
+                 if self.invertible
+                 else torch.zeros((), dtype=torch.bool,
+                                  device=state.counts.device))
+        return [gossip_spreading_count(state, keep_alive),
+                legal.to(torch.int32)]
+
+    def observe(self, extra) -> bool:
+        """Take a chunk summary's ``[spreading, legal]``: set the next
+        chunk's branch, and say whether the run has stalled."""
+        spreading, legal = extra
+        self.inverted = (self.invertible and self.opts["keep_alive"]
+                         and bool(legal))
+        return spreading == 0
+
+
+def draws(cfg: RunConfig) -> bool:
+    """Does the round draw from the device RNG (gossip, fanout one)? Its
+    round core then takes the round key as a third argument."""
+    return cfg.algorithm == "gossip" or cfg.fanout == "one"
+
+
 def build_protocol(topo: Topology, cfg: RunConfig,
                    allow_all_alive: bool = True):
-    """``(init_state, round_core(state, delivery), done_fn,
-    (all_alive, targets_alive))`` on the run's device.
+    """``(init_state, round_core, done_fn, (all_alive, targets_alive))``
+    on the run's device.
 
-    With no birth exclusions the round drops its aliveness masks
-    (``all_alive``); birth exclusions are whole components, so an alive
-    node's neighbors are alive (``targets_alive``). ``allow_all_alive=
-    False`` forces the general dead-set path. Under
-    :func:`use_megakernel` the core is the K-round kernel's
-    ``(padded state, megakernel delivery) -> padded state``, which runs
-    the all-alive round only."""
+    ``round_core(state, delivery)`` for the fanout-all deliveries,
+    ``round_core(state, nbrs, round_key)`` where the round draws
+    (:func:`draws`; for gossip a :class:`GossipCore`). With no birth
+    exclusions the round drops its aliveness masks (``all_alive``); birth
+    exclusions are whole components, so an alive node's neighbors are
+    alive (``targets_alive``). ``allow_all_alive=False`` forces the
+    general dead-set path. Under :func:`use_megakernel` the core is the
+    K-round kernel's ``(padded state, megakernel delivery) -> padded
+    state``, which runs the all-alive round only."""
     dev = resolve_device(cfg.device)
+    n = topo.num_nodes
     alive0 = initial_alive(topo)
     all_alive = allow_all_alive and alive0 is None
     targets_alive = allow_all_alive
-    state = pushsum_init(topo.num_nodes, value_mode=cfg.value_mode,
-                         device=dev)
+    if cfg.algorithm == "gossip":
+        if cfg.seed_node is not None:
+            seed_node = cfg.seed_node  # explicit: honored even if dead
+        else:
+            seed_node = pick_seed_node(n, cfg.seed, alive=alive0)
+        state = gossip_init(n, seed_node, device=dev)
+        done_fn = gossip_done
+        core = GossipCore(n=n, threshold=cfg.threshold,
+                          keep_alive=effective_keep_alive(topo, cfg),
+                          all_alive=all_alive,
+                          invertible=gossip_inversion_enabled(topo, cfg))
+    else:
+        state = pushsum_init(n, value_mode=cfg.value_mode, device=dev)
+        done_fn = pushsum_done
     if alive0 is not None:
         state = state._replace(
             alive=state.alive & torch.from_numpy(np.array(alive0)).to(dev))
+    if cfg.algorithm == "gossip":
+        return state, core, done_fn, (all_alive, targets_alive)
+
+    if cfg.fanout == "one":
+        def core(st, nbrs, key):
+            return pushsum_round_core(
+                st, nbrs, key, n=n, eps=cfg.eps,
+                streak_target=cfg.streak_target, predicate=cfg.predicate,
+                tol=cfg.tol, all_alive=all_alive,
+                targets_alive=targets_alive)
+
+        return state, core, done_fn, (all_alive, targets_alive)
 
     if use_megakernel(cfg):
         from gossipprotocol_tpu_torch.ops.megakernel import (
@@ -259,10 +445,10 @@ def build_protocol(topo: Topology, cfg: RunConfig,
                 "resumed dead set) — use delivery='pallas' with "
                 "rounds_per_kernel=1")
         core = make_megakernel_round(
-            n=topo.num_nodes, rounds_per_kernel=cfg.rounds_per_kernel,
+            n=n, rounds_per_kernel=cfg.rounds_per_kernel,
             eps=cfg.eps, streak_target=cfg.streak_target,
             predicate=cfg.predicate, tol=cfg.tol)
-        return state, core, pushsum_done, (all_alive, targets_alive)
+        return state, core, done_fn, (all_alive, targets_alive)
 
     def round_core(st, delivery):
         return pushsum_diffusion_round_routed(
@@ -270,26 +456,38 @@ def build_protocol(topo: Topology, cfg: RunConfig,
             predicate=cfg.predicate, tol=cfg.tol, all_alive=all_alive,
             targets_alive=targets_alive)
 
-    return state, round_core, pushsum_done, (all_alive, targets_alive)
+    return state, round_core, done_fn, (all_alive, targets_alive)
 
 
 def device_arrays(topo: Topology, cfg: RunConfig):
-    """The delivery the round reads, through the plan cache
-    (``cfg.plan_cache``), placed on the run's device: the routed plans
-    for ``delivery='routed'``, else the fused gather plan; under
+    """What the round reads, placed on the run's device: for the drawing
+    rounds the neighbor arrays (gossip's with the inversion tables when
+    :func:`gossip_inversion_enabled`); else the delivery, through the
+    plan cache (``cfg.plan_cache``): the routed plans for
+    ``delivery='routed'``, else the fused gather plan, under
     :func:`use_megakernel` wrapped for the K-round kernel, whose
     eligibility (resident gathers) is checked here, before any launch."""
     from gossipprotocol_tpu_torch.ops.plancache import (
         pallas_delivery_cached, routed_delivery_cached,
     )
 
+    dev = resolve_device(cfg.device)
+    if draws(cfg):
+        from gossipprotocol_tpu_torch.protocols.gossip import inverted_dense
+        from gossipprotocol_tpu_torch.protocols.sampling import (
+            device_topology,
+        )
+
+        if gossip_inversion_enabled(topo, cfg):
+            return inverted_dense(topo, device=dev)
+        return device_topology(topo, device=dev)
     if cfg.delivery == "routed":
         rd, _prov = routed_delivery_cached(
-            topo, cache_dir=cfg.plan_cache, device=resolve_device(cfg.device))
+            topo, cache_dir=cfg.plan_cache, device=dev)
         return rd
 
     pd, _prov = pallas_delivery_cached(topo, cache_dir=cfg.plan_cache,
-                                       device=resolve_device(cfg.device))
+                                       device=dev)
     if use_megakernel(cfg):
         from gossipprotocol_tpu_torch.ops.megakernel import (
             build_megakernel_delivery,
@@ -299,30 +497,41 @@ def device_arrays(topo: Topology, cfg: RunConfig):
     return pd
 
 
-def _freeze(active: torch.Tensor, new: PushSumState,
-            old: PushSumState) -> PushSumState:
-    return PushSumState(*(torch.where(active, a, b)
-                          for a, b in zip(new, old)))
+def _freeze(active: torch.Tensor, new, old):
+    return type(new)(*(torch.where(active, a, b) for a, b in zip(new, old)))
 
 
-def chunk_stats(state: PushSumState, done_fn) -> torch.Tensor:
+def chunk_stats(state, done_fn, extra_stats=None,
+                delivery=None) -> torch.Tensor:
     """The chunk's verdict as ONE int32 device tensor (one host fetch):
-    ``[round, done]``."""
-    return torch.stack([state.round, done_fn(state).to(torch.int32)])
+    ``[round, done, *extra_stats(state, delivery)]``."""
+    extra = [] if extra_stats is None else extra_stats(state, delivery)
+    return torch.stack([state.round, done_fn(state).to(torch.int32),
+                        *extra])
 
 
-def make_chunk_runner(round_core, done_fn):
+def make_chunk_runner(round_core, done_fn, extra_stats=None,
+                      base_key: Optional[torch.Tensor] = None):
     """``chunk(state, delivery, start_round, round_limit) -> (state,
     stats)``: advance until global convergence or ``round ==
     round_limit``. The predicate is evaluated before every round, as the
     JAX engine's loop condition does; a converged state is carried
-    through the remaining rounds of the chunk unchanged."""
+    through the remaining rounds of the chunk unchanged.
+
+    With ``base_key`` the round draws: the chunk hashes the keys of its
+    rounds ``state.round, state.round + 1, ...`` in one pass and hands
+    round i the i-th (a round that runs unfrozen is always that round)."""
 
     def chunk(state, delivery, start_round: int, round_limit: int):
-        for _ in range(max(0, round_limit - start_round)):
+        count = max(0, round_limit - start_round)
+        keys = (None if base_key is None
+                else round_keys(base_key, state.round, count))
+        for i in range(count):
             active = ~done_fn(state)
-            state = _freeze(active, round_core(state, delivery), state)
-        return state, chunk_stats(state, done_fn)
+            new = (round_core(state, delivery) if keys is None
+                   else round_core(state, delivery, keys[i]))
+            state = _freeze(active, new, state)
+        return state, chunk_stats(state, done_fn, extra_stats, delivery)
 
     return chunk
 
@@ -365,10 +574,12 @@ def warm_start(step, state) -> None:
 
 
 def _drive(cfg: RunConfig, state, step, num_nodes: int,
-           compile_ms: float, trim=None) -> RunResult:
+           compile_ms: float, trim=None, observe=None) -> RunResult:
     """Host loop: chunks up to ``max_rounds`` and the convergence
     verdict. ``trim`` cuts a padded final state to the real rows (the
-    sharded engine)."""
+    sharded engine). ``observe(extra)`` takes each chunk's extra stats
+    and returns True when the run has stalled (gossip with no spreader
+    left): the run then stops unconverged, as the JAX engine's does."""
     cur_round = int(state.round)
     done = False
     executed = 0
@@ -378,13 +589,14 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
         round_limit = min(cur_round + cfg.chunk, cfg.max_rounds)
         state, stats = step(state, cur_round, round_limit)
         prev = cur_round
-        cur_round, done = stats.tolist()  # the one fetch of the chunk
+        cur_round, done, *extra = stats.tolist()  # the chunk's one fetch
         # the kernel adds the rounds it ran to `round` itself
         executed += (cur_round - prev) if fused else (round_limit - prev)
-        if done:
+        stalled = observe is not None and observe(extra)
+        if done or stalled:
             break
-    if state.s.is_cuda:
-        torch.cuda.synchronize(state.s.device)
+    if state.round.is_cuda:
+        torch.cuda.synchronize(state.round.device)
     wall_ms = (time.perf_counter() - t0) * 1e3
     if trim is not None:
         state = trim(state)
@@ -392,7 +604,7 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
         converged=bool(done), rounds=cur_round, wall_ms=wall_ms,
         compile_ms=compile_ms, num_nodes=num_nodes,
         algorithm=cfg.algorithm,
-        final_state=PushSumState(*(t.cpu() for t in state)),
+        final_state=type(state)(*(t.cpu() for t in state)),
         rounds_executed=executed,
     )
 
@@ -413,30 +625,38 @@ def resume_allows_fast(topo: Topology,
 
 
 def run_simulation(topo: Topology, cfg: RunConfig,
-                   initial_state: Optional[PushSumState] = None
-                   ) -> RunResult:
-    """Build the delivery, warm the kernels, and drive the protocol to
-    convergence (or ``max_rounds``). ``initial_state`` continues from a
-    given state (for example one carried across with
-    :func:`gossipprotocol_tpu_torch.convert.state_from_numpy`); it runs
-    the general dead-set path unless its dead set is the birth
-    exclusions."""
+                   initial_state=None) -> RunResult:
+    """Build what the round reads, warm the kernels, and drive the
+    protocol to convergence (or ``max_rounds``). ``initial_state``
+    continues from a given state (for example one carried across with
+    :mod:`gossipprotocol_tpu_torch.convert`); it runs the general
+    dead-set path unless its dead set is the birth exclusions."""
     dev = resolve_device(cfg.device)
     state, round_core, done_fn, _ = build_protocol(
         topo, cfg, allow_all_alive=resume_allows_fast(topo, initial_state))
     if initial_state is not None:
-        state = PushSumState(*(t.to(dev).clone() for t in initial_state))
+        state = type(state)(*(t.to(dev).clone() for t in initial_state))
     delivery = device_arrays(topo, cfg)
+    gossip = isinstance(round_core, GossipCore)
+    extra_stats = round_core.extra_stats if gossip else None
+    observe = round_core.observe if gossip else None
     if use_megakernel(cfg):
         runner = make_megakernel_chunk_runner(round_core, done_fn,
                                               cfg.rounds_per_kernel)
     else:
-        runner = make_chunk_runner(round_core, done_fn)
+        runner = make_chunk_runner(
+            round_core, done_fn, extra_stats,
+            base_key=key_data(cfg.seed, dev) if draws(cfg) else None)
 
     def step(s, start_round, round_limit):
         return runner(s, delivery, start_round, round_limit)
 
     t0 = time.perf_counter()
     warm_start(step, state)
+    if observe is not None:
+        # the first chunk's branch, from the state it starts from
+        observe(chunk_stats(state, done_fn, extra_stats,
+                            delivery).tolist()[2:])
     compile_ms = (time.perf_counter() - t0) * 1e3
-    return _drive(cfg, state, step, topo.num_nodes, compile_ms)
+    return _drive(cfg, state, step, topo.num_nodes, compile_ms,
+                  observe=observe)

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port and their host-side plans.
 
-``classops`` (the degree-class folds and expands), ``pallasdelivery``
+``classops`` (the degree-class folds and expands, and the node-major hub
+reduce and expand), ``pallasdelivery``
 (the two tile gathers, the fused delivery and the sharded edge-share
 exchange), ``exec`` (the Clos routing passes of the routed delivery,
 ``delivery``) and ``megakernel`` (K whole rounds per launch) each keep a

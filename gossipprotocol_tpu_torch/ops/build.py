@@ -54,6 +54,8 @@ _SIGNATURES = {
         "gossip_class_reduce_split": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
         "gossip_class_expand_small": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
         "gossip_class_expand_split": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
+        "gossip_class_reduce_big": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
+        "gossip_class_expand_big": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
     },
     "exchange": {
         # src pointers, dst pointers, shards, row bytes, ring offset

@@ -1,8 +1,11 @@
 """Degree-class folds and expands over the class-padded delivery layout.
 
 Port of ``gossipprotocol_tpu/ops/classops.py``: the two reduce kernels
-every fanout-all delivery runs and the two expand kernels of the routed
-delivery. Layout contract (``ops/delivery.py``):
+every fanout-all delivery runs, the two expand kernels of the routed
+delivery, and the two node-major hub kernels (``class_reduce_big``,
+``class_expand_big``) that no delivery of either package emits — they
+stand as functions with plain versions, as in the JAX package. Layout
+contract (``ops/delivery.py``):
 every class region covers whole 128-f32 rows; small classes (2c <= 128)
 hold 128/(2c) node runs per row, hub classes (2c > 128) split each node
 into q = 2c/128 one-row sub-classes stored sub-class-major (row
@@ -26,11 +29,14 @@ from gossipprotocol_tpu_torch.ops import build
 
 LANES = 128
 BLK = 256          # row alignment of small-class regions (layout contract)
+BIGQ = 1024        # rows per block of the node-major hub reduce
+WINDOW = 32        # XLA CPU's reduction window (see class_reduce_big)
 
 # kernel launches since the last reset (counted where each wrapper
 # launches its kernel; the CPU path launches nothing)
 LAUNCHES = {"class_reduce_small": 0, "class_reduce_split": 0,
-            "class_expand_small": 0, "class_expand_split": 0}
+            "class_expand_small": 0, "class_expand_split": 0,
+            "class_reduce_big": 0, "class_expand_big": 0}
 
 
 def _require_cuda_f32(x: torch.Tensor, what: str) -> None:
@@ -254,4 +260,132 @@ def class_expand_split(packed: torch.Tensor, c: int) -> torch.Tensor:
         build.stream_handle(packed.device))
     build.check(lib, rc, "class_expand_split")
     LAUNCHES["class_expand_split"] += 1
+    return out
+
+
+# ---- class_reduce_big / class_expand_big (node-major hub layout) --------
+
+def _big_geometry(c: int, what: str):
+    q = (2 * c) // LANES
+    if q * LANES != 2 * c or q < 1:
+        raise ValueError(f"{what}: 2c={2 * c} is not a multiple of {LANES}")
+    qb = min(q, BIGQ)
+    if q % qb:
+        raise ValueError(f"{what}: q={q} rows per node is not a whole "
+                         f"number of {BIGQ}-row blocks")
+    return q, qb
+
+
+def _roll_fold_rows(view: torch.Tensor) -> torch.Tensor:
+    """The full 128-lane roll fold of every row: ``[rows, 2]`` (s, w)."""
+    acc = view
+    sh = 2
+    while sh < LANES:
+        acc = acc + torch.roll(acc, -sh, dims=1)
+        sh *= 2
+    return acc[:, :2]
+
+
+def _windows(qb: int):
+    """``(windows, leading pad)`` of XLA CPU's rewrite of a reduction over
+    ``qb`` rows: none past 32 rows; else windows of 32, the padding to
+    whole windows split low (half, rounded down) and high."""
+    if qb <= WINDOW:
+        return 1, 0
+    nwin = -(-qb // WINDOW)
+    return nwin, (nwin * WINDOW - qb) // 2
+
+
+def class_reduce_big_plain(region: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain PyTorch body: the roll fold of every row, then per node and
+    block of ``qb = min(q, 1024)`` rows the sum of the row partials in
+    XLA CPU's order (past 32 rows: windows of 32, each a left fold from
+    0, the window sums a left fold from 0, the rows padded with zeros to
+    whole windows on both sides), then the blocks added in ascending
+    order."""
+    q, qb = _big_geometry(c, "class_reduce_big")
+    view = region.reshape(-1, LANES)
+    n_c = view.shape[0] // q
+    steps = q // qb
+    nwin, lo = _windows(qb)
+    width = WINDOW if nwin > 1 else qb
+    part = _roll_fold_rows(view).reshape(n_c, steps, qb, 2)
+    part = torch.nn.functional.pad(part, (0, 0, lo, nwin * width - qb - lo))
+    part = part.reshape(n_c, steps, nwin, width, 2)
+    win = torch.zeros((n_c, steps, nwin, 2), dtype=region.dtype,
+                      device=region.device)
+    for r in range(width):
+        win = win + part[:, :, :, r]
+    blk = torch.zeros((n_c, steps, 2), dtype=region.dtype,
+                      device=region.device)
+    for b in range(nwin):
+        blk = blk + win[:, :, b]
+    out = blk[:, 0]
+    for j in range(1, steps):
+        out = out + blk[:, j]
+    return out.reshape(-1)
+
+
+def class_reduce_big(region: torch.Tensor, c: int) -> torch.Tensor:
+    """Reduce a node-major hub region: node i owns the q = 2c/128 rows
+    ``i*q .. i*q+q-1`` (its c pairs, 64 per row). ``region``: f32
+    ``[n_c * q * 128]``; returns f32 ``[2 * n_c]`` packed (s, w).
+
+    On CUDA: ``csrc/classops.cu`` ``reduce_big_kernel``, replacing the
+    Pallas kernel at ``gossipprotocol_tpu/ops/classops.py:265``. Bound by
+    bytes; one block per node runs the node's blocks of rows in
+    ascending order (the TPU carries them across grid steps)."""
+    q, _ = _big_geometry(c, "class_reduce_big")
+    if region.numel() % (q * LANES):
+        raise ValueError(f"class_reduce_big: {region.numel()} values is "
+                         f"not whole nodes of q={q} rows")
+    if region.device.type == "cpu":
+        return class_reduce_big_plain(region, c)
+    _require_cuda_f32(region, "class_reduce_big")
+    require_aligned(region, "class_reduce_big")
+    n_c = region.numel() // (q * LANES)
+    out = torch.empty(2 * n_c, dtype=torch.float32, device=region.device)
+    lib = build.library("classops")
+    rc = lib.gossip_class_reduce_big(
+        region.data_ptr(), out.data_ptr(), n_c, q,
+        build.stream_handle(region.device))
+    build.check(lib, rc, "class_reduce_big")
+    LAUNCHES["class_reduce_big"] += 1
+    return out
+
+
+def class_expand_big_plain(pairs: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain PyTorch body: each node's row carries s on even and w on odd
+    lanes, repeated over its q rows."""
+    q, _ = _big_geometry(c, "class_expand_big")
+    x = pairs.reshape(-1, 2)
+    col = torch.arange(LANES, device=pairs.device)
+    row = torch.where(col % 2 == 0, x[:, 0:1], x[:, 1:2])   # [n_c, 128]
+    return row.repeat_interleave(q, dim=0).reshape(-1)
+
+
+def class_expand_big(pairs: torch.Tensor, c: int) -> torch.Tensor:
+    """Replicate each node pair across its q = 2c/128 rows (the inverse
+    of :func:`class_reduce_big`'s layout). ``pairs``: f32 ``[2 * n_c]``;
+    returns f32 ``[n_c * q * 128]``.
+
+    On CUDA: ``csrc/classops.cu`` ``expand_big_kernel``, replacing the
+    Pallas kernel at ``gossipprotocol_tpu/ops/classops.py:302``. Bound by
+    bytes (the output is 64q times the input); a grid-stride copy."""
+    q, _ = _big_geometry(c, "class_expand_big")
+    if pairs.numel() % 2:
+        raise ValueError("class_expand_big: packed (s, w) pairs expected")
+    if pairs.device.type == "cpu":
+        return class_expand_big_plain(pairs, c)
+    _require_cuda_f32(pairs, "class_expand_big")
+    require_aligned(pairs, "class_expand_big")
+    n_c = pairs.numel() // 2
+    out = torch.empty(n_c * q * LANES, dtype=torch.float32,
+                      device=pairs.device)
+    lib = build.library("classops")
+    rc = lib.gossip_class_expand_big(
+        pairs.data_ptr(), out.data_ptr(), n_c, q,
+        build.stream_handle(pairs.device))
+    build.check(lib, rc, "class_expand_big")
+    LAUNCHES["class_expand_big"] += 1
     return out

@@ -1,0 +1,138 @@
+"""Bulk-synchronous gossip rumor spreading (port of
+``gossipprotocol_tpu/protocols/gossip.py``, single card, synchronous
+clock, no loss windows).
+
+One round advances every node at once: every spreading node draws one
+random neighbour, hits accumulate by a scatter-add (``index_add_`` on
+int32, exact in any order, so the card's atomics and the CPU's serial
+loop agree), and counts and converged flags update. ``keep_alive=True``
+keeps every node that has heard the rumor spreading until global
+convergence (the bulk-synchronous analogue of the reference's keep-alive
+actor); ``keep_alive=False`` silences a node at its threshold.
+
+The gather-inverted delivery (:func:`hits_by_inversion`) computes the
+same hit histogram receiver-side when every eligible node spreads. The
+JAX package picks it per round with ``jax.lax.cond`` on a device flag;
+here the caller picks the branch (``inverted``) and must take it only
+while :func:`inversion_legal` holds — then both branches give bitwise
+equal hits, so the trajectory does not depend on the rule.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gossipprotocol_tpu_torch.ops.build import resolve_device
+from gossipprotocol_tpu_torch.protocols.sampling import (
+    InvertedDense, dense_table, fold_in, recomputed_hits, sample_neighbors,
+)
+from gossipprotocol_tpu_torch.protocols.state import GossipState
+from gossipprotocol_tpu_torch.topology.base import Topology
+
+
+def _spreaders(state: GossipState, keep_alive: bool,
+               all_alive: bool) -> torch.Tensor:
+    heard = state.counts >= 1
+    spreaders = heard if keep_alive else heard & ~state.converged
+    return spreaders if all_alive else spreaders & state.alive
+
+
+def inversion_legal(state: GossipState, nbrs: InvertedDense, *,
+                    keep_alive: bool, all_alive: bool) -> torch.Tensor:
+    """Device bool: does every node with a neighbour spread this round
+    (the JAX package's ``mismatches == 0``)? Then the inverted branch's
+    histogram is the scatter's."""
+    valid = nbrs.degree > 0
+    eligible = _spreaders(state, keep_alive, all_alive) & valid
+    return torch.all(eligible == valid)
+
+
+def gossip_round_core(state: GossipState, nbrs, key: torch.Tensor, *,
+                      n: int, threshold: int = 10, keep_alive: bool = True,
+                      all_alive: bool = False,
+                      inverted: bool = False) -> GossipState:
+    """One synchronous round under the round key ``key``.
+
+    ``all_alive=True`` drops the aliveness masks (legal only when no node
+    is dead). ``inverted=True`` takes the gather-inverted branch (``nbrs``
+    an :class:`InvertedDense`), which the caller may do only while
+    :func:`inversion_legal` holds."""
+    spreaders = _spreaders(state, keep_alive, all_alive)
+    if inverted:
+        hits = hits_by_inversion(nbrs, key)
+    else:
+        targets, valid = sample_neighbors(nbrs, n, key)
+        send = (spreaders & valid).to(torch.int32)
+        hits = torch.zeros_like(state.counts).index_add_(0, targets, send)
+    # the reference's sender-side dictionary check, applied at the
+    # receiver: no hit lands on a converged or failed node
+    suppressed = (state.converged if all_alive
+                  else state.converged | ~state.alive)
+    hits = torch.where(suppressed, torch.zeros_like(hits), hits)
+    counts = state.counts + hits
+    return GossipState(counts=counts,
+                       converged=state.converged | (counts >= threshold),
+                       alive=state.alive, round=state.round + 1)
+
+
+def gossip_round(state: GossipState, nbrs, base_key: torch.Tensor, *,
+                 n: int, threshold: int = 10, keep_alive: bool = True,
+                 all_alive: bool = False,
+                 inverted: bool = False) -> GossipState:
+    """One round keyed by ``fold_in(base_key, state.round)`` (the JAX
+    package's ``gossip_round``, with the branch chosen by the caller)."""
+    return gossip_round_core(
+        state, nbrs, fold_in(base_key, state.round), n=n,
+        threshold=threshold, keep_alive=keep_alive, all_alive=all_alive,
+        inverted=inverted)
+
+
+def gossip_done(state: GossipState) -> torch.Tensor:
+    """Supervisor predicate: every healthy node has converged."""
+    return torch.all(state.converged | ~state.alive)
+
+
+def reverse_slot_table(topo: Topology):
+    """Host-side inversion table (int8 ``rev``; the JAX package's first
+    table): for dense slot ``(i, k)`` with neighbour ``j = table[i, k]``,
+    ``rev[i, k]`` is i's position in j's sorted neighbour row (the slot j
+    must draw to hit i). One lexsort over the edges by (dst, src)."""
+    offsets = np.asarray(topo.offsets, dtype=np.int64)
+    indices = np.asarray(topo.indices, dtype=np.int64)
+    deg = np.asarray(topo.degree, dtype=np.int64)
+    n = topo.num_nodes
+    maxd = int(deg.max()) if deg.size else 1
+    assert maxd < 128, "reverse-slot tables are int8; dense path only"
+    row = np.repeat(np.arange(n, dtype=np.int64), np.diff(offsets))
+    # slots are ranks within the sorted row: the CSR must be canonical
+    interior = np.ones(len(row), dtype=bool)
+    starts = offsets[1:-1]
+    interior[starts[starts < len(row)]] = False
+    if len(row) > 1:
+        assert (np.diff(indices)[interior[1:]] > 0).all(), (
+            "reverse_slot_table requires sorted, deduplicated CSR rows")
+    order = np.lexsort((row, indices))
+    rev_slot = np.empty(len(row), dtype=np.int8)
+    rev_slot[order] = (np.arange(len(row), dtype=np.int64)
+                       - offsets[indices[order]]).astype(np.int8)
+    mask = np.arange(max(maxd, 1))[None, :] < deg[:, None]
+    rev = np.zeros((n, max(maxd, 1)), dtype=np.int8)
+    rev[mask] = rev_slot
+    return rev
+
+
+def inverted_dense(topo: Topology, device="cuda") -> InvertedDense:
+    """The dense table and its inversion table on ``device``."""
+    dev = resolve_device(device)
+    table, deg = dense_table(topo)
+    return InvertedDense(*(torch.from_numpy(a).to(dev)
+                           for a in (table, deg, reverse_slot_table(topo))))
+
+
+def hits_by_inversion(nbrs: InvertedDense, key: torch.Tensor) -> torch.Tensor:
+    """Receiver-side hit counts: node i's hits are the neighbours whose
+    draw points back at i, ``Σ_k [slot(table[i,k]) == rev[i,k]]`` over
+    ``k < degree[i]`` — the scatter's histogram when every eligible node
+    spreads."""
+    return recomputed_hits(nbrs, key).sum(dim=1, dtype=torch.int32)

@@ -1,17 +1,23 @@
-"""Push-sum round tail and supervisor predicate (port of the scalar
-pieces of ``gossipprotocol_tpu/protocols/pushsum.py``).
+"""Push-sum: the single-target scatter round, the round tail and the
+supervisor predicate (port of the scalar pieces of
+``gossipprotocol_tpu/protocols/pushsum.py``).
 
-Only the intended semantics are ported (``--semantics reference`` and
-the single-target sender are not yet): the convergence predicate is
-either the local delta streak ``|Δ(s/w)| <= eps`` for ``streak_target``
-rounds (sticky) or the global ``|s/w - mean| <= tol`` streak
-(non-sticky).
+Only the intended semantics are ported (``--semantics reference``, the
+gather-inverted ``delivery='invert'``, clocks and loss windows are not
+yet): every round every node halves its ``(s, w)``, keeps one half and
+scatter-adds the other to one random neighbour. The convergence
+predicate is either the local delta streak ``|Δ(s/w)| <= eps`` for
+``streak_target`` rounds (sticky) or the global ``|s/w - mean| <= tol``
+streak (non-sticky).
 """
 
 from __future__ import annotations
 
 import torch
 
+from gossipprotocol_tpu_torch.protocols.sampling import (
+    fold_in, sample_neighbors,
+)
 from gossipprotocol_tpu_torch.protocols.state import PushSumState
 
 
@@ -62,6 +68,52 @@ def finish_pushsum_round(state: PushSumState, s_new: torch.Tensor,
         raise ValueError("predicate must be 'delta' or 'global'")
     return state._replace(s=s_new, w=w_new, ratio=ratio_new, streak=streak,
                           converged=converged, round=state.round + 1)
+
+
+def pushsum_round_core(state: PushSumState, nbrs, key: torch.Tensor, *,
+                       n: int, eps: float = 1e-10, streak_target: int = 3,
+                       predicate: str = "delta", tol: float = 1e-4,
+                       all_alive: bool = False,
+                       targets_alive: bool = False) -> PushSumState:
+    """One fanout-one round under the round key ``key``, delivered by
+    scatter (``index_add_``, the JAX package's ``segment_sum``).
+
+    A send lands when its sender has a neighbour and, unless
+    ``all_alive``, the sender is alive and (unless ``targets_alive``, the
+    dead set being whole components) so is its target; an undelivered
+    half stays with the sender, so mass is conserved.
+
+    Summation order: the JAX package's text is ``s - s_sent + in_s``
+    with ``in_s = segment_sum(s_sent)``, but XLA on the CPU rewrites the
+    add of a scatter into zeros as a scatter onto the addend: each
+    message is added straight onto ``s - s_sent``, in ascending sender
+    order. The port does the same (``index_add_`` onto ``s - s_sent``,
+    which on the CPU adds in ascending index order), so the round is
+    bitwise the JAX package's there (ROADMAP.md Queue 3). On the card the
+    float adds are atomics: equal up to accumulation order."""
+    targets, valid = sample_neighbors(nbrs, n, key)
+    if all_alive:
+        deliver = valid
+    elif targets_alive:
+        deliver = valid & state.alive
+    else:
+        deliver = valid & state.alive & state.alive[targets]
+    zero = torch.zeros_like(state.s)
+    s_sent = torch.where(deliver, state.s * 0.5, zero)
+    w_sent = torch.where(deliver, state.w * 0.5, zero)
+    s_new = (state.s - s_sent).index_add_(0, targets, s_sent)
+    w_new = (state.w - w_sent).index_add_(0, targets, w_sent)
+    return finish_pushsum_round(
+        state, s_new, w_new, eps=eps, streak_target=streak_target,
+        predicate=predicate, tol=tol, all_alive=all_alive)
+
+
+def pushsum_round(state: PushSumState, nbrs, base_key: torch.Tensor, *,
+                  n: int, **kw) -> PushSumState:
+    """One round keyed by ``fold_in(base_key, state.round)`` (the JAX
+    package's single-card ``pushsum_round``, scatter delivery)."""
+    return pushsum_round_core(state, nbrs, fold_in(base_key, state.round),
+                              n=n, **kw)
 
 
 def pushsum_done(state: PushSumState) -> torch.Tensor:

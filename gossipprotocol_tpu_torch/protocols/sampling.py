@@ -1,0 +1,241 @@
+"""Counter-based draws and the random-neighbour pick (port of
+``gossipprotocol_tpu/protocols/sampling.py``, single-card rows).
+
+Node ``i``'s draw in round ``r`` is a threefry-2x32 hash of its global id
+under the round key ``fold_in(key(seed), r)``, so a run is replayed bit
+for bit from its seed, on any device. The hash is the JAX package's
+``jax.extend.random.threefry_2x32`` (rotation constants and key schedule
+copied from ``jax/_src/prng.py``, ``_threefry2x32_lowering``), written in
+PyTorch: PyTorch has no full uint32 arithmetic, so every word is an int64
+holding a uint32 value, masked with ``& 0xFFFFFFFF`` after each add and
+rotate. ``jax_threefry_partitionable`` changes ``split`` and
+``random_bits`` only; neither the hash nor ``fold_in`` reads it.
+
+Topology arrays are runtime arguments: :class:`DenseNeighbors` (a padded
+``[n, max_degree]`` table, bounded-degree graphs), :class:`CSRNeighbors`
+(hub graphs) or ``None`` for the implicit complete graph.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gossipprotocol_tpu_torch.ops.build import resolve_device
+from gossipprotocol_tpu_torch.topology.base import Topology
+
+_U32 = 0xFFFFFFFF
+# jax/_src/prng.py, _threefry2x32_lowering: the two rotation schedules
+# and the key-schedule parity constant
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+# Domain-separation constant of the JAX package's loss draws (kept for
+# the drop windows, which are not ported yet).
+LOSS_FOLD = 0x10553
+
+# Above this max degree the dense table stops paying; CSR covers hubs.
+DENSE_MAX_DEGREE = 32
+
+
+class CSRNeighbors(NamedTuple):
+    starts: torch.Tensor   # int64 [N]  offsets[:-1]
+    degree: torch.Tensor   # int32 [N]
+    indices: torch.Tensor  # int32 [E]
+
+
+class DenseNeighbors(NamedTuple):
+    """``table[i, k]`` = k-th neighbour of row i; slots k >= degree[i]
+    hold 0 and are never drawn."""
+
+    table: torch.Tensor    # int32 [N, max_degree]
+    degree: torch.Tensor   # int32 [N]
+
+
+class InvertedDense(NamedTuple):
+    """:class:`DenseNeighbors` plus the gather-inversion table
+    (``protocols/gossip.py`` :func:`reverse_slot_table`): ``rev[i, k]``
+    is the slot neighbour ``table[i, k]`` must draw to hit i. (The JAX
+    package also carries each neighbour's degree, ``deg_nbr``, to hash
+    every table entry; :func:`recomputed_hits` hashes each node once
+    with its own degree instead.)"""
+
+    table: torch.Tensor    # int32 [N, max_degree]
+    degree: torch.Tensor   # int32 [N]
+    rev: torch.Tensor      # int8 [N, max_degree]
+
+
+# ---- threefry-2x32 -----------------------------------------------------
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & _U32) | (x >> (32 - r))
+
+
+def threefry2x32_words(k0, k1, x0: torch.Tensor,
+                       x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The threefry-2x32 block function (20 rounds) of the counter words
+    ``(x0, x1)`` under the key ``(k0, k1)``: int64 tensors (or ints)
+    holding uint32 values; returns the two output words."""
+    k2 = k0 ^ k1 ^ _PARITY
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & _U32
+    x1 = (x1 + k1) & _U32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _U32
+    return x0, x1
+
+
+def key_data(seed: int, device="cuda") -> torch.Tensor:
+    """``jax.random.key_data(jax.random.key(seed))`` as int64 [2] on
+    ``device``: a 32-bit seed pads to ``(0, seed mod 2**32)`` (the JAX
+    package runs without x64, so its seed is 32 bits)."""
+    return torch.tensor([0, int(seed) & _U32], dtype=torch.int64,
+                        device=resolve_device(device))
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: the hash of the counter words
+    ``(0, data)``; ``data`` an int or an integer tensor of any shape
+    (then one key per element, shape ``[*data.shape, 2]``)."""
+    d = torch.as_tensor(data, device=key.device).to(torch.int64) & _U32
+    y0, y1 = threefry2x32_words(key[0], key[1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def round_keys(base_key: torch.Tensor, first_round: torch.Tensor,
+               count: int) -> torch.Tensor:
+    """``[count, 2]``: ``fold_in(base_key, r)`` for the rounds
+    ``first_round .. first_round + count - 1`` (``first_round`` a device
+    scalar), hashed in one pass instead of one small hash per round."""
+    rounds = first_round.to(torch.int64) + torch.arange(
+        count, dtype=torch.int64, device=base_key.device)
+    return fold_in(base_key, rounds)
+
+
+def per_node_randint(key: torch.Tensor, gids: torch.Tensor,
+                     maxval) -> torch.Tensor:
+    """One draw in ``[0, maxval_i)`` per global node id: the threefry
+    hash of ``(gid, gid)`` under ``key`` (the JAX package's ``[g, g]``
+    pairing, which makes a draw a function of the id alone), then
+    ``u % maxval`` in uint32. Returns int32."""
+    g = gids.to(torch.int64) & _U32
+    u, _ = threefry2x32_words(key[0], key[1], g, g)
+    mx = torch.as_tensor(maxval, device=g.device).to(torch.int64) & _U32
+    return (u % mx).to(torch.int32)
+
+
+# ---- host tables and their placement ------------------------------------
+
+def dense_table(topo: Topology):
+    """Host-side padded ``[N, max_deg]`` int32 table + int32 degree."""
+    deg = topo.degree.astype(np.int32)
+    maxd = int(deg.max()) if deg.size else 1
+    table = np.zeros((topo.num_nodes, max(maxd, 1)), dtype=np.int32)
+    mask = np.arange(table.shape[1])[None, :] < deg[:, None]
+    table[mask] = topo.indices
+    return table, deg
+
+
+def use_dense(topo: Topology) -> bool:
+    """The dense table when the max degree is at most
+    :data:`DENSE_MAX_DEGREE` (the JAX package's rule; its
+    ``GOSSIP_TPU_DENSE`` switch is not ported — ``device_topology(dense=
+    False)`` forces CSR)."""
+    return (
+        not topo.implicit_full
+        and int(topo.degree.max() if topo.degree.size else 0)
+        <= DENSE_MAX_DEGREE
+    )
+
+
+def device_topology(topo: Topology, dense: Optional[bool] = None,
+                    device="cuda"):
+    """Topology -> tensors on ``device``; None for the implicit complete
+    graph. ``dense`` forces the dense table (True) or CSR (False)."""
+    dev = resolve_device(device)
+    if topo.implicit_full:
+        return None
+    if dense is None:
+        dense = use_dense(topo)
+    if dense:
+        table, deg = dense_table(topo)
+        return DenseNeighbors(table=torch.from_numpy(table).to(dev),
+                              degree=torch.from_numpy(deg).to(dev))
+    return CSRNeighbors(
+        starts=torch.from_numpy(topo.offsets[:-1].astype(np.int64)).to(dev),
+        degree=torch.from_numpy(topo.degree.astype(np.int32)).to(dev),
+        indices=torch.from_numpy(topo.indices.astype(np.int32)).to(dev),
+    )
+
+
+# ---- the draws ------------------------------------------------------------
+
+def _ids(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int64, device=device)
+
+
+def node_slots(degree: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Every node's slot draw ``randint(key, i, max(degree_i, 1))``."""
+    return per_node_randint(key, _ids(degree.shape[0], degree.device),
+                            torch.clamp(degree, min=1))
+
+
+def recomputed_hits(nbrs: InvertedDense, key: torch.Tensor) -> torch.Tensor:
+    """``hit[i, k]``: does neighbour ``table[i, k]``'s draw land on row i?
+
+    The JAX package hashes every table entry (``[rows * max_deg]`` ids,
+    each with its neighbour's degree). A node's draw is a function of its
+    id and degree alone, so the port hashes each node once and gathers
+    the draws at the table: the same values, max_deg times fewer hashes.
+    Slots ``k >= degree[i]`` are masked off."""
+    table = nbrs.table
+    maxd = table.shape[1]
+    slot = node_slots(nbrs.degree, key)[table]
+    col = torch.arange(maxd, dtype=torch.int32, device=table.device)
+    return (slot == nbrs.rev.to(torch.int32)) & (
+        col[None, :] < nbrs.degree[:, None])
+
+
+def sample_neighbors(nbrs, n: int, key: torch.Tensor):
+    """One uniform-random neighbour per node: ``(targets int32 [n], valid
+    bool [n])``. Isolated rows are invalid, their target pinned to 0.
+
+    Three branches, each drawing with the JAX package's convention so the
+    picks are bitwise its picks:
+
+    * dense table: slot in ``[0, max(deg, 1))``, then ``table[i, slot]``
+      (a gather; the JAX package's one-hot sum picks the same entry);
+    * implicit complete graph (``nbrs is None``): a draw in ``[0, n-1)``,
+      draws ``>= i`` shifted up by one (never itself);
+    * CSR: ``indices[clip(starts + slot, 0, E - 1)]``.
+    """
+    if isinstance(nbrs, (DenseNeighbors, InvertedDense)):
+        deg = nbrs.degree
+        slot = node_slots(deg, key)
+        targets = torch.gather(nbrs.table, 1, slot.long()[:, None])[:, 0]
+        valid = deg > 0
+        return torch.where(valid, targets, torch.zeros_like(targets)), valid
+    if nbrs is None:
+        gids = _ids(n, key.device)
+        r = per_node_randint(key, gids, n - 1)
+        targets = r + (r.to(torch.int64) >= gids).to(torch.int32)
+        return targets, torch.ones(n, dtype=torch.bool, device=key.device)
+    deg = nbrs.degree
+    slot = node_slots(deg, key)
+    max_slot = max(nbrs.indices.shape[0] - 1, 0)
+    flat = torch.clamp(nbrs.starts + slot.to(torch.int64), 0, max_slot)
+    targets = nbrs.indices[flat]
+    valid = deg > 0
+    return torch.where(valid, targets, torch.zeros_like(targets)), valid
+
+
+def send_valid_mask(nbrs, n: int) -> Optional[torch.Tensor]:
+    """Rows that can emit a message (degree > 0); None for the implicit
+    complete graph, where every row can."""
+    return None if nbrs is None else nbrs.degree > 0

@@ -1,5 +1,5 @@
-"""Push-sum state (port of ``gossipprotocol_tpu/protocols/state.py``,
-scalar payload path).
+"""Gossip and push-sum state (port of
+``gossipprotocol_tpu/protocols/state.py``, scalar payload path).
 
 The whole system state is a handful of dense tensors in a NamedTuple.
 ``ratio`` caches s/w from the previous round so the convergence delta is
@@ -14,6 +14,28 @@ from typing import NamedTuple
 import torch
 
 from gossipprotocol_tpu_torch.ops.build import resolve_device
+
+
+class GossipState(NamedTuple):
+    counts: torch.Tensor      # int32 [N]  times each node heard the rumor
+    converged: torch.Tensor   # bool [N]
+    alive: torch.Tensor       # bool [N]
+    round: torch.Tensor       # int32 scalar
+
+
+def gossip_init(num_nodes: int, seed_node: int,
+                device="cuda") -> GossipState:
+    """All-zero state with the rumor seeded at ``seed_node`` (count 1: its
+    own knowledge of the rumor is the first hearing), on ``device``."""
+    dev = resolve_device(device)
+    counts = torch.zeros(num_nodes, dtype=torch.int32, device=dev)
+    counts[seed_node] = 1
+    return GossipState(
+        counts=counts,
+        converged=torch.zeros(num_nodes, dtype=torch.bool, device=dev),
+        alive=torch.ones(num_nodes, dtype=torch.bool, device=dev),
+        round=torch.zeros((), dtype=torch.int32, device=dev),
+    )
 
 
 class PushSumState(NamedTuple):

@@ -11,24 +11,34 @@ megakernel's K cost (the port's counterpart of
         --nodes 1000000 --topology power_law --delivery routed
     python -m gossipprotocol_tpu_torch.utils.profiling \\
         --nodes 1000000 --topology imp3D --delivery pallas --devices 4
+    python -m gossipprotocol_tpu_torch.utils.profiling \\
+        --nodes 1000000 --topology imp3D --algorithm gossip
+    python -m gossipprotocol_tpu_torch.utils.profiling \\
+        --nodes 1000000 --topology imp3D --fanout one
 
 Builds the graph and its delivery on ``cuda``, then:
 
   1. profiles ROUNDS rounds with ``torch.profiler`` (the per-round path
      over the pallas or the routed delivery, ROUNDS / K launches of the
-     K-round kernel, or with ``--devices S`` the sharded push round over
-     S shards on the card, with the predicate disabled, so every round
-     runs): device time per kernel name per round, and the host time
+     K-round kernel, with ``--devices S`` the sharded push round over S
+     shards on the card, or the drawing rounds of gossip and fanout-one
+     push-sum over the scatter delivery — gossip on both of its branches,
+     from the seed state and from a saturated one — with the predicate
+     disabled, so every round runs): device time per kernel name per
+     round, and the host time
      spent enqueuing a round; times the same rounds with CUDA events, and
      reports the device's idle share of that window (1 - busy / event
      time);
   2. runs the protocol to convergence once per setting, in mirrored
      order: per chunk size in CHUNKS (``--delivery pallas``), per K in KS
      against the per-round pallas path (``--delivery megakernel``),
-     routed against pallas (``--delivery routed``), or with ``--devices
-     S`` the sharded pallas, routed and ring-exchange runs against the
-     single-card pallas and routed runs, reporting the convergence time,
-     the rounds, and the rounds executed.
+     routed against pallas (``--delivery routed``), with ``--devices S``
+     the sharded pallas, routed and ring-exchange runs against the
+     single-card pallas and routed runs, or per chunk size in CHUNKS for
+     the drawing rounds (for dense gossip then INVERSION_PAIRS
+     alternating pairs with the inverted branch allowed and not, and
+     what building the dense and the inverted tables costs), reporting
+     the convergence time, the rounds, and the rounds executed.
 
 Prints a table and one JSON line; ``--out FILE`` also writes the JSON
 there. Needs a CUDA device.
@@ -46,6 +56,7 @@ import torch
 ROUNDS = 64
 CHUNKS = (64, 16, 8)
 KS = (1, 4, 16, 64)
+INVERSION_PAIRS = 8  # gossip runs with and without the inverted branch
 
 
 def _kernel_table(prof, rounds):
@@ -170,9 +181,7 @@ def _profile_sharded(topo, cfg, shards: int, out_path) -> int:
     print(f"device busy {busy_ms:.4f} ms/round (profiler), {event_ms:.4f} "
           f"ms/round by CUDA events, host enqueue {enqueue_ms:.4f} "
           f"ms/round, idle share {idle:.3f}")
-    print(f"{'kernel':70s} {'calls/round':>11s} {'ms/round':>10s}")
-    for key, calls, ms_r in table:
-        print(f"{key[:70]:70s} {calls:11.2f} {ms_r:10.4f}")
+    _print_table(table)
     for r in conv:
         print(f"{r['delivery']:7s} shards {r['shards']} exchange "
               f"{r['exchange']}: {r['rounds']} rounds ({r['executed']} "
@@ -193,14 +202,159 @@ def _profile_sharded(topo, cfg, shards: int, out_path) -> int:
     return 0
 
 
+def _print_table(table):
+    print(f"{'kernel':70s} {'calls/round':>11s} {'ms/round':>10s}")
+    for key, calls, ms_r in table:
+        print(f"{key[:70]:70s} {calls:11.2f} {ms_r:10.4f}")
+
+
+def _profile_drawing(topo, cfg, dev, out_path) -> int:
+    """Gossip or fanout-one push-sum over the scatter delivery: the round
+    profiled (gossip on each branch), then convergence per chunk size."""
+    from gossipprotocol_tpu_torch.engine.driver import (
+        GossipCore, _drive, build_protocol, chunk_stats, device_arrays,
+        make_chunk_runner, warm_start,
+    )
+    from gossipprotocol_tpu_torch.protocols.gossip import inverted_dense
+    from gossipprotocol_tpu_torch.protocols.sampling import (
+        device_topology, key_data, round_keys, use_dense,
+    )
+
+    n = topo.num_nodes
+    # dense gossip: the inverted branch is profiled and raced against the
+    # scatter, although the card's runs take the scatter only
+    # (gossip_inversion_enabled)
+    invertible = (cfg.algorithm == "gossip" and not topo.asymmetric
+                  and use_dense(topo))
+    nbrs = (inverted_dense(topo, device=dev) if invertible
+            else device_arrays(topo, cfg))
+    base_key = key_data(cfg.seed, dev)
+    keys = round_keys(base_key, torch.zeros((), dtype=torch.int32,
+                                            device=dev), ROUNDS)
+    state0, core, done_fn, _ = build_protocol(topo, dataclasses.replace(
+        cfg, streak_target=2**30))
+    gossip = isinstance(core, GossipCore)
+    starts = [("scatter", state0, False)]
+    if invertible:
+        core.invertible = True
+        saturated = state0._replace(counts=torch.ones_like(state0.counts))
+        starts.append(("inverted", saturated, True))
+    profiles = []
+    for branch, st0, inverted in starts:
+        if gossip:
+            core.inverted = inverted
+
+        def rounds(st0=st0):
+            st = st0
+            for i in range(ROUNDS):
+                st = core(st, nbrs, keys[i])
+
+        table, busy_ms, event_ms, enqueue_ms, idle = _profile_rounds(
+            rounds, dev)
+        profiles.append(dict(branch=branch, busy_ms_per_round=busy_ms,
+                             event_ms_per_round=event_ms,
+                             enqueue_ms_per_round=enqueue_ms,
+                             idle_share=idle,
+                             kernels=[dict(name=k, calls_per_round=c,
+                                           ms_per_round=m)
+                                      for k, c, m in table]))
+    # convergence per chunk size (mirrored); for gossip with the
+    # inversion table, then INVERSION_PAIRS alternating pairs at the
+    # default chunk with the inverted branch allowed and not (the
+    # scatter every round), same tables, same draws, same rounds
+    settings = [(chunk, None) for chunk in CHUNKS + CHUNKS[::-1]]
+    if invertible:
+        settings += [(None, inv) for _ in range(INVERSION_PAIRS // 2)
+                     for inv in (True, False, False, True)]
+    conv = []
+    for chunk, invertible in settings:
+        c = dataclasses.replace(cfg, chunk_rounds=chunk)
+        s0, rc, done_fn, _ = build_protocol(topo, c)
+        if invertible is not None:
+            rc.invertible = invertible
+        extra = rc.extra_stats if gossip else None
+        runner = make_chunk_runner(rc, done_fn, extra, base_key=base_key)
+        inverted_rounds = [0]
+
+        def step(s, start_round, round_limit, rc=rc, runner=runner,
+                 inverted_rounds=inverted_rounds):
+            if gossip and rc.inverted:
+                inverted_rounds[0] += round_limit - start_round
+            return runner(s, nbrs, start_round, round_limit)
+
+        warm_start(step, s0)
+        inverted_rounds[0] = 0
+        observe = None
+        if gossip:
+            observe = rc.observe
+            observe(chunk_stats(s0, done_fn, extra, nbrs).tolist()[2:])
+        res = _drive(c, s0, step, n, 0.0, observe=observe)
+        conv.append(dict(chunk=c.chunk, invertible=invertible,
+                         wall_ms=res.wall_ms, rounds=res.rounds,
+                         executed=res.rounds_executed,
+                         inverted_rounds=inverted_rounds[0],
+                         converged=res.converged,
+                         estimate_error=res.estimate_error))
+    # what the inversion table costs to build and place, beside the
+    # plain dense table (host lexsort + copy)
+    builds = {}
+    if invertible:
+        for name, fn in (("dense", lambda: device_topology(topo,
+                                                           device=dev)),
+                         ("inverted", lambda: inverted_dense(topo,
+                                                             device=dev))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            builds[name] = (time.perf_counter() - t0) * 1e3
+
+    name = torch.cuda.get_device_name(dev)
+    what = ("gossip" if gossip else "push-sum --fanout one") + \
+        f", {type(nbrs).__name__ if nbrs is not None else 'implicit full'}"
+    print(f"{topo.kind} {n} nodes on {name}, {ROUNDS} rounds, {what}")
+    for p in profiles:
+        print(f"[{p['branch']}] device busy {p['busy_ms_per_round']:.4f} "
+              f"ms/round (profiler), {p['event_ms_per_round']:.4f} ms/round "
+              f"by CUDA events, host enqueue {p['enqueue_ms_per_round']:.4f}"
+              f" ms/round, idle share {p['idle_share']:.3f}")
+        _print_table([(k["name"], k["calls_per_round"], k["ms_per_round"])
+                      for k in p["kernels"]])
+    for r in conv:
+        inv = ("" if r["invertible"] is None else
+               f" inversion {'on' if r['invertible'] else 'off'}"
+               f" ({r['inverted_rounds']} rounds inverted)")
+        print(f"chunk {r['chunk']:4d}{inv}: {r['rounds']} rounds "
+              f"({r['executed']} executed), {r['wall_ms']:.3f} ms, "
+              f"converged {r['converged']}, estimate error "
+              f"{r['estimate_error']}")
+    for k, ms in builds.items():
+        print(f"{k} table build and placement: {ms:.1f} ms")
+    out = dict(topology=topo.kind, nodes=n, device=name,
+               algorithm=cfg.algorithm, fanout=cfg.fanout,
+               delivery=cfg.delivery, rounds=ROUNDS, profiles=profiles,
+               convergence=conv, table_build_ms=builds)
+    print(json.dumps(out))
+    if out_path:
+        with open(out_path, "w") as fh:
+            json.dump(out, fh, indent=1)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nodes", type=int, default=1_000_000)
     ap.add_argument("--topology", default="imp3D")
     ap.add_argument("--predicate", default="global")
     ap.add_argument("--eps", type=float, default=1e-10)
+    ap.add_argument("--algorithm", choices=["gossip", "push-sum"],
+                    default="push-sum")
+    ap.add_argument("--fanout", choices=["one", "all"], default="all",
+                    help="push-sum sender (gossip draws one)")
+    ap.add_argument("--tol", type=float, default=1e-4)
     ap.add_argument("--delivery", choices=["pallas", "megakernel", "routed"],
-                    default="pallas")
+                    default="pallas",
+                    help="fanout-all delivery (the drawing rounds run "
+                         "the scatter)")
     ap.add_argument("--rounds-per-kernel", type=int, default=1)
     ap.add_argument("--devices", type=int, default=1,
                     help="shards of the push design (pallas or routed)")
@@ -208,19 +362,24 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from gossipprotocol_tpu_torch.engine.driver import (
-        RunConfig, _drive, build_protocol, device_arrays, make_chunk_runner,
-        make_megakernel_chunk_runner, resolve_device, use_megakernel,
-        warm_start,
+        RunConfig, _drive, build_protocol, device_arrays, draws,
+        make_chunk_runner, make_megakernel_chunk_runner, resolve_device,
+        use_megakernel, warm_start,
     )
     from gossipprotocol_tpu_torch.ops.megakernel import pad_state
     from gossipprotocol_tpu_torch.topology import build_topology
 
     dev = resolve_device("cuda")
     topo = build_topology(args.topology, args.nodes)
-    cfg = RunConfig(device="cuda", predicate=args.predicate, eps=args.eps,
-                    max_rounds=20_000, delivery=args.delivery,
+    fanout = "one" if args.algorithm == "gossip" else args.fanout
+    cfg = RunConfig(device="cuda", algorithm=args.algorithm,
+                    fanout=fanout, predicate=args.predicate,
+                    eps=args.eps, tol=args.tol, max_rounds=20_000,
+                    delivery="scatter" if fanout == "one" else args.delivery,
                     rounds_per_kernel=args.rounds_per_kernel,
                     plan_cache="none")
+    if draws(cfg):
+        return _profile_drawing(topo, cfg, dev, args.out)
     fused = use_megakernel(cfg)
     k = cfg.rounds_per_kernel
     if ROUNDS % k:
@@ -304,15 +463,13 @@ def main(argv=None) -> int:
     print(f"device busy {busy_ms:.4f} ms/round (profiler), {event_ms:.4f} "
           f"ms/round by CUDA events, host enqueue {enqueue_ms:.4f} "
           f"ms/round, idle share {idle:.3f}")
-    print(f"{'kernel':70s} {'calls/round':>11s} {'ms/round':>10s}")
-    for key, calls, ms_r in table:
-        print(f"{key[:70]:70s} {calls:11.2f} {ms_r:10.4f}")
+    _print_table(table)
     for r in conv:
         print(f"{r['delivery']:10s} K {r['k']:3d} chunk {r['chunk']:4d}: "
               f"{r['rounds']} rounds ({r['executed']} executed), "
               f"{r['wall_ms']:.3f} ms, converged {r['converged']}")
     out = dict(topology=args.topology, nodes=topo.num_nodes, device=name,
-               delivery=args.delivery, rounds_per_kernel=k, rounds=ROUNDS,
+               delivery=cfg.delivery, rounds_per_kernel=k, rounds=ROUNDS,
                busy_ms_per_round=busy_ms, event_ms_per_round=event_ms,
                enqueue_ms_per_round=enqueue_ms, idle_share=idle,
                kernels=[dict(name=kk, calls_per_round=c, ms_per_round=m)

@@ -104,6 +104,55 @@ def test_split_left_fold_order():
     assert float(got[0]) == 0.0
 
 
+@pytest.mark.parametrize("c", [128, 1024, 65_536, 131_072])
+def test_reduce_big_bitwise_vs_jax(c):
+    """q = 2 .. 2048 rows per node: one block of rows, and two (q = 2048);
+    the rows of a block summed in XLA CPU's windowed order."""
+    q = 2 * c // tco.LANES
+    n_c = max(1, min(5, 4096 // q))
+    x = np.random.default_rng(c).standard_normal(
+        n_c * q * tco.LANES).astype(np.float32)
+    want = jco.class_reduce_big(jnp.asarray(x), c, interpret=True)
+    got = tco.class_reduce_big(torch.from_numpy(x), c)
+    assert got.shape == (2 * n_c,)
+    assert _bits_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("q", [3, 48, 300])
+def test_reduce_big_window_padding_vs_jax(q):
+    """Row counts that are no whole number of 32-row windows: XLA pads
+    the rows on both sides, which shifts every window's bounds."""
+    x = _mixed(np.random.default_rng(q), 2 * q * tco.LANES)
+    want = jco.class_reduce_big(jnp.asarray(x), 64 * q, interpret=True)
+    got = tco.class_reduce_big(torch.from_numpy(x), 64 * q)
+    assert _bits_equal(got.numpy(), want)
+
+
+def test_reduce_big_order_is_not_a_left_fold():
+    """The windowed order is observable: a plain left fold over the rows
+    of a 1024-row block differs from the JAX package's result."""
+    q = 1024
+    x = np.random.default_rng(0).standard_normal(q * tco.LANES).astype(
+        np.float32)
+    want = np.asarray(jco.class_reduce_big(jnp.asarray(x), 64 * q,
+                                           interpret=True))
+    rows = tco._roll_fold_rows(torch.from_numpy(x).reshape(-1, tco.LANES))
+    left = rows[0]
+    for r in range(1, q):
+        left = left + rows[r]
+    assert not _bits_equal(left.numpy(), want)
+
+
+@pytest.mark.parametrize("c", [128, 1024, 65_536, 131_072])
+def test_expand_big_bitwise_vs_jax(c):
+    n_c = 3
+    p = _mixed(np.random.default_rng(c + 1), 2 * n_c)
+    want = jco.class_expand_big(jnp.asarray(p), c, interpret=True)
+    got = tco.class_expand_big(torch.from_numpy(p), c)
+    assert got.shape == (n_c * 2 * c,)
+    assert _bits_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("fn,arg", [
     (tco.class_reduce_small, 3),          # 2c does not divide 128
     (tco.class_reduce_split, 32),         # 2c < 128 is not a hub class
@@ -117,7 +166,14 @@ def test_cpu_path_launches_nothing_and_other_devices_raise():
     before = dict(tco.LAUNCHES)
     tco.class_reduce_small(torch.zeros(tco.BLK * tco.LANES), 4)
     tco.class_reduce_split(torch.zeros(2 * 8 * tco.LANES), 128)
+    tco.class_reduce_big(torch.zeros(2 * 2 * tco.LANES), 128)
+    tco.class_expand_big(torch.zeros(4), 128)
     assert tco.LAUNCHES == before
+    for fn, arg in ((tco.class_reduce_big, torch.empty(2 * tco.LANES,
+                                                       device="meta")),
+                    (tco.class_expand_big, torch.empty(2, device="meta"))):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(arg, 128)
     meta = torch.empty(tco.BLK * tco.LANES, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tco.class_reduce_small(meta, 4)

@@ -44,4 +44,4 @@ def test_walk_finds_the_package():
     assert {"classops.py", "pallasdelivery.py", "driver.py",
             "chip_smoke.py", "exec.py", "clos.py", "plan.py", "native.py",
             "delivery.py", "mesh.py", "sharded.py",
-            "sharddelivery.py"} <= names
+            "sharddelivery.py", "sampling.py", "gossip.py"} <= names

@@ -113,8 +113,9 @@ def test_dead_set_run_card_equals_cpu(cuda):
     topo = build_topology("power_law", 20_000, seed=2, m=3)
     dead = torch.from_numpy(np.random.default_rng(4).random(20_000) < 0.1)
     start = pushsum_init(20_000, device="cpu")._replace(alive=~dead)
-    res = [run_simulation(topo, RunConfig(device=d, max_rounds=16,
-                                          chunk_rounds=8),
+    res = [run_simulation(topo, RunConfig(algorithm="push-sum", fanout="all",
+                                          delivery="pallas", device=d,
+                                          max_rounds=16, chunk_rounds=8),
                           initial_state=start)
            for d in ("cuda", "cpu")]
     assert res[0].rounds == res[1].rounds == 16
@@ -334,3 +335,96 @@ def test_sharded_matvec_card_equals_single_card(cuda):
                 assert _bits_equal(g.cpu(), w)
                 if wire == "f32":
                     assert _bits_equal(g, r)
+
+
+@pytest.mark.parametrize("subnormal", [False, True])
+@pytest.mark.parametrize("q,n_c", [(2, 300), (16, 40), (48, 5), (300, 4),
+                                   (1024, 3), (2048, 2)])
+def test_reduce_big_kernel(cuda, q, n_c, subnormal):
+    x = torch.from_numpy(_mixed(np.random.default_rng(q * 7 + n_c),
+                                n_c * q * 128, subnormal)).to(cuda)
+    before = co.LAUNCHES["class_reduce_big"]
+    got = co.class_reduce_big(x, 64 * q)
+    torch.cuda.synchronize()
+    assert co.LAUNCHES["class_reduce_big"] == before + 1
+    assert _bits_equal(got, co.class_reduce_big_plain(x, 64 * q))
+
+
+@pytest.mark.parametrize("q,n_c", [(2, 300), (16, 40), (2048, 2)])
+def test_expand_big_kernel(cuda, q, n_c):
+    p = torch.from_numpy(_mixed(np.random.default_rng(q + n_c),
+                                2 * n_c)).to(cuda)
+    got = co.class_expand_big(p, 64 * q)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, co.class_expand_big_plain(p, 64 * q))
+
+
+@pytest.mark.parametrize("graph", [("imp3D", 20_000, {"seed": 1}),
+                                   ("power_law", 20_000, {"seed": 2, "m": 3}),
+                                   ("full", 5_000, {})])
+def test_gossip_card_equals_cpu(cuda, graph):
+    """16 gossip rounds on the card and on the CPU, bitwise (integer
+    state, counter-based draws): dense (with the inverted branch once
+    every node spreads), CSR and implicit-full."""
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    name, n, kw = graph
+    topo = build_topology(name, n, **kw)
+    res = [run_simulation(topo, RunConfig(algorithm="gossip", device=d,
+                                          max_rounds=16, chunk_rounds=4))
+           for d in ("cuda", "cpu")]
+    assert res[0].rounds == res[1].rounds
+    for a, b in zip(res[0].final_state, res[1].final_state):
+        assert torch.equal(a, b)
+
+
+def test_pushsum_scatter_card_close_to_cpu(cuda):
+    """Fanout-one push-sum on the card against the CPU: the same draws,
+    the float sums in atomic order, so equal to a few ulps."""
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology("erdos_renyi", 20_000, seed=5)
+    res = [run_simulation(topo, RunConfig(algorithm="push-sum", device=d,
+                                          max_rounds=16, chunk_rounds=8))
+           for d in ("cuda", "cpu")]
+    a, b = res[0].final_state, res[1].final_state
+    assert torch.equal(a.alive, b.alive)
+    assert torch.allclose(a.s, b.s, rtol=1e-5, atol=1e-9)
+    assert torch.allclose(a.w, b.w, rtol=1e-5, atol=1e-9)
+
+
+def test_gossip_inverted_card_equals_cpu(cuda):
+    """From a saturated state (every node has heard) the CPU run takes
+    the gather-inverted branch from its first chunk and the card's the
+    scatter: 16 rounds, bitwise equal. On the card the inverted
+    histogram equals the scatter's on that state."""
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.protocols.gossip import (
+        hits_by_inversion, inverted_dense,
+    )
+    from gossipprotocol_tpu_torch.protocols.sampling import (
+        fold_in, key_data, sample_neighbors,
+    )
+    from gossipprotocol_tpu_torch.protocols.state import gossip_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology("imp3D", 20_000, seed=1)
+    start = gossip_init(topo.num_nodes, 0, device="cpu")
+    start = start._replace(counts=torch.ones_like(start.counts))
+    res = [run_simulation(topo, RunConfig(algorithm="gossip", device=d,
+                                          max_rounds=16, chunk_rounds=4),
+                          initial_state=start)
+           for d in ("cuda", "cpu")]
+    assert res[0].rounds == res[1].rounds
+    for a, b in zip(res[0].final_state, res[1].final_state):
+        assert torch.equal(a, b)
+    nbrs = inverted_dense(topo, device="cuda")
+    n = topo.num_nodes
+    for r in range(4):
+        key = fold_in(key_data(3, "cuda"), r)
+        targets, valid = sample_neighbors(nbrs, n, key)
+        scatter = torch.zeros(n, dtype=torch.int32, device="cuda")
+        scatter.index_add_(0, targets, valid.to(torch.int32))
+        assert torch.equal(hits_by_inversion(nbrs, key), scatter)

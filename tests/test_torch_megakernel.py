@@ -69,6 +69,8 @@ _CONFIGS = {
                    max_rounds=48),
 }
 _FIELDS = ("s", "w", "ratio", "streak", "converged", "alive")
+# fanout-all push-sum over the fused gather delivery
+_DIFFUSION = dict(algorithm="push-sum", fanout="all", delivery="pallas")
 _jax_runs: dict = {}
 _torch_runs: dict = {}
 
@@ -104,7 +106,7 @@ def _torch_run(graph, config, **kw):
         _torch_runs[key] = tx.run_simulation(
             tx.build_topology(name, n, **tkw),
             tx.RunConfig(device="cpu", plan_cache="none", chunk_rounds=16,
-                         **_CONFIGS[config], **kw))
+                         **_CONFIGS[config], **{**_DIFFUSION, **kw}))
     return _torch_runs[key]
 
 
@@ -139,11 +141,12 @@ def test_k16_equals_k1_equals_pallas(graph, config):
 
 
 def test_pallas_with_k_is_the_megakernel_engine():
-    cfg = tx.RunConfig(device="cpu", delivery="pallas", rounds_per_kernel=4)
+    cfg = tx.RunConfig(device="cpu", **_DIFFUSION, rounds_per_kernel=4)
     assert use_megakernel(cfg)
-    assert not use_megakernel(tx.RunConfig(device="cpu"))
+    assert not use_megakernel(tx.RunConfig(device="cpu", **_DIFFUSION))
     assert cfg.chunk == 16
-    assert tx.RunConfig(device="cpu", rounds_per_kernel=64).chunk == 64
+    assert tx.RunConfig(device="cpu", **_DIFFUSION,
+                        rounds_per_kernel=64).chunk == 64
     a = _torch_run("imp3D", "delta", delivery="pallas", rounds_per_kernel=4)
     b = _torch_run("imp3D", "delta", delivery="megakernel",
                    rounds_per_kernel=4)
@@ -161,6 +164,7 @@ def test_bucket_plans_refused_in_both(monkeypatch):
                        match="GOSSIP_TPU_PALLAS_RESIDENT_ROWS"):
         tx.run_simulation(tx.build_topology(name, n, **kw),
                           tx.RunConfig(device="cpu", plan_cache="none",
+                                       algorithm="push-sum", fanout="all",
                                        delivery="megakernel"))
 
 
@@ -199,7 +203,8 @@ def test_initial_dead_set_refused():
     st = st._replace(alive=torch.arange(216) != 7)
     with pytest.raises(RoutedConfigError, match="all-alive"):
         tx.run_simulation(topo, tx.RunConfig(
-            device="cpu", plan_cache="none", delivery="megakernel"),
+            device="cpu", plan_cache="none", algorithm="push-sum",
+            fanout="all", delivery="megakernel"),
             initial_state=st)
 
 

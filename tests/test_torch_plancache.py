@@ -190,7 +190,8 @@ def test_run_uses_cache(tmp_path):
     topo = torch_build("imp3D", 216, seed=4)
     d = str(tmp_path)
     runs = [tx.run_simulation(topo, tx.RunConfig(
-        device="cpu", plan_cache=cache, delivery=dl, max_rounds=16))
+        device="cpu", plan_cache=cache, algorithm="push-sum", fanout="all",
+        delivery=dl, max_rounds=16))
         for cache, dl in ((d, "megakernel"), (d, "pallas"),
                           ("none", "pallas"))]
     assert os.listdir(d) and any(f.startswith("routedpl_v2_")
@@ -277,7 +278,8 @@ def test_routed_provenance_and_run(tmp_path):
     path = tpc.entry_path(d, tpc.cache_key(topo))
     assert tpc.entry_provenance(path)["builder"] == tpc.BUILDER_VERSION
     runs = [tx.run_simulation(topo, tx.RunConfig(
-        device="cpu", plan_cache=cache, delivery="routed", max_rounds=16))
+        device="cpu", plan_cache=cache, algorithm="push-sum", fanout="all",
+        delivery="routed", max_rounds=16))
         for cache in (d, "none")]
     for x, y in zip(*(r.final_state for r in runs)):
         assert torch.equal(x, y)

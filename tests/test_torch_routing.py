@@ -481,7 +481,8 @@ def test_routed_trajectory_equals_pallas(graph, predicate):
     name, n, kw = _TRAJ[graph]
     topo = build_topology(name, n, **kw)
     res = {d: run_simulation(topo, RunConfig(
-        device="cpu", delivery=d, predicate=predicate, max_rounds=16,
+        device="cpu", algorithm="push-sum", fanout="all", delivery=d,
+        predicate=predicate, max_rounds=16,
         chunk_rounds=8, plan_cache="none")) for d in ("routed", "pallas")}
     a, b = res["routed"], res["pallas"]
     assert a.rounds == b.rounds == 16
@@ -498,7 +499,8 @@ def test_converged_run_equals_pallas(graph):
     name, n, kw = graph
     topo = build_topology(name, n, **kw)
     res = {d: run_simulation(topo, RunConfig(
-        device="cpu", delivery=d, predicate="global", plan_cache="none"))
+        device="cpu", algorithm="push-sum", fanout="all", delivery=d,
+        predicate="global", plan_cache="none"))
         for d in ("routed", "pallas")}
     a, b = res["routed"], res["pallas"]
     assert a.converged and b.converged and a.rounds == b.rounds
@@ -511,9 +513,11 @@ def test_config_gates():
     assert "routed" in tdriver.DELIVERIES
     assert "routed" not in tdriver.FUSED_DELIVERIES
     with pytest.raises(ValueError, match="rounds_per_kernel"):
-        RunConfig(device="cpu", delivery="routed", rounds_per_kernel=4)
-    assert not tdriver.use_megakernel(RunConfig(device="cpu",
-                                                delivery="routed"))
+        RunConfig(device="cpu", algorithm="push-sum", fanout="all",
+                  delivery="routed", rounds_per_kernel=4)
+    assert not tdriver.use_megakernel(RunConfig(
+        device="cpu", algorithm="push-sum", fanout="all",
+        delivery="routed"))
     with pytest.raises(RoutedConfigError):
         build_routed_delivery_np(build_topology("full", 64))
     jt, tt = _topos("imp3D")

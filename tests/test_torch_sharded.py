@@ -71,8 +71,7 @@ _BASE = dict(algorithm="push-sum", fanout="all", predicate="global",
 # the port builds serially here (build_workers=1): a pool's workers each
 # start a fresh interpreter, seconds at these sizes; the pool has its own
 # test below
-_TORCH_BASE = dict({k: v for k, v in _BASE.items() if k != "algorithm"},
-                   build_workers=1)
+_TORCH_BASE = dict(_BASE, build_workers=1)
 _FIELDS = ("s", "w", "ratio", "streak", "converged", "alive")
 # a sparse Erdős–Rényi graph: isolated nodes and minority components are
 # birth exclusions (the masked round)
@@ -327,8 +326,7 @@ def test_arbitrary_dead_set_live_degree_path(plan_cache):
     carried = state_from_numpy(*[np.asarray(getattr(js, f))
                                  for f in _FIELDS + ("round",)],
                                device="cpu")
-    tcfg = dict({k: v for k, v in cfg.items() if k != "algorithm"},
-                build_workers=1)
+    tcfg = dict(cfg, build_workers=1)
     rt = run_simulation_sharded(
         tx.build_topology("er", 500, **_ER),
         tx.RunConfig(device="cpu", exchange_overlap=True,
@@ -349,7 +347,7 @@ def test_lossy_wire_matches_jax_sharded(cpu_devices, wire, plan_cache):
                          num_devices=2, backend="cpu")
     rt = run_simulation_sharded(topo_t, tx.RunConfig(
         device="cpu", build_workers=1, plan_cache=plan_cache,
-        **{k: v for k, v in cfg.items() if k != "algorithm"}),
+        **cfg),
         num_devices=2)
     assert rt.rounds == rj.rounds == 8
     _assert_fields_equal(rt.final_state, rj.final_state,
@@ -525,7 +523,8 @@ def test_cli_sharding_rejections(argv, needle, capsys):
 
 
 def test_config_rejections():
-    base = tx.RunConfig(device="cpu")
+    base = tx.RunConfig(device="cpu", algorithm="push-sum", fanout="all",
+                        delivery="pallas")
     with pytest.raises(ValueError, match="payload_wire"):
         dataclasses.replace(base, delivery="megakernel", payload_wire="bf16")
     with pytest.raises(ValueError, match="push design only"):

@@ -61,6 +61,8 @@ _GRAPHS = {
     "er": ("er", 700, {"seed": 5}),      # birth exclusions: masked path
 }
 _FIELDS = ("s", "w", "ratio", "streak", "converged", "alive")
+# fanout-all push-sum over the fused gather delivery (the slice)
+_DIFFUSION = dict(algorithm="push-sum", fanout="all", delivery="pallas")
 _jax_runs: dict = {}
 
 
@@ -79,12 +81,11 @@ def _assert_states_equal(tstate, jstate):
 def _run_both(graph, **kw):
     name, n, tkw = _GRAPHS[graph]
     key = (graph, tuple(sorted(kw.items())))
-    base = dict(chunk_rounds=8, max_rounds=16, **kw)
+    base = dict(_DIFFUSION, chunk_rounds=8, max_rounds=16, **kw)
     if key not in _jax_runs:
         _jax_runs[key] = jx.run_simulation(
             jx.build_topology(name, n, **tkw),
-            jx.RunConfig(algorithm="push-sum", fanout="all",
-                         delivery="pallas", plan_cache="none", **base))
+            jx.RunConfig(plan_cache="none", **base))
     rt = tx.run_simulation(tx.build_topology(name, n, **tkw),
                            tx.RunConfig(device="cpu", **base))
     return _jax_runs[key], rt
@@ -153,12 +154,10 @@ def test_continue_from_jax_state():
     exactly as the JAX package continues it."""
     name, n, kw = _GRAPHS["imp3D"]
     topo_j = jx.build_topology(name, n, **kw)
-    cfg = dict(chunk_rounds=8, predicate="global")
+    cfg = dict(_DIFFUSION, chunk_rounds=8, predicate="global")
     mid = jx.run_simulation(topo_j, jx.RunConfig(
-        algorithm="push-sum", fanout="all", delivery="pallas",
         plan_cache="none", max_rounds=8, **cfg)).final_state
     rj = jx.run_simulation(topo_j, jx.RunConfig(
-        algorithm="push-sum", fanout="all", delivery="pallas",
         plan_cache="none", max_rounds=16, **cfg), initial_state=mid)
     carried = state_from_numpy(*[np.asarray(getattr(mid, f))
                                  for f in _FIELDS + ("round",)],
@@ -180,9 +179,9 @@ def test_run_from_arbitrary_dead_set_bitwise(graph):
     birth = topo_j.birth_alive()
     alive = ~dead if birth is None else (np.asarray(birth) & ~dead)
     js = jax.device_get(jax_init(n)._replace(alive=jax.numpy.asarray(alive)))
-    cfg = dict(chunk_rounds=8, max_rounds=16, predicate="global")
+    cfg = dict(_DIFFUSION, chunk_rounds=8, max_rounds=16,
+               predicate="global")
     rj = jx.run_simulation(topo_j, jx.RunConfig(
-        algorithm="push-sum", fanout="all", delivery="pallas",
         plan_cache="none", **cfg), initial_state=js)
     carried = state_from_numpy(*[np.asarray(getattr(js, f))
                                  for f in _FIELDS + ("round",)],
@@ -252,7 +251,8 @@ def _default_device_calls():
             build_shard_push_deliveries(topo, 20, 2,
                                         build_workers=1)).degree,
         "run_simulation_sharded": lambda: run_simulation_sharded(
-            topo, tx.RunConfig(max_rounds=1, plan_cache="none"),
+            topo, tx.RunConfig(max_rounds=1, plan_cache="none",
+                               **_DIFFUSION),
             num_devices=2).final_state.s,
     }
 
@@ -276,12 +276,13 @@ def test_entry_point_defaults_to_cuda(entry):
             call()
 
 
-@pytest.mark.parametrize("kw", [dict(algorithm="gossip"),
-                                dict(fanout="one"),
+@pytest.mark.parametrize("kw", [dict(semantics="reference"),
+                                dict(fanout="one", delivery="invert"),
                                 dict(delivery="scatter")])
 def test_unported_config_raises(kw):
     with pytest.raises(NotPortedError):
-        dataclasses.replace(tx.RunConfig(device="cpu"), **kw)
+        dataclasses.replace(tx.RunConfig(device="cpu", **_DIFFUSION),
+                            **kw)
 
 
 # ------------------------------------------------------------------ CLI
@@ -309,9 +310,10 @@ def test_cli_not_converged_exit_1(capsys):
 @pytest.mark.parametrize("argv,needle", [
     (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery",
       "megakernel", "--device", "cpu", "--devices", "2"], "--devices"),
-    (["64", "imp3D", "gossip", "--device", "cpu"], "gossip"),
-    (["64", "imp3D", "push-sum", "--delivery", "pallas", "--device", "cpu"],
-     "--fanout one"),
+    (["64", "imp3D", "gossip", "--semantics", "reference", "--device",
+      "cpu"], "gossip"),
+    (["64", "imp3D", "push-sum", "--fanout", "one", "--delivery", "invert",
+      "--device", "cpu"], "--fanout one"),
     (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "scatter",
       "--device", "cpu"], "--delivery scatter"),
     (["64", "imp3D", *_CLI, "--fail-fraction=0.1"], "--fail-fraction"),
