@@ -81,7 +81,26 @@ Phases (each prints its lines; any failure exits non-zero):
       saturated state (the CPU run on the gather-inverted branch, the
       card's on the scatter), the inverted histogram on the card equal to
       the scatter's there, push-sum at Erdős–Rényi 1M with birth
-      exclusions within ``SCATTER_TOL`` (atomic float adds).
+      exclusions within ``SCATTER_TOL`` (atomic float adds);
+  (k) the measurement probes' five kernels (``csrc/probes.cu``), which no
+      CLI path of either package runs: each at every default shape of the
+      JAX probes (PERF.md §6 rows 13-20), bitwise against its plain
+      version (the tile permutation also exactly against
+      ``x.view(T, -1)[:, perm]``), with its time (back to back, and as
+      replays of a CUDA graph of the calls: device time without host
+      enqueue), bytes bound, plain time and one PyTorch call's; the
+      measured stream ceiling is the best graph-replay rate over 64 MiB
+      of the streamed copy, ``torch.mul`` and ``copy_``, and every
+      kernel record gets ``bound_stream_ms`` (its bytes over that rate)
+      beside the nominal ``bound_ms``; then the three probe entry points
+      in process at their default argv, each exiting 0;
+  (l) the reference semantics (``--semantics reference``) through the
+      CLI: gossip and the push-sum walk at line, full, 3D and imp3D of
+      100, 500 and 1,000 nodes (line push-sum not at 1,000:
+      ``REF_SEM_SKIP``), each converging with exit 0, card against CPU
+      (the same argv on ``--device cpu``) with equal round or hop counts
+      and bitwise final states; reference gossip at imp3D 1M to
+      convergence; the walk's and gossip's ms per executed round.
 
 Each end-to-end run reads the launch counts it caused (reset just before,
 read just after). The plan cache lives in a temporary directory for the
@@ -177,6 +196,18 @@ KERNELS = {
                          "gossipprotocol_tpu/ops/classops.py:228"),
     "class_expand_big": ("gossipprotocol_tpu_torch/csrc/classops.cu",
                          "gossipprotocol_tpu/ops/classops.py:280"),
+    "probe_slab": ("gossipprotocol_tpu_torch/csrc/probes.cu",
+                   "experiments/slab_probe.py:73, experiments/slab_probe.py:94"),
+    "probe_scale2": ("gossipprotocol_tpu_torch/csrc/probes.cu",
+                     "experiments/route_probe.py:158, "
+                     "experiments/route_probe.py:240"),
+    "probe_gather_rows": ("gossipprotocol_tpu_torch/csrc/probes.cu",
+                          "experiments/route_probe.py:180"),
+    "probe_gather_lanes": ("gossipprotocol_tpu_torch/csrc/probes.cu",
+                           "experiments/route_probe.py:202, "
+                           "experiments/route_probe.py:216"),
+    "probe_tile_perm": ("gossipprotocol_tpu_torch/csrc/probes.cu",
+                        "experiments/tile_perm_probe.py:141"),
 }
 # phase (i): the node-major hub kernels have no CLI path in either
 # package; they run at the hub classes of this graph, and their launch
@@ -184,6 +215,10 @@ KERNELS = {
 HUB_GRAPH = "power_law_1M"
 HUB_KERNELS = ("class_reduce_big", "class_expand_big")
 NO_CLI_PATH = "phase (i) calls: no CLI path in either package"
+# phase (k): the probes' kernels, likewise without a CLI path
+PROBE_KERNELS = ("probe_slab", "probe_scale2", "probe_gather_rows",
+                 "probe_gather_lanes", "probe_tile_perm")
+NO_CLI_PATH_PROBES = "phase (k) calls: no CLI path in either package"
 PER_ROUND_KERNELS = ("class_reduce_small", "class_reduce_split",
                      "gather_resident", "gather_bucket")
 # phase (g): the routed delivery on phase (c)'s two 1M graphs, and its
@@ -1445,8 +1480,303 @@ def phase_reference(torch):
             "build)")
 
 
-def summarize(records, totals):
-    """One record per kernel: its largest main-path call."""
+# ---------------------------------------------------------------- (k)
+
+# the JAX probes' default shapes (PERF.md §6 rows 13-20)
+SLAB_T, SLAB_B, SLAB_CR = 512, 102, 1
+RESIDENT_MB = (2, 4, 8, 12, 16)
+GATHER_ROWS = (8, 256, 1024, 4096)
+GATHER_COLS = (128, 512, 4096)
+GRID_T = 8_000_000 // (4096 * 128)        # route_probe's T at --e 8000000
+STREAM_ROWS, STREAM_TILE_ROWS = 64 * 2**20 // 512, 1024
+PERM_T = 488
+
+
+def probe_cases(torch, dev="cuda"):
+    """``[(kernel, row, call, kern, plain, lib, lib_what, nbytes,
+    exact)]`` at every default shape, inputs on ``dev``; ``exact`` a
+    second reference the kernel must equal (row 20: the flattened
+    permutation)."""
+    import numpy as np
+
+    from gossipprotocol_tpu_torch.ops import probes as pr
+    from gossipprotocol_tpu_torch.probes.tile_perm_probe import (
+        route_tile_perm_cached, tile_planes,
+    )
+
+    rng = np.random.default_rng(0)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    def ints(hi, shape):
+        return torch.from_numpy(rng.integers(0, hi, shape).astype(
+            np.int32)).to(dev)
+
+    cases = []
+    x = randn(SLAB_T, 128, 128)
+    # the kernel reads and writes only the first B*CR rows of each tile;
+    # slab_probe's GB/s line keeps the JAX count, a read of every row
+    slab_bytes = 2 * SLAB_T * SLAB_B * SLAB_CR * 512
+    y = torch.empty(SLAB_T, SLAB_B * SLAB_CR, 128, device=dev)
+    for row, bm in ((13, True), (14, False)):
+        cases.append((
+            "probe_slab", row, "bucket-major" if bm else "tile-major",
+            lambda bm=bm: pr.probe_slab(x, SLAB_B, SLAB_CR, bm),
+            lambda bm=bm: pr.probe_slab_plain(x, SLAB_B, SLAB_CR, bm),
+            (lambda: (x[:, :SLAB_B * SLAB_CR] * 2).view(
+                SLAB_T, SLAB_B, SLAB_CR, 128).transpose(0, 1).contiguous())
+            if bm else
+            (lambda: torch.mul(x[:, :SLAB_B * SLAB_CR], 2, out=y)),
+            "mul then transpose(0, 1).contiguous()" if bm
+            else "torch.mul(x[:, :B*CR], 2, out=y)", slab_bytes, None))
+    for mb in RESIDENT_MB:
+        xb = randn(mb * 2**20 // 512, 128)
+        yb = torch.empty_like(xb)
+        cases.append(("probe_scale2", 15, f"{mb} MB one tile",
+                      lambda xb=xb: pr.probe_scale2(xb),
+                      lambda xb=xb: pr.probe_scale2_plain(xb),
+                      lambda xb=xb, yb=yb: torch.mul(xb, 2, out=yb),
+                      "torch.mul(x, 2, out=y)", 2 * xb.numel() * 4, None))
+    for rows in GATHER_ROWS:
+        xg, ig = randn(rows, 128), ints(rows, (rows, 128))
+        ig64 = ig.long()
+        cases.append(("probe_gather_rows", 16, f"rows={rows}",
+                      lambda xg=xg, ig=ig: pr.probe_gather_rows(xg, ig),
+                      lambda xg=xg, ig=ig: pr.probe_gather_rows_plain(xg, ig),
+                      lambda xg=xg, ig=ig64: torch.gather(xg, 0, ig),
+                      "torch.gather(x, 0, idx)", rows * 128 * 12, None))
+    for cols in GATHER_COLS:
+        xg, ig = randn(128, cols), ints(cols, (128, cols))
+        ig64 = ig.long()
+        cases.append(("probe_gather_lanes", 17, f"[128, {cols}]",
+                      lambda xg=xg, ig=ig: pr.probe_gather_lanes(xg, ig),
+                      lambda xg=xg, ig=ig: pr.probe_gather_lanes_plain(xg,
+                                                                       ig),
+                      lambda xg=xg, ig=ig64: torch.gather(xg, 1, ig),
+                      "torch.gather(x, 1, idx)", 128 * cols * 12, None))
+    xg, ig = randn(GRID_T, 4096, 128), ints(128, (GRID_T, 4096, 128))
+    ig64 = ig.long()
+    cases.append(("probe_gather_lanes", 18, f"[{GRID_T}, 4096, 128] tiled",
+                  lambda: pr.probe_gather_lanes(xg, ig),
+                  lambda: pr.probe_gather_lanes_plain(xg, ig),
+                  lambda: torch.gather(xg, 2, ig64),
+                  "torch.gather(x, 2, idx)", xg.numel() * 12, None))
+    xs = randn(STREAM_ROWS, 128)
+    ys = torch.empty_like(xs)
+    cases.append(("probe_scale2", 19, "64 MiB in 1,024-row tiles",
+                  lambda: pr.probe_scale2(xs, STREAM_TILE_ROWS),
+                  lambda: pr.probe_scale2_plain(xs),
+                  lambda: torch.mul(xs, 2, out=ys),
+                  "torch.mul(x, 2, out=y)", 2 * xs.numel() * 4, None))
+    perm = np.random.default_rng(0).permutation(128 * 128)
+    (planes, route_s) = route_tile_perm_cached(perm)
+    say(f"(k) tile permutation routed on the host in {route_s:.1f} s "
+        "(pure-Python matchings, once per process)")
+    xp = randn(PERM_T, 128, 128)
+    i1, i2, i3 = tile_planes(planes, PERM_T, dev)
+    perm_t = torch.from_numpy(perm).to(dev)
+    flat = xp.view(PERM_T, -1)
+    cases.append(("probe_tile_perm", 20, f"[{PERM_T}, 128, 128]",
+                  lambda: pr.probe_tile_perm(xp, i1, i2, i3),
+                  lambda: pr.probe_tile_perm_plain(xp, i1, i2, i3),
+                  lambda: flat.index_select(1, perm_t),
+                  "x.view(T, -1).index_select(1, perm)",
+                  xp.numel() * 11,
+                  lambda: flat[:, perm_t].view(PERM_T, 128, 128)))
+    return cases
+
+
+def phase_probes(torch):
+    """Phase (k): the probes' kernels at the JAX probes' default shapes,
+    then the three probe entry points in process."""
+    from gossipprotocol_tpu_torch.ops import (
+        kernel_launches, reset_kernel_launches,
+    )
+    from gossipprotocol_tpu_torch.probes import (
+        route_probe, seconds_per_call, slab_probe, tile_perm_probe,
+    )
+
+    t0 = time.perf_counter()
+    cases = probe_cases(torch)
+    reset_kernel_launches()
+    firsts = [case[3]() for case in cases]
+    launches = kernel_launches()
+    counts = {k: launches[k] for k in PROBE_KERNELS}
+    records = []
+    stream = None
+    for (name, row, call, kern, plain, lib, lib_what, nbytes, exact), got \
+            in zip(cases, firsts):
+        want = plain()
+        err = max_abs_err(torch, got, want)
+        require(bitwise_equal(torch, got, want),
+                f"{name} (row {row}, {call}) differs from its plain "
+                f"version: max abs err {err}")
+        if exact is not None:
+            require(torch.equal(got, exact()), f"{name} (row {row}): not "
+                    "the permutation x.view(T, -1)[:, perm]")
+        lib_out = lib()
+        lib_same = (lib_out.numel() == got.numel() and bool(torch.equal(
+            lib_out.reshape(-1), got.reshape(-1))))
+        ms = cuda_ms(torch, kern, 20)
+        # device time: the probes' timing, R calls captured once into a
+        # CUDA graph, the best of three replays
+        g_ms = seconds_per_call(kern, torch.device("cuda")) * 1e3
+        plain_ms = cuda_ms(torch, plain, 5)
+        lib_ms = cuda_ms(torch, lib, 20)
+        b_ms, b_by = bound(nbytes, 0)
+        if row == 19:
+            # the ceiling is the best graph-replay rate of the kernel and
+            # two library streams over the same 64 MiB, so that row 19 is
+            # not held to a ceiling it set alone
+            dst = torch.empty_like(got)
+            rates = {
+                "probe_scale2": g_ms * 1e-3,
+                lib_what: seconds_per_call(lib, got.device),
+                "y.copy_(x)": seconds_per_call(lambda: dst.copy_(got),
+                                               got.device)}
+            for what, secs in rates.items():
+                say(f"(k) stream 64 MiB by graph replay, {what}: "
+                    f"{secs * 1e3:.4f} ms, {nbytes / secs / 1e12:.4f} TB/s")
+            stream = max((nbytes / secs, what) for what, secs in rates.items())
+            del dst
+        records.append(dict(
+            name=name, graph=f"row {row}", call=call, shape=list(got.shape),
+            max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bytes=nbytes,
+            row=row))
+        say(f"(k) row {row} {name:18s} {call}: bitwise ok, {ms:.4f} ms "
+            f"back to back, {g_ms:.4f} ms graph replay "
+            f"({nbytes / g_ms / 1e6:.1f} GB/s), plain {plain_ms:.4f}, "
+            f"library {lib_what} {lib_ms:.4f} (same values: {lib_same}), "
+            f"bound {b_ms:.4f} by {b_by}, {nbytes / 1e6:.2f} MB)")
+    del cases, firsts
+    torch.cuda.empty_cache()
+    require(stream, "row 19 (the stream copy) was not measured")
+    stream_rate, stream_by = stream
+    say(f"(k) measured stream ceiling (64 MiB, graph replay, set by "
+        f"{stream_by}): {stream_rate / 1e12:.4f} TB/s = "
+        f"{stream_rate / HBM_BYTES_PER_S:.4f} of the nominal "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    say(f"(k) launches {counts} ({NO_CLI_PATH_PROBES})")
+    for mod in (slab_probe, route_probe, tile_perm_probe):
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([])
+        name = mod.__name__.rsplit(".", 1)[1]
+        for line in buf.getvalue().splitlines():
+            say(f"(k) {name} | {line}")
+        require(rc == 0, f"python -m gossipprotocol_tpu_torch.probes."
+                f"{name} exited {rc}")
+        say(f"(k) {name}: exit 0 in {time.perf_counter() - t1:.1f} s")
+    say(f"(k) phase seconds {time.perf_counter() - t0:.1f}")
+    return records, counts, stream_rate
+
+
+# ---------------------------------------------------------------- (l)
+
+REF_SEM_SIZES = (100, 500, 1000)
+REF_SEM_TOPOLOGIES = ("line", "full", "3D", "imp3D")
+# (topology, nodes, algorithm) left out of (l): the line walk at 1,000
+# nodes does not converge within the default 1,000,000 hops in the JAX
+# package either
+REF_SEM_SKIP = {("line", 1000, "push-sum")}
+REF_GOSSIP_1M = ["1000000", "imp3D", "gossip", "--semantics", "reference"]
+
+
+def _capture_results():
+    """Wrap the engine's run_simulation to keep each run's RunResult;
+    returns (list, restore)."""
+    from gossipprotocol_tpu_torch.engine import driver as drv
+
+    got = []
+    orig = drv.run_simulation
+
+    def kept(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        got.append(res)
+        return res
+
+    drv.run_simulation = kept
+    return got, lambda: setattr(drv, "run_simulation", orig)
+
+
+def _ref_cli(argv):
+    """``(rc, stdout, RunResult)`` of one in-process reference CLI run."""
+    got, restore = _capture_results()
+    try:
+        rc, text, etext, counts = _run_cli(argv)
+    finally:
+        restore()
+    require(len(got) == 1, f"{' '.join(argv)}: {len(got)} engine runs")
+    return rc, text, etext, counts, got[0]
+
+
+def phase_reference_semantics(torch):
+    t0 = time.perf_counter()
+    per = {"gossip": [0.0, 0], "push-sum": [0.0, 0]}
+    for topo in REF_SEM_TOPOLOGIES:
+        for n in REF_SEM_SIZES:
+            for algo in ("gossip", "push-sum"):
+                if (topo, n, algo) in REF_SEM_SKIP:
+                    continue
+                argv = [str(n), topo, algo, "--semantics", "reference"]
+                res = {}
+                for dev in ("cuda", "cpu"):
+                    rc, text, etext, counts, r = _ref_cli(
+                        argv + ["--device", dev])
+                    require(rc == 0 and r.converged,
+                            f"(l) {' '.join(argv)} on {dev}: exit {rc}: "
+                            f"{etext.strip()}")
+                    require(not any(counts.values()),
+                            f"(l) {' '.join(argv)} on {dev}: kernels "
+                            f"launched {counts}")
+                    res[dev] = (text, r)
+                text, a = res["cuda"]
+                b = res["cpu"][1]
+                require(a.rounds == b.rounds, f"(l) {' '.join(argv)}: "
+                        f"{a.rounds} rounds on the card, {b.rounds} on cpu")
+                bad = [f for f in a.final_state._fields
+                       if not bitwise_equal(torch, getattr(a.final_state, f),
+                                            getattr(b.final_state, f))]
+                require(not bad, f"(l) {' '.join(argv)}: card against cpu, "
+                        f"fields {bad} differ")
+                per[algo][0] += a.wall_ms
+                per[algo][1] += a.rounds_executed
+                note = text.splitlines()[0] if text.startswith("note") \
+                    else ""
+                est = re.search(r"max \|s/w - mean\| = (\S+)", text)
+                say(f"(l) {' '.join(argv)}: rc 0, {a.rounds} "
+                    f"{'hops' if algo == 'push-sum' else 'rounds'} "
+                    f"({a.rounds_executed} executed), card {a.wall_ms:.3f} "
+                    f"ms ({a.wall_ms / max(a.rounds_executed, 1):.4f} ms "
+                    f"each), cpu {b.wall_ms:.3f} ms; card == cpu: counts "
+                    f"equal, state bitwise"
+                    + (f"; estimate error {est.group(1)}" if est else "")
+                    + (f" [{note}]" if note else ""))
+    for algo, (ms, rounds) in per.items():
+        unit = "hop" if algo == "push-sum" else "executed round"
+        say(f"(l) {algo} on the card, all runs above: {ms:.1f} ms over "
+            f"{rounds} {unit}s = {ms / max(rounds, 1):.4f} ms per {unit}")
+    rc, text, etext, counts, r = _ref_cli(REF_GOSSIP_1M + ["--device",
+                                                           "cuda"])
+    for line in (etext + text).splitlines():
+        say(f"(l) gossip imp3D_1M reference | {line}")
+    require(rc == 0 and r.converged, f"(l) {' '.join(REF_GOSSIP_1M)} exited "
+            f"{rc}")
+    say(f"(l) reference gossip imp3D 1M: {r.rounds} rounds "
+        f"({r.rounds_executed} executed), {r.wall_ms:.3f} ms, "
+        f"{r.wall_ms / max(r.rounds_executed, 1):.4f} ms per executed "
+        f"round, {r.num_nodes} rows (the isolated extra actor included)")
+    say(f"(l) phase seconds {time.perf_counter() - t0:.1f}")
+
+
+def summarize(records, totals, stream_rate):
+    """One record per kernel: its largest main-path call, with its bytes
+    over the measured stream rate (``bound_stream_ms``) beside the
+    nominal bound."""
     out = []
     for kname, (source, replaces) in KERNELS.items():
         mine = [r for r in records if r["name"] == kname]
@@ -1456,12 +1786,16 @@ def summarize(records, totals):
                   key=lambda r: r["bytes"])
         extra = {"launches_from": NO_CLI_PATH} if kname in HUB_KERNELS \
             else {}
+        if kname in PROBE_KERNELS:
+            extra = {"launches_from": NO_CLI_PATH_PROBES,
+                     "graph_ms": big["graph_ms"], "row": big["row"]}
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=totals[kname], **extra,
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
             bound_by=big["bound_by"], library_ms=big["library_ms"],
+            bound_stream_ms=big["bytes"] / stream_rate * 1e3,
             shape=f"{big['graph']} {big['call']}"))
     return out
 
@@ -1509,15 +1843,19 @@ def main(argv=None) -> int:
             records += hub_records
             totals.update(hub_totals)
             phase_reference(torch)
-            kernels = summarize(records, totals)
+            probe_records, probe_totals, stream_rate = phase_probes(torch)
+            records += probe_records
+            totals.update(probe_totals)
+            phase_reference_semantics(torch)
+            kernels = summarize(records, totals, stream_rate)
         except SmokeFailure as e:
             print(f"FAIL: {e}", flush=True)
             return 1
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_kernels.json"),
               "w") as fh:
-        json.dump({"card": card, "records": records, "kernels": kernels},
-                  fh, indent=1)
+        json.dump({"card": card, "records": records, "kernels": kernels,
+                   "stream_bytes_per_s": stream_rate}, fh, indent=1)
     say(f"total {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)

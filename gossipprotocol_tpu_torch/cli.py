@@ -3,7 +3,8 @@
     python -m gossipprotocol_tpu_torch N TOPOLOGY gossip|push-sum
         [--threshold H] [--no-keep-alive] [--seed-node I]
         [--predicate delta|global] [--eps E] [--tol T] [--streak S]
-        [--value-mode scaled|index] [--device cuda|cpu]
+        [--value-mode scaled|index] [--semantics intended|reference]
+        [--device cuda|cpu]
     python -m gossipprotocol_tpu_torch N TOPOLOGY push-sum \\
         --fanout all --delivery pallas|routed|megakernel
         [--rounds-per-kernel K]
@@ -13,7 +14,10 @@
 
 With no flags it runs what the JAX package's CLI runs by default (the
 reference's own surface): gossip, or push-sum with one random target per
-node per round (``--fanout one --delivery scatter``).
+node per round (``--fanout one --delivery scatter``). ``--semantics
+reference`` runs the reference's accidental rules: its N+1-actor
+population (:func:`_build_run_topology`), gossip at threshold + 1 and
+push-sum as the single-token walk.
 
 The positional surface and the output follow the JAX package's CLI (the
 reference's ``N topology algorithm`` → ``Convergence Time: %f ms``). Exit
@@ -46,7 +50,7 @@ UNPORTED_FLAGS = (
     "--checkpoint-dir", "--checkpoint-every", "--resume", "--auto-resume",
     "--restarted", "--fail-fraction", "--fail-round", "--revive-round",
     "--drop-prob", "--drop-window", "--fault-plan", "--event-plan",
-    "--churn", "--value-faults", "--sentinel", "--repair", "--profile-dir",
+    "--churn", "--value-faults", "--sentinel", "--profile-dir",
     "--telemetry-dir", "--sweep", "--sweep-seeds", "--round-budget",
     "--trace-cap", "--compile-cache", "--request-id", "--admission-json",
     "--check",
@@ -89,8 +93,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gossip: hearings to converge (README.md:2)")
     p.add_argument("--semantics", choices=["intended", "reference"],
                    default="intended",
-                   help="'reference' (the F# simulator's accidental "
-                        "rules) is not yet ported")
+                   help="'reference': the F# simulator's accidental rules "
+                        "(its N+1-actor population and imp3D wiring quirks, "
+                        "gossip's 11th hearing, push-sum as a single-token "
+                        "walk whose rounds are hops)")
+    p.add_argument("--repair", choices=["off", "prune", "rewire"],
+                   default="off",
+                   help="topology repair at fault events ('prune' and "
+                        "'rewire' are not yet ported: faults are not)")
     p.add_argument("--no-keep-alive", action="store_true",
                    help="gossip: a node stops spreading at its threshold "
                         "(the reference's per-node stop rule; a run can "
@@ -197,11 +207,60 @@ def _unported(argv) -> str | None:
     return None
 
 
+def _build_run_topology(args):
+    """argv -> (Topology, alert_quorum) with the reference-mode
+    population (the JAX package's CLI rule).
+
+    ``--semantics reference`` renders the reference's N+1-actor quirk
+    (``Program.fs:169-176`` spawns actors ``0..nodes``; the supervisor
+    exits at ``nodes`` Alerts, ``Program.fs:53``):
+
+      * line/full: the wiring loops cover all ``nodes+1`` actors, so the
+        graph is built one node larger and the run converges at ``nodes``
+        settled — all but one;
+      * 3D/imp3D: ``nodes`` is first rounded to the cube; the wiring
+        covers cube indices only, so the extra actor is one edge-less row,
+        which the birth-exclusion rule keeps out of the predicate;
+      * imp3D draws its extra neighbor with the reference's off-by-one,
+        directed, self/duplicate-allowing rule
+        (:func:`~gossipprotocol_tpu_torch.topology.builders.
+        build_imp3d_reference_quirks`).
+
+    Intended mode and the other topologies are untouched."""
+    from gossipprotocol_tpu_torch.topology import build_topology
+    from gossipprotocol_tpu_torch.topology.builders import (
+        add_isolated_rows, build_imp3d_reference_quirks,
+    )
+    from gossipprotocol_tpu_torch.topology.registry import canonical_name
+
+    name = canonical_name(args.topology)
+    if args.semantics == "reference":
+        if name in ("line", "full"):
+            return build_topology(name, args.num_nodes + 1), args.num_nodes
+        if name == "imp3D":
+            return add_isolated_rows(build_imp3d_reference_quirks(
+                args.num_nodes, seed=args.seed)), None
+        if name == "3D":
+            return add_isolated_rows(
+                build_topology(name, args.num_nodes)), None
+    return build_topology(
+        args.topology, args.num_nodes, seed=args.seed,
+        avg_degree=args.avg_degree, m=args.attach, k=args.ws_k,
+        beta=args.ws_beta), None
+
+
 def _check_sharding(args, cfg) -> None:
     """The JAX CLI's rejections of the sharding flags (its messages),
     raised as ValueError (exit 2), and the sharded runs not yet ported."""
-    from gossipprotocol_tpu_torch.engine.driver import NotPortedError
+    from gossipprotocol_tpu_torch.engine.driver import (
+        NotPortedError, is_walk,
+    )
 
+    if args.devices > 1 and is_walk(cfg):
+        raise ValueError(
+            "semantics='reference' push-sum is the single-token walk "
+            "(one MainPushSum in flight, Program.fs:128) — a serial "
+            "process that cannot shard; drop --devices")
     if args.devices > 1 and (cfg.algorithm == "gossip"
                              or cfg.fanout == "one"):
         raise NotPortedError(
@@ -258,7 +317,6 @@ def main(argv=None) -> int:
         run_simulation,
     )
     from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
-    from gossipprotocol_tpu_torch.topology import build_topology
     from gossipprotocol_tpu_torch.utils.metrics import (
         print_convergence_time, print_start_banner,
     )
@@ -271,10 +329,34 @@ def main(argv=None) -> int:
         if args.devices < 1:
             raise ValueError(f"--devices must be >= 1, got {args.devices}")
         device = resolve_device(args.device)
+        topo, alert_quorum = _build_run_topology(args)
+    except (ValueError, RuntimeError, NotImplementedError) as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    if not args.quiet and topo.num_nodes != args.num_nodes:
+        if args.semantics == "reference":
+            quorum_note = (f", supervisor exits at {alert_quorum} Alerts"
+                           if alert_quorum else "")
+            print(f"note: reference population is {topo.num_nodes} actors "
+                  f"for {args.num_nodes} requested nodes "
+                  f"(Program.fs:169-176,239-240{quorum_note})")
+        else:
+            print(f"note: {args.topology} rounds {args.num_nodes} up to "
+                  f"{topo.num_nodes} nodes (Program.fs:239-240 semantics)")
+    try:
+        if args.repair != "off" and args.semantics == "reference":
+            raise ValueError(
+                "repair applies to faulted runs; semantics='reference' "
+                "rejects fault schedules entirely, so there is nothing "
+                "to repair")
+        if args.repair != "off":
+            raise NotPortedError(
+                "option not yet ported: --repair (faults and topology "
+                "repair are not ported; only --repair off runs)")
         cfg = RunConfig(
             algorithm=algo, seed=args.seed, threshold=args.threshold,
             keep_alive=not args.no_keep_alive, seed_node=args.seed_node,
-            semantics=args.semantics,
+            semantics=args.semantics, alert_quorum=alert_quorum,
             eps=args.eps, streak_target=args.streak,
             predicate=args.predicate, tol=args.tol, fanout=args.fanout,
             delivery=args.delivery, value_mode=args.value_mode,
@@ -288,11 +370,6 @@ def main(argv=None) -> int:
             build_workers=args.build_workers,
         )
         _check_sharding(args, cfg)
-        topo = build_topology(
-            args.topology, args.num_nodes, seed=args.seed,
-            avg_degree=args.avg_degree, m=args.attach, k=args.ws_k,
-            beta=args.ws_beta,
-        )
         if cfg.delivery in DELIVERIES and topo.implicit_full:
             raise ValueError(
                 f"delivery='{cfg.delivery}' needs an explicit edge list; "
@@ -313,9 +390,6 @@ def main(argv=None) -> int:
     except (ValueError, RuntimeError, NotImplementedError) as e:
         print(str(e), file=sys.stderr)
         return 2
-    if not args.quiet and topo.num_nodes != args.num_nodes:
-        print(f"note: {args.topology} rounds {args.num_nodes} up to "
-              f"{topo.num_nodes} nodes (Program.fs:239-240 semantics)")
     if not args.quiet:
         print_start_banner(algo)
     try:

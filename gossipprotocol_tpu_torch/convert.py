@@ -2,8 +2,8 @@
 
 The system has no weights; what stands in for them is the protocol state
 and the tables the round reads. These converters take them as numpy
-arrays — for example the fields of a JAX-package ``GossipState`` or
-``PushSumState``, of its ``DenseNeighbors``, ``InvertedDense`` or
+arrays — for example the fields of a JAX-package ``GossipState``,
+``PushSumState`` or ``WalkState``, of its ``DenseNeighbors``, ``InvertedDense`` or
 ``CSRNeighbors``, or of a ``PallasDelivery`` or ``RoutedDelivery`` built
 with ``device=False`` —
 and place them on a torch device, checking shapes, types and index
@@ -55,6 +55,32 @@ def state_from_numpy(s, w, ratio, streak, converged, alive, round,
         alive=torch.from_numpy(alive.astype(bool)).to(dev),
         round=torch.tensor(int(round), dtype=torch.int32, device=dev),
     )
+
+
+def walk_state_from_numpy(s, w, ratio, streak, converged, alive, round,
+                          cur, msg_s, msg_w, device="cuda"):
+    """A :class:`~gossipprotocol_tpu_torch.protocols.walk.WalkState` on
+    ``device`` from its fields as numpy: the per-node fields as for
+    :func:`state_from_numpy`, and the token (``cur``, the in-flight
+    ``msg_s``, ``msg_w``) as scalars."""
+    from gossipprotocol_tpu_torch.protocols.walk import WalkState
+
+    node = state_from_numpy(s, w, ratio, streak, converged, alive, round,
+                            device=device)
+    n = node.s.shape[0]
+    cur = int(cur)
+    if not 0 <= cur < n:
+        raise ValueError(f"walk token position {cur} is not a node of "
+                         f"the {n}-node state")
+    msg = np.asarray([msg_s, msg_w])
+    if msg.dtype != np.float32:
+        raise ValueError(f"walk message: expected float32, got {msg.dtype}")
+    dev = node.s.device
+    return WalkState(
+        **node._asdict(),
+        cur=torch.tensor(cur, dtype=torch.int32, device=dev),
+        msg_s=torch.tensor(msg[0], device=dev),
+        msg_w=torch.tensor(msg[1], device=dev))
 
 
 def gossip_state_from_numpy(counts, converged, alive, round,

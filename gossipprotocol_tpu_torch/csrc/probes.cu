@@ -1,0 +1,272 @@
+// Kernels of the three measurement probes, for Hopper (sm_90a).
+//
+// Each replaces pallas_calls of the JAX package's probe scripts
+// (experiments/slab_probe.py, route_probe.py, tile_perm_probe.py): exact
+// x2 scalings, a strided slab write and gathers. Nothing is summed, so
+// each is bitwise equal to its plain PyTorch version
+// (gossipprotocol_tpu_torch/ops/probes.py). Bound on this card: bytes;
+// every kernel keeps its device-memory traffic in coalesced 16-byte
+// accesses, and only gathered loads scatter (within a row, a small array
+// or a tile held in shared memory).
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int ROW4 = GOSSIP_LANES / 4;  // float4 per 128-lane row
+
+__device__ __forceinline__ float4 twice(float4 v) {
+  v.x *= 2.f;
+  v.y *= 2.f;
+  v.z *= 2.f;
+  v.w *= 2.f;
+  return v;
+}
+
+// slab_kernel and contig_kernel — replace experiments/slab_probe.py:73
+// (strided slab write) and :94 (contiguous write).
+//
+// x [T, 128, 128]; output row (b, t, c) = 2 * x[t, b*CR + c] for the first
+// B*CR rows of each tile, laid out bucket-major [B, T, CR, 128]
+// (BUCKET_MAJOR) or tile-major [T, B, CR, 128]. The TPU kernel wrote, per
+// tile, B strided runs of CR rows; here one thread per float4 of output,
+// in output order, so the writes are coalesced and each warp reads one
+// contiguous 512-byte source row. The strided layout costs the reads,
+// not the writes.
+template <bool BUCKET_MAJOR>
+__global__ void slab_kernel(const float4* __restrict__ x,
+                            float4* __restrict__ out, int tiles, int buckets,
+                            int cr, long long n4) {
+  const long long o = blockIdx.x * static_cast<long long>(blockDim.x)
+                      + threadIdx.x;
+  if (o >= n4) return;
+  const int l4 = static_cast<int>(o % ROW4);
+  long long row = o / ROW4;
+  const int c = static_cast<int>(row % cr);
+  row /= cr;
+  long long t, b;
+  if (BUCKET_MAJOR) {
+    t = row % tiles;
+    b = row / tiles;
+  } else {
+    b = row % buckets;
+    t = row / buckets;
+  }
+  const long long src = (t * GOSSIP_LANES + b * cr + c) * ROW4 + l4;
+  out[o] = twice(__ldg(x + src));
+}
+
+// copy_kernel — replaces experiments/route_probe.py:158 (one VMEM-resident
+// block of 2-16 MB) and :240 (the grid stream copy, 1,024-row blocks).
+//
+// y = 2 * x over tiles of `tile4` float4: grid.y walks the tiles (the TPU
+// grid), grid.x the CUDA blocks inside one tile. Each thread loads UNROLL
+// float4 before it stores any, so enough loads are in flight to reach the
+// memory's rate. The card has no block-resident counterpart of VMEM (227 KB
+// of shared memory a block): a 2-16 MB array simply lives in the 50 MB L2
+// after its first touch, and 64 MiB does not, so the two calls give the
+// L2-resident copy rate and the device-memory stream ceiling.
+constexpr int UNROLL = 4;
+
+__global__ void scale2_kernel(const float4* __restrict__ x,
+                              float4* __restrict__ y, long long tile4,
+                              long long n4) {
+  const long long first = blockIdx.y * tile4;
+  const long long end = min(n4, first + tile4);
+  const long long base = first
+                         + static_cast<long long>(blockIdx.x)
+                               * (THREADS * UNROLL)
+                         + threadIdx.x;
+  float4 v[UNROLL];
+#pragma unroll
+  for (int k = 0; k < UNROLL; ++k) {
+    const long long i = base + k * THREADS;
+    if (i < end) v[k] = __ldg(x + i);
+  }
+#pragma unroll
+  for (int k = 0; k < UNROLL; ++k) {
+    const long long i = base + k * THREADS;
+    if (i < end) y[i] = twice(v[k]);
+  }
+}
+
+// g0 — replaces experiments/route_probe.py:180, take_along_axis on axis 0
+// (the TPU's sublane gather): out[r, c] = x[idx[r, c], c] over [rows, 128].
+// One thread per four outputs of a row: a 16-byte index load, four loads
+// from the (at most 2 MB, L2-resident) source, a 16-byte store.
+__global__ void gather_rows_kernel(const float* __restrict__ x,
+                                   const int4* __restrict__ idx,
+                                   float4* __restrict__ out, long long n4) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
+                      + threadIdx.x;
+  if (i >= n4) return;
+  const int4 k = __ldg(idx + i);
+  const float* col = x + (i % ROW4) * 4;
+  float4 v;
+  v.x = __ldg(col + static_cast<long long>(k.x) * GOSSIP_LANES);
+  v.y = __ldg(col + static_cast<long long>(k.y) * GOSSIP_LANES + 1);
+  v.z = __ldg(col + static_cast<long long>(k.z) * GOSSIP_LANES + 2);
+  v.w = __ldg(col + static_cast<long long>(k.w) * GOSSIP_LANES + 3);
+  out[i] = v;
+}
+
+// g1 and grid_call — replace experiments/route_probe.py:202 (the lane
+// gather on axis 1 of [128, cols]) and :216 (the same per tile of
+// [T, 4096, 128]): out[..., r, c] = x[..., r, idx[..., r, c]] over rows of
+// `cols` lanes. One thread per four outputs; the row (at most 16 KB) is
+// read by the threads of one block, so its gathered loads hit L1.
+__global__ void gather_lanes_kernel(const float* __restrict__ x,
+                                    const int4* __restrict__ idx,
+                                    float4* __restrict__ out, long long n4,
+                                    int cols) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
+                      + threadIdx.x;
+  if (i >= n4) return;
+  const int4 k = __ldg(idx + i);
+  const float* row = x + (i * 4 / cols) * cols;
+  float4 v;
+  v.x = __ldg(row + k.x);
+  v.y = __ldg(row + k.y);
+  v.z = __ldg(row + k.z);
+  v.w = __ldg(row + k.w);
+  out[i] = v;
+}
+
+// kern — replaces experiments/tile_perm_probe.py:141, an arbitrary
+// permutation of each [128, 128] f32 tile as lane gather (idx1),
+// transpose, lane gather (idx2), transpose, lane gather (idx3).
+//
+// The three gathers and two transposes compose into one read per output,
+// as csrc/route.cu composes the Clos stage: with k = idx3[r, c] and
+// r2 = idx2[k, r], Y[r, c] = X[r2, idx1[r2, k]]. One block per tile
+// stages the tile (64 KB) and the idx1 and idx2 planes (16 KB each, int8)
+// in shared memory with 16-byte loads — 96 KB, above the 48 KB a block
+// gets without the opt-in, so the launcher raises the limit once — then
+// reads idx3 and writes Y in row order, coalesced. Indices are signed
+// bytes whose values lie in 0..127.
+constexpr int PERM_THREADS = 512;
+constexpr int TILE_ELEMS = GOSSIP_LANES * GOSSIP_LANES;
+constexpr int PERM_SMEM = TILE_ELEMS * 4 + 2 * TILE_ELEMS;
+
+__device__ __forceinline__ float perm_pick(const float* xs,
+                                           const signed char* s1,
+                                           const signed char* s2, int k,
+                                           int r) {
+  const int r2 = s2[k * GOSSIP_LANES + r];
+  return xs[r2 * GOSSIP_LANES + s1[r2 * GOSSIP_LANES + k]];
+}
+
+__global__ void __launch_bounds__(PERM_THREADS)
+tile_perm_kernel(const float* __restrict__ x, const signed char* __restrict__ i1,
+                 const signed char* __restrict__ i2,
+                 const signed char* __restrict__ i3, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  signed char* s1 = reinterpret_cast<signed char*>(xs + TILE_ELEMS);
+  signed char* s2 = s1 + TILE_ELEMS;
+  const long long base = blockIdx.x * static_cast<long long>(TILE_ELEMS);
+  const float4* xt = reinterpret_cast<const float4*>(x + base);
+  for (int e = threadIdx.x; e < TILE_ELEMS / 4; e += PERM_THREADS)
+    reinterpret_cast<float4*>(xs)[e] = __ldg(xt + e);
+  const int4* a1 = reinterpret_cast<const int4*>(i1 + base);
+  const int4* a2 = reinterpret_cast<const int4*>(i2 + base);
+  for (int e = threadIdx.x; e < TILE_ELEMS / 16; e += PERM_THREADS) {
+    reinterpret_cast<int4*>(s1)[e] = __ldg(a1 + e);
+    reinterpret_cast<int4*>(s2)[e] = __ldg(a2 + e);
+  }
+  __syncthreads();
+  const char4* a3 = reinterpret_cast<const char4*>(i3 + base);
+  float4* ot = reinterpret_cast<float4*>(out + base);
+  for (int e = threadIdx.x; e < TILE_ELEMS / 4; e += PERM_THREADS) {
+    const char4 k = __ldg(a3 + e);
+    const int r = e / ROW4;
+    float4 v;
+    v.x = perm_pick(xs, s1, s2, k.x, r);
+    v.y = perm_pick(xs, s1, s2, k.y, r);
+    v.z = perm_pick(xs, s1, s2, k.z, r);
+    v.w = perm_pick(xs, s1, s2, k.w, r);
+    ot[e] = v;
+  }
+}
+
+}  // namespace
+
+GOSSIP_EXPORT const char* gossip_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+GOSSIP_EXPORT int gossip_probe_slab(const float* x, float* out, int tiles,
+                                    int buckets, int cr, int bucket_major,
+                                    void* stream) {
+  const long long n4 = static_cast<long long>(buckets) * tiles * cr * ROW4;
+  if (n4 == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xv = reinterpret_cast<const float4*>(x);
+  auto* ov = reinterpret_cast<float4*>(out);
+  if (bucket_major)
+    slab_kernel<true><<<gossip_blocks(n4, THREADS), THREADS, 0, s>>>(
+        xv, ov, tiles, buckets, cr, n4);
+  else
+    slab_kernel<false><<<gossip_blocks(n4, THREADS), THREADS, 0, s>>>(
+        xv, ov, tiles, buckets, cr, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+GOSSIP_EXPORT int gossip_probe_scale2(const float* x, float* y, long long n,
+                                      long long tile_elems, void* stream) {
+  // n and tile_elems: multiples of 4 floats
+  const long long n4 = n / 4;
+  const long long tile4 = tile_elems / 4;
+  if (n4 == 0) return 0;
+  const long long tiles = (n4 + tile4 - 1) / tile4;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(gossip_blocks(tile4, THREADS * UNROLL),
+                  static_cast<unsigned int>(tiles));
+  scale2_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y),
+      tile4, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+GOSSIP_EXPORT int gossip_probe_gather_rows(const float* x, const int* idx,
+                                           float* out, long long n,
+                                           void* stream) {
+  const long long n4 = n / 4;
+  if (n4 == 0) return 0;
+  gather_rows_kernel<<<gossip_blocks(n4, THREADS), THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      x, reinterpret_cast<const int4*>(idx), reinterpret_cast<float4*>(out),
+      n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+GOSSIP_EXPORT int gossip_probe_gather_lanes(const float* x, const int* idx,
+                                            float* out, long long n, int cols,
+                                            void* stream) {
+  const long long n4 = n / 4;
+  if (n4 == 0) return 0;
+  gather_lanes_kernel<<<gossip_blocks(n4, THREADS), THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      x, reinterpret_cast<const int4*>(idx), reinterpret_cast<float4*>(out),
+      n4, cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+GOSSIP_EXPORT int gossip_probe_tile_perm(const float* x, const signed char* i1,
+                                         const signed char* i2,
+                                         const signed char* i3, float* out,
+                                         long long tiles, void* stream) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tile_perm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        PERM_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  if (tiles == 0) return 0;
+  tile_perm_kernel<<<static_cast<unsigned int>(tiles), PERM_THREADS,
+                     PERM_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      x, i1, i2, i3, out);
+  return static_cast<int>(cudaGetLastError());
+}

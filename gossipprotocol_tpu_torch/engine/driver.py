@@ -3,7 +3,9 @@
 gossip and fanout-one push-sum over the scatter delivery — the
 reference's own ``N topology algorithm`` surface — and fanout-all
 push-sum over the fused gather delivery, the Clos-routed delivery and
-the K-round megakernel).
+the K-round megakernel; and the reference semantics, ``semantics=
+"reference"``: gossip at threshold + 1, push-sum as the single-token walk
+of ``protocols/walk.py``, and the quorum supervisor ``alert_quorum``).
 
 The loop is chunked like the JAX engine's: one chunk advances rounds
 until a host-known ``round_limit`` or global convergence, whichever comes
@@ -22,7 +24,9 @@ The fanout-one paths draw from the counter-based device RNG; a chunk
 hashes its rounds' keys ``fold_in(key(seed), r)`` in one pass. Gossip's
 gather-inverted branch (on the CPU only: :func:`gossip_inversion_enabled`)
 is chosen per chunk on the host, from the previous chunk's fetched
-summary (see :class:`GossipCore`).
+summary (see :class:`GossipCore`). The walk runs its own chunk of hops
+(:func:`~gossipprotocol_tpu_torch.protocols.walk.make_walk_chunk_runner`),
+:data:`WALK_CHUNK_HOPS` per fetch unless ``chunk_rounds`` says otherwise.
 
 The sharded push design (``--devices S``) has its own engine in
 ``parallel/sharded.py`` over the same chunk runner; its fields here are
@@ -30,9 +34,8 @@ The sharded push design (``--devices S``) has its own engine in
 ``build_workers``.
 
 What is not yet ported exits as a :class:`NotPortedError` naming itself:
-the reference semantics, the ``invert`` delivery, the fanout-all
-``scatter`` delivery, the sharded pull design, faults, checkpoints,
-telemetry, sweeps.
+the ``invert`` delivery, the fanout-all ``scatter`` delivery, the sharded
+pull design, faults and repair, checkpoints, telemetry, sweeps.
 """
 
 from __future__ import annotations
@@ -72,6 +75,12 @@ ALGORITHMS = ("gossip", "push-sum")
 # the card's smoke graphs (PERF.md, utils/profiling.py). Rounded up to a
 # multiple of the megakernel's K.
 DEFAULT_CHUNK_ROUNDS = 16
+# Hops per chunk of the reference walk: a chunk hashes its hops' draws in
+# one pass (~500 small operations) and a hop costs ~30. Timed on an H100
+# through the CLI's --chunk-rounds at imp3D 100 and 1,000 (PERF.md §6):
+# 16 hops take 1.8-2.1x the time of 256, and 64-512 lie within the
+# runs' spread; the price is up to 255 frozen hops after convergence.
+WALK_CHUNK_HOPS = 256
 
 # the fanout-all deliveries the port runs, and those of them whose fused
 # kernel can loop rounds (--rounds-per-kernel > 1); routed dispatches one
@@ -99,7 +108,13 @@ class RunConfig:
                                    # until global convergence
     seed_node: Optional[int] = None  # gossip start node; None = drawn
                                    # from the seed (pick_seed_node)
-    semantics: str = "intended"    # "reference" is not yet ported
+    semantics: str = "intended"    # "intended" | "reference" (the F#
+                                   # simulator's accidental rules: gossip
+                                   # threshold + 1, push-sum as the
+                                   # single-token walk)
+    alert_quorum: Optional[int] = None  # settled rows that end the run
+                                   # (None = all): the reference's N+1
+                                   # actors converging at N Alerts
     eps: float = 1e-10             # push-sum |Δ(s/w)| tolerance
     streak_target: int = 3         # consecutive rounds within tolerance
     predicate: str = "delta"       # "delta" (local) | "global" (sound)
@@ -138,14 +153,24 @@ class RunConfig:
                 f"unknown algorithm {self.algorithm!r}; valid: {ALGORITHMS}")
         if self.semantics not in ("intended", "reference"):
             raise ValueError("semantics must be 'intended' or 'reference'")
-        if self.semantics == "reference":
-            raise NotPortedError(
-                "option not yet ported: --semantics reference (the "
-                "reference's quirks: the gossip threshold 11, the "
-                "single-token push-sum walk and the quirk topology "
-                "builders)")
+        ref = self.semantics == "reference"
+        if self.predicate not in ("delta", "global"):
+            raise ValueError("predicate must be 'delta' or 'global'")
+        if self.predicate == "global" and ref:
+            raise ValueError(
+                "predicate='global' is incompatible with semantics='reference' "
+                "(the reference's accidental rule ignores the estimate entirely)"
+            )
+        if self.alert_quorum is not None and self.alert_quorum < 1:
+            raise ValueError("alert_quorum must be >= 1")
         if self.fanout not in ("one", "all"):
             raise ValueError("fanout must be 'one' or 'all'")
+        if self.fanout == "all" and ref:
+            raise ValueError(
+                "fanout='all' is incompatible with semantics='reference': the "
+                "single-target send IS the reference's accidental behavior "
+                "(Program.fs:128) that the diffusion variant replaces"
+            )
         if self.delivery not in ALL_DELIVERIES:
             raise ValueError("delivery must be 'scatter', 'invert', "
                              "'routed', 'pallas', or 'megakernel'")
@@ -156,6 +181,11 @@ class RunConfig:
                 "diffusion only (the static edge structure is what the "
                 "routing plan compiles; single-target draws fresh targets "
                 "every round — see README 'Performance')")
+        if is_walk(self) and self.delivery != "scatter":
+            raise ValueError(
+                "delivery variants invert/route the all-send deliveries; "
+                "reference push-sum is the single-token walk and has "
+                "nothing to invert — drop --delivery")
         if self.delivery == "invert":
             if self.algorithm != "push-sum" or self.fanout != "one":
                 raise ValueError(
@@ -219,8 +249,6 @@ class RunConfig:
                 "requires delivery='routed' or 'pallas'")
         if self.build_workers is not None and self.build_workers < 1:
             raise ValueError("build_workers must be >= 1")
-        if self.predicate not in ("delta", "global"):
-            raise ValueError("predicate must be 'delta' or 'global'")
         if self.value_mode not in ("scaled", "index"):
             raise ValueError("value_mode must be 'scaled' or 'index'")
         if self.streak_target < 1:
@@ -232,8 +260,15 @@ class RunConfig:
     def chunk(self) -> int:
         if self.chunk_rounds:
             return self.chunk_rounds
+        if is_walk(self):
+            return WALK_CHUNK_HOPS
         k = self.rounds_per_kernel
         return -(-DEFAULT_CHUNK_ROUNDS // k) * k
+
+
+def is_walk(cfg: RunConfig) -> bool:
+    """Is this run the reference's single-token push-sum walk?"""
+    return cfg.algorithm == "push-sum" and cfg.semantics == "reference"
 
 
 def use_megakernel(cfg: RunConfig) -> bool:
@@ -264,7 +299,8 @@ class RunResult:
     @property
     def estimate_error(self) -> Optional[float]:
         """Push-sum: max |s/w − achievable mean| over healthy nodes (the
-        mean over healthy rows only, in float64 on the host); None for
+        mean over healthy rows only, in float64 on the host; the walk's
+        in-flight message carries real mass and counts too); None for
         gossip."""
         st = self.final_state
         if not hasattr(st, "ratio"):
@@ -275,6 +311,9 @@ class RunResult:
             return None
         s = st.s.numpy().astype(np.float64)[alive].sum(axis=0)
         w = st.w.numpy().astype(np.float64)[alive].sum()
+        if hasattr(st, "msg_s"):
+            s = s + float(st.msg_s)
+            w += float(st.msg_w)
         return float(np.abs(ratio[alive] - s / w).max())
 
 
@@ -298,10 +337,12 @@ def pick_seed_node(num_nodes: int, seed: int, alive=None) -> int:
 
 
 def effective_keep_alive(topo: Topology, cfg: RunConfig) -> bool:
-    """The keep-alive rule in force: ``cfg.keep_alive`` (the JAX
-    package also drops it for full-topology gossip under the reference
-    semantics, which are not ported)."""
-    return cfg.keep_alive
+    """The keep-alive rule in force. Reference mode renders Actor2's
+    asymmetry: the keep-alive driver is started for line/3D/imp3D gossip
+    (``Program.fs:200,271``) but not for the full topology
+    (``Program.fs:224-228`` sends no ``Adder``)."""
+    ref = cfg.semantics == "reference"
+    return cfg.keep_alive and not (ref and topo.kind == "full")
 
 
 def gossip_inversion_enabled(topo: Topology, cfg: RunConfig) -> bool:
@@ -397,12 +438,18 @@ def build_protocol(topo: Topology, cfg: RunConfig,
     alive (``targets_alive``). ``allow_all_alive=False`` forces the
     general dead-set path. Under :func:`use_megakernel` the core is the
     K-round kernel's ``(padded state, megakernel delivery) -> padded
-    state``, which runs the all-alive round only."""
+    state``, which runs the all-alive round only. The walk
+    (:func:`is_walk`) has no per-round core (None): its chunk runner
+    (``protocols/walk.py``) is built in :func:`run_simulation`. With
+    ``alert_quorum`` the run is done once that many rows are settled
+    (converged or not alive)."""
     dev = resolve_device(cfg.device)
+    ref = cfg.semantics == "reference"
     n = topo.num_nodes
     alive0 = initial_alive(topo)
     all_alive = allow_all_alive and alive0 is None
     targets_alive = allow_all_alive
+    core = None
     if cfg.algorithm == "gossip":
         if cfg.seed_node is not None:
             seed_node = cfg.seed_node  # explicit: honored even if dead
@@ -410,17 +457,31 @@ def build_protocol(topo: Topology, cfg: RunConfig,
             seed_node = pick_seed_node(n, cfg.seed, alive=alive0)
         state = gossip_init(n, seed_node, device=dev)
         done_fn = gossip_done
-        core = GossipCore(n=n, threshold=cfg.threshold,
+        # the reference converges on the 11th hearing (Program.fs:91-92);
+        # the intended rule is 10 (README.md:2)
+        core = GossipCore(n=n,
+                          threshold=cfg.threshold + 1 if ref
+                          else cfg.threshold,
                           keep_alive=effective_keep_alive(topo, cfg),
                           all_alive=all_alive,
                           invertible=gossip_inversion_enabled(topo, cfg))
+    elif is_walk(cfg):
+        from gossipprotocol_tpu_torch.protocols.walk import (
+            pushsum_walk_init,
+        )
+
+        state = pushsum_walk_init(n, walk_start_node(topo, cfg),
+                                  value_mode=cfg.value_mode, device=dev)
+        done_fn = pushsum_done
     else:
         state = pushsum_init(n, value_mode=cfg.value_mode, device=dev)
         done_fn = pushsum_done
     if alive0 is not None:
         state = state._replace(
             alive=state.alive & torch.from_numpy(np.array(alive0)).to(dev))
-    if cfg.algorithm == "gossip":
+    if cfg.alert_quorum is not None:
+        done_fn = quorum_done(cfg.alert_quorum)
+    if cfg.algorithm == "gossip" or is_walk(cfg):
         return state, core, done_fn, (all_alive, targets_alive)
 
     if cfg.fanout == "one":
@@ -457,6 +518,38 @@ def build_protocol(topo: Topology, cfg: RunConfig,
             targets_alive=targets_alive)
 
     return state, round_core, done_fn, (all_alive, targets_alive)
+
+
+def quorum_done(quorum: int):
+    """The reference's supervisor: it exits at ``nodes`` Alerts while the
+    factory spawned ``nodes + 1`` actors (``Program.fs:169-176,53``), so
+    the run is done once ``quorum`` rows are settled (converged or not
+    alive)."""
+    def done_fn(state):
+        settled = torch.sum((state.converged | ~state.alive).to(torch.int32))
+        return settled >= quorum
+
+    return done_fn
+
+
+def walk_start_node(topo: Topology, cfg: RunConfig) -> int:
+    """The walk's start: ``cfg.seed_node`` (refused when it has no
+    neighbour or lies outside the giant component — the walk would be
+    trapped there, as the reference would hang), else drawn from the seed
+    among the birth-alive nodes, where every node has a neighbour."""
+    birth = topo.birth_alive()
+    if cfg.seed_node is None:
+        return pick_seed_node(topo.num_nodes, cfg.seed, alive=birth)
+    seed_node = cfg.seed_node
+    if (not topo.implicit_full and int(topo.degree[seed_node]) == 0) or (
+            birth is not None and not bool(birth[seed_node])):
+        raise ValueError(
+            f"seed node {seed_node} has no neighbors or sits "
+            "in a birth-excluded minority component — the "
+            "walk would be trapped there forever (the "
+            "reference would hang identically)"
+        )
+    return seed_node
 
 
 def device_arrays(topo: Topology, cfg: RunConfig):
@@ -640,7 +733,17 @@ def run_simulation(topo: Topology, cfg: RunConfig,
     gossip = isinstance(round_core, GossipCore)
     extra_stats = round_core.extra_stats if gossip else None
     observe = round_core.observe if gossip else None
-    if use_megakernel(cfg):
+    if is_walk(cfg):
+        from gossipprotocol_tpu_torch.protocols.walk import (
+            make_walk_chunk_runner,
+        )
+
+        runner = make_walk_chunk_runner(
+            delivery, topo.num_nodes, streak_target=cfg.streak_target,
+            quorum=(topo.num_nodes if cfg.alert_quorum is None
+                    else cfg.alert_quorum),
+            base_key=key_data(cfg.seed, dev), done_fn=done_fn)
+    elif use_megakernel(cfg):
         runner = make_megakernel_chunk_runner(round_core, done_fn,
                                               cfg.rounds_per_kernel)
     else:

@@ -4,14 +4,17 @@
 reduce and expand), ``pallasdelivery``
 (the two tile gathers, the fused delivery and the sharded edge-share
 exchange), ``exec`` (the Clos routing passes of the routed delivery,
-``delivery``) and ``megakernel`` (K whole rounds per launch) each keep a
-plain PyTorch version beside the kernel; ``plan`` and ``clos`` compile
+``delivery``), ``megakernel`` (K whole rounds per launch) and ``probes``
+(the measurement probes' copies and gathers) each keep a plain PyTorch
+version beside the kernel; ``plan`` and ``clos`` compile
 the routing plans on the host, ``sharddelivery`` the sharded push
 design's per-shard plans; ``plancache`` caches the deliveries' plans on
 disk; ``build`` compiles ``csrc/*.cu`` at first use.
 """
 
-from gossipprotocol_tpu_torch.ops import classops, exec, pallasdelivery
+from gossipprotocol_tpu_torch.ops import (
+    classops, exec, pallasdelivery, probes,
+)
 
 
 def _tables():
@@ -20,7 +23,7 @@ def _tables():
     from gossipprotocol_tpu_torch.ops import megakernel
 
     return (classops.LAUNCHES, exec.LAUNCHES, pallasdelivery.LAUNCHES,
-            megakernel.LAUNCHES)
+            megakernel.LAUNCHES, probes.LAUNCHES)
 
 
 def kernel_launches() -> dict:

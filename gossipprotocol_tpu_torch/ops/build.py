@@ -29,7 +29,8 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 
 # one shared library per source; the launchers each library exports
-SOURCES = ("classops", "exchange", "gather", "megakernel", "route")
+SOURCES = ("classops", "exchange", "gather", "megakernel", "probes",
+           "route")
 
 # sm_90a (Hopper). No --use_fast_math: the folds must keep denormals and
 # IEEE rounding; --fmad=false forbids contraction, so the one fused
@@ -76,6 +77,19 @@ _SIGNATURES = {
             *(_VOIDP,) * 9, _VOIDP, _LL, _VOIDP, _LL, _LL,
             *(_VOIDP,) * 5, _INT, _INT, _LL, _INT, _F32, _F32, _INT, _INT,
             _LL, _INT, _VOIDP),
+    },
+    "probes": {
+        # x, out, tiles, buckets, cr, bucket_major, stream
+        "gossip_probe_slab": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT,
+                              _VOIDP),
+        # x, y, n, tile_elems, stream
+        "gossip_probe_scale2": (_VOIDP, _VOIDP, _LL, _LL, _VOIDP),
+        "gossip_probe_gather_rows": (_VOIDP, _VOIDP, _VOIDP, _LL, _VOIDP),
+        # x, idx, out, n, cols, stream
+        "gossip_probe_gather_lanes": (_VOIDP, _VOIDP, _VOIDP, _LL, _INT,
+                                      _VOIDP),
+        # x, idx1, idx2, idx3, out, tiles, stream
+        "gossip_probe_tile_perm": (*(_VOIDP,) * 5, _LL, _VOIDP),
     },
     "route": {
         # x, idx, out, tiles, o, b, cr, tau_in, tau_slab, unit, stream

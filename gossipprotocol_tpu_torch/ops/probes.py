@@ -1,0 +1,235 @@
+"""The measurement probes' kernels (``csrc/probes.cu``) and their plain
+versions.
+
+The JAX package measured the TPU with three scripts
+(``experiments/slab_probe.py``, ``route_probe.py``,
+``tile_perm_probe.py``); their eight ``pallas_call`` sites are five CUDA
+kernels here. No simulation path of either package runs them: the
+entry points are ``python -m gossipprotocol_tpu_torch.probes.<name>``.
+
+Each function has two bodies, as in :mod:`~gossipprotocol_tpu_torch.ops.
+classops`: the CUDA kernel for a tensor on a CUDA device (it launches or
+raises), and the plain PyTorch version (``*_plain``) for a tensor on the
+CPU. All five only copy, double or gather, so the kernel is bitwise equal
+to its plain version, and the plain versions bitwise equal to the JAX
+kernels run in Pallas interpret mode.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gossipprotocol_tpu_torch.ops import build
+
+LANES = 128
+
+# kernel launches since the last reset (counted where each wrapper
+# launches its kernel; the CPU path launches nothing)
+LAUNCHES = {"probe_slab": 0, "probe_scale2": 0, "probe_gather_rows": 0,
+            "probe_gather_lanes": 0, "probe_tile_perm": 0}
+
+
+def _require(x: torch.Tensor, dtype, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: data pointer not 16-byte aligned")
+
+
+def _same_device(what: str, *ts: torch.Tensor) -> None:
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{what}: tensors on different devices")
+
+
+# ---- slab_probe.py: slab_kernel (:73) and contig_kernel (:94) ----------
+
+def probe_slab_plain(x: torch.Tensor, buckets: int, cr: int,
+                     bucket_major: bool) -> torch.Tensor:
+    """Plain PyTorch body: ``x * 2``, each tile's first ``buckets * cr``
+    rows viewed ``[T, B, CR, 128]``, bucket-major when asked."""
+    t = x.shape[0]
+    y = (x * 2)[:, : buckets * cr].reshape(t, buckets, cr, LANES)
+    return y.transpose(0, 1).contiguous() if bucket_major else y
+
+
+def probe_slab(x: torch.Tensor, buckets: int, cr: int,
+               bucket_major: bool) -> torch.Tensor:
+    """Write ``2 * x[t][:B*CR]`` of every ``[128, 128]`` tile of ``x``
+    (f32 ``[T, 128, 128]``) as B runs of CR rows: bucket-major
+    ``[B, T, CR, 128]`` or tile-major ``[T, B, CR, 128]``.
+
+    On CUDA: ``csrc/probes.cu`` ``slab_kernel``, replacing the Pallas
+    kernels at ``experiments/slab_probe.py:73`` (bucket-major) and ``:94``
+    (tile-major). Bound by bytes; one thread per output float4, in output
+    order."""
+    if x.dim() != 3 or x.shape[1:] != (LANES, LANES):
+        raise ValueError("probe_slab: x must be [tiles, 128, 128]")
+    if buckets < 1 or cr < 1 or buckets * cr > LANES:
+        raise ValueError(f"probe_slab: B*CR = {buckets}*{cr} must lie in "
+                         f"1..{LANES}")
+    if x.device.type == "cpu":
+        return probe_slab_plain(x, buckets, cr, bucket_major)
+    _require(x, torch.float32, "probe_slab")
+    t = x.shape[0]
+    shape = (buckets, t, cr, LANES) if bucket_major else (t, buckets, cr,
+                                                           LANES)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    lib = build.library("probes")
+    rc = lib.gossip_probe_slab(x.data_ptr(), out.data_ptr(), t, buckets, cr,
+                               int(bucket_major),
+                               build.stream_handle(x.device))
+    build.check(lib, rc, "probe_slab")
+    LAUNCHES["probe_slab"] += 1
+    return out
+
+
+# ---- route_probe.py: copy_kernel (:158 resident, :240 streamed) --------
+
+def probe_scale2_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch body: ``x * 2``."""
+    return x * 2
+
+
+def probe_scale2(x: torch.Tensor, tile_rows: int | None = None
+                 ) -> torch.Tensor:
+    """``2 * x`` over an f32 ``[rows, 128]`` array, walked in tiles of
+    ``tile_rows`` rows (None: the whole array as one tile).
+
+    On CUDA: ``csrc/probes.cu`` ``scale2_kernel``, replacing the Pallas
+    kernel at ``experiments/route_probe.py:158`` (one VMEM-resident block;
+    ``tile_rows=None``) and its grid form at ``:240`` (1,024-row blocks).
+    Bound by bytes: up to 16 MB the array stays in L2, 64 MiB streams from
+    device memory."""
+    if x.dim() != 2 or x.shape[1] != LANES:
+        raise ValueError("probe_scale2: x must be [rows, 128]")
+    rows = x.shape[0]
+    tile_rows = rows if tile_rows is None else tile_rows
+    if tile_rows < 1:
+        raise ValueError("probe_scale2: tile_rows must be >= 1")
+    if x.device.type == "cpu":
+        return probe_scale2_plain(x)
+    _require(x, torch.float32, "probe_scale2")
+    out = torch.empty_like(x)
+    lib = build.library("probes")
+    rc = lib.gossip_probe_scale2(x.data_ptr(), out.data_ptr(), x.numel(),
+                                 max(tile_rows, 1) * LANES,
+                                 build.stream_handle(x.device))
+    build.check(lib, rc, "probe_scale2")
+    LAUNCHES["probe_scale2"] += 1
+    return out
+
+
+# ---- route_probe.py: g0 (:180) ------------------------------------------
+
+def probe_gather_rows_plain(x: torch.Tensor, idx: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain PyTorch body: ``torch.gather`` on dim 0."""
+    return torch.gather(x, 0, idx.long())
+
+
+def probe_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[r, c] = x[idx[r, c], c]`` over f32 ``[rows, 128]`` with int32
+    indices in ``[0, rows)`` (``take_along_axis`` on axis 0).
+
+    On CUDA: ``csrc/probes.cu`` ``gather_rows_kernel``, replacing the
+    Pallas kernel at ``experiments/route_probe.py:180``. Bound by bytes
+    (indices in, values out; the source stays in L2)."""
+    if x.dim() != 2 or x.shape[1] != LANES or idx.shape != x.shape:
+        raise ValueError("probe_gather_rows: x and idx must be [rows, 128]")
+    _same_device("probe_gather_rows", x, idx)
+    if x.device.type == "cpu":
+        return probe_gather_rows_plain(x, idx)
+    _require(x, torch.float32, "probe_gather_rows")
+    _require(idx, torch.int32, "probe_gather_rows")
+    out = torch.empty_like(x)
+    lib = build.library("probes")
+    rc = lib.gossip_probe_gather_rows(x.data_ptr(), idx.data_ptr(),
+                                      out.data_ptr(), x.numel(),
+                                      build.stream_handle(x.device))
+    build.check(lib, rc, "probe_gather_rows")
+    LAUNCHES["probe_gather_rows"] += 1
+    return out
+
+
+# ---- route_probe.py: g1 (:202) and grid_call (:216) ---------------------
+
+def probe_gather_lanes_plain(x: torch.Tensor, idx: torch.Tensor
+                             ) -> torch.Tensor:
+    """Plain PyTorch body: ``torch.gather`` on the last dim."""
+    return torch.gather(x, -1, idx.long())
+
+
+def probe_gather_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[..., r, c] = x[..., r, idx[..., r, c]]`` (``take_along_axis``
+    on the last axis) for f32 ``x`` and int32 ``idx`` of one shape, the
+    last dim a multiple of 4, indices in ``[0, cols)``.
+
+    On CUDA: ``csrc/probes.cu`` ``gather_lanes_kernel``, replacing the
+    Pallas kernels at ``experiments/route_probe.py:202`` (``[128, cols]``)
+    and ``:216`` (per tile of ``[T, 4096, 128]``). Bound by bytes; the
+    gathered loads stay within one row."""
+    if x.dim() < 2 or idx.shape != x.shape or x.shape[-1] % 4:
+        raise ValueError("probe_gather_lanes: x and idx must share a "
+                         "shape whose last dim is a multiple of 4")
+    _same_device("probe_gather_lanes", x, idx)
+    if x.device.type == "cpu":
+        return probe_gather_lanes_plain(x, idx)
+    _require(x, torch.float32, "probe_gather_lanes")
+    _require(idx, torch.int32, "probe_gather_lanes")
+    out = torch.empty_like(x)
+    lib = build.library("probes")
+    rc = lib.gossip_probe_gather_lanes(x.data_ptr(), idx.data_ptr(),
+                                       out.data_ptr(), x.numel(),
+                                       x.shape[-1],
+                                       build.stream_handle(x.device))
+    build.check(lib, rc, "probe_gather_lanes")
+    LAUNCHES["probe_gather_lanes"] += 1
+    return out
+
+
+# ---- tile_perm_probe.py: kern (:141) -------------------------------------
+
+def probe_tile_perm_plain(x: torch.Tensor, idx1: torch.Tensor,
+                          idx2: torch.Tensor, idx3: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain PyTorch body: the JAX kernel's chain, per tile — lane gather
+    by ``idx1``, transpose, lane gather by ``idx2``, transpose, lane gather
+    by ``idx3``."""
+    a = torch.gather(x, 2, idx1.long())
+    b = torch.gather(a.transpose(1, 2), 2, idx2.long())
+    return torch.gather(b.transpose(1, 2), 2, idx3.long())
+
+
+def probe_tile_perm(x: torch.Tensor, idx1: torch.Tensor, idx2: torch.Tensor,
+                    idx3: torch.Tensor) -> torch.Tensor:
+    """Apply a routed permutation to every f32 ``[128, 128]`` tile of
+    ``x`` (``[T, 128, 128]``); ``idx1..3`` are int8 planes of the same
+    shape, values in 0..127 (the host routing's ``route_tile_perm``).
+
+    On CUDA: ``csrc/probes.cu`` ``tile_perm_kernel``, replacing the Pallas
+    kernel at ``experiments/tile_perm_probe.py:141``. Bound by bytes: the
+    three gathers and two transposes compose into one read per output
+    from the tile staged in shared memory."""
+    if x.dim() != 3 or x.shape[1:] != (LANES, LANES):
+        raise ValueError("probe_tile_perm: x must be [tiles, 128, 128]")
+    for i in (idx1, idx2, idx3):
+        if i.shape != x.shape:
+            raise ValueError("probe_tile_perm: index planes must match x")
+    _same_device("probe_tile_perm", x, idx1, idx2, idx3)
+    if x.device.type == "cpu":
+        return probe_tile_perm_plain(x, idx1, idx2, idx3)
+    _require(x, torch.float32, "probe_tile_perm")
+    for i in (idx1, idx2, idx3):
+        _require(i, torch.int8, "probe_tile_perm")
+    out = torch.empty_like(x)
+    lib = build.library("probes")
+    rc = lib.gossip_probe_tile_perm(
+        x.data_ptr(), idx1.data_ptr(), idx2.data_ptr(), idx3.data_ptr(),
+        out.data_ptr(), x.shape[0], build.stream_handle(x.device))
+    build.check(lib, rc, "probe_tile_perm")
+    LAUNCHES["probe_tile_perm"] += 1
+    return out

@@ -9,7 +9,9 @@ copied from ``jax/_src/prng.py``, ``_threefry2x32_lowering``), written in
 PyTorch: PyTorch has no full uint32 arithmetic, so every word is an int64
 holding a uint32 value, masked with ``& 0xFFFFFFFF`` after each add and
 rotate. ``jax_threefry_partitionable`` changes ``split`` and
-``random_bits`` only; neither the hash nor ``fold_in`` reads it.
+``random_bits`` only; neither the hash nor ``fold_in`` reads it. The
+scalar ``jax.random.randint`` of the reference walk reads both, so
+:func:`randint` takes the setting (default: jax 0.9's, True).
 
 Topology arrays are runtime arguments: :class:`DenseNeighbors` (a padded
 ``[n, max_degree]`` table, bounded-degree graphs), :class:`CSRNeighbors`
@@ -31,6 +33,9 @@ _U32 = 0xFFFFFFFF
 # and the key-schedule parity constant
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+
+# jax 0.9's default of ``jax_threefry_partitionable``
+THREEFRY_PARTITIONABLE = True
 
 # Domain-separation constant of the JAX package's loss draws (kept for
 # the drop windows, which are not ported yet).
@@ -128,6 +133,66 @@ def per_node_randint(key: torch.Tensor, gids: torch.Tensor,
     u, _ = threefry2x32_words(key[0], key[1], g, g)
     mx = torch.as_tensor(maxval, device=g.device).to(torch.int64) & _U32
     return (u % mx).to(torch.int32)
+
+
+def split2(key: torch.Tensor,
+           partitionable: bool = THREEFRY_PARTITIONABLE) -> torch.Tensor:
+    """``jax.random.split(key)`` (two keys) for keys ``[..., 2]``:
+    ``[..., 2, 2]``. Partitionable: the hash of the counters ``(0, 0)``
+    and ``(0, 1)``, one key each. Original: the hash of the counter pairs
+    ``(0, 2)`` and ``(1, 3)`` (``iota(4)`` split in halves), the first
+    words making key 0 and the second words key 1."""
+    k0, k1 = key[..., 0:1], key[..., 1:2]
+    if partitionable:
+        y0, y1 = threefry2x32_words(
+            k0, k1, torch.zeros(2, dtype=torch.int64, device=key.device),
+            torch.arange(2, dtype=torch.int64, device=key.device))
+        return torch.stack([y0, y1], dim=-1)
+    y0, y1 = threefry2x32_words(
+        k0, k1, torch.arange(2, dtype=torch.int64, device=key.device),
+        torch.arange(2, 4, dtype=torch.int64, device=key.device))
+    return torch.stack([y0, y1], dim=-2)
+
+
+def randint_words(key: torch.Tensor,
+                  partitionable: bool = THREEFRY_PARTITIONABLE):
+    """The two 32-bit words ``jax.random.randint(key, (), ...)`` draws for
+    keys ``[..., 2]``: ``(higher, lower)``, the 32 random bits of each of
+    ``split(key)``'s two keys (partitionable: the XOR of the two words of
+    the hash of ``(0, 0)``; original: its first word)."""
+    sub = split2(key, partitionable)
+    zero = torch.zeros_like(sub[..., 0])
+    y0, y1 = threefry2x32_words(sub[..., 0], sub[..., 1], zero, zero)
+    bits = y0 ^ y1 if partitionable else y0
+    return bits[..., 0], bits[..., 1]
+
+
+def randint_from_words(higher: torch.Tensor, lower: torch.Tensor,
+                       maxval) -> torch.Tensor:
+    """``jax.random.randint``'s draw in ``[0, maxval)`` from its two words
+    (``jax/_src/random.py``, ``_randint``, for 32-bit ints): a span of
+    ``maxval`` (1 when ``maxval <= 0``), ``2**32 mod span`` as
+    ``(2**16 mod span)**2 mod span``, then ``((higher mod span) *
+    multiplier + lower mod span) mod span``, every product and sum wrapped
+    to uint32. int64 words holding uint32 values; broadcasts; returns
+    int64. Divides only by tensors."""
+    span = torch.clamp(torch.as_tensor(maxval, device=higher.device).to(
+        torch.int64), min=1)
+    mult = torch.remainder(torch.full_like(span, 1 << 16), span)
+    mult = torch.remainder((mult * mult) & _U32, span)
+    off = (torch.remainder(higher, span) * mult) & _U32
+    off = (off + torch.remainder(lower, span)) & _U32
+    return torch.remainder(off, span)
+
+
+def randint(key: torch.Tensor, maxval,
+            partitionable: bool = THREEFRY_PARTITIONABLE) -> torch.Tensor:
+    """``jax.random.randint(key, (), 0, maxval)`` for keys ``[..., 2]``
+    (one draw per key; ``maxval`` an int or a tensor broadcasting against
+    the keys' batch shape), bitwise under either
+    ``jax_threefry_partitionable`` setting. Returns int32."""
+    hi, lo = randint_words(key, partitionable)
+    return randint_from_words(hi, lo, maxval).to(torch.int32)
 
 
 # ---- host tables and their placement ------------------------------------

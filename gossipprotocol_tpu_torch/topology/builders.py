@@ -17,7 +17,9 @@ The four reference topologies keep the reference's *shape rules*:
   extra neighbor here is always a proper non-self node drawn over the whole
   index range (the reference's ``Random().Next(0, nodes-1)`` excludes the two
   highest indices and may pick self or duplicate a lattice neighbor — an
-  off-by-one quirk, not a capability).
+  off-by-one quirk, not a capability). ``--semantics reference`` runs build
+  the quirk itself (:func:`build_imp3d_reference_quirks`) and the
+  reference's extra, isolated actor (:func:`add_isolated_rows`).
 
 Two additional random families, per the BASELINE.json north-star configs
 ("10M-node push-sum on Erdős–Rényi / power-law graphs"):
@@ -101,6 +103,83 @@ def build_imp3d(num_nodes: int, seed: int = 0) -> Topology:
     edges = np.concatenate([_grid3d_edges(g), extra], axis=0)
     topo = csr_from_edges(n, edges, kind="imp3D")
     return topo
+
+
+def build_imp3d_reference_quirks(num_nodes: int, seed: int = 0) -> Topology:
+    """imp3D exactly as the reference wires it (``Program.fs:258-260``).
+
+    Three deliberate differences from :func:`build_imp3d`, each a quirk
+    of ``Random().Next(0, nodes-1)`` on the already-cube-rounded count:
+
+      * the extra neighbor is **directed** — only the drawing node gets
+        it in its array; the target does not learn about the drawer;
+      * the draw range is ``[0, n-1)`` — the top lattice index ``n-1``
+        (and the unwired ``n``-th actor) can never be drawn;
+      * no self/duplicate exclusion — the extra may equal the node
+        itself (a self-loop) or repeat a lattice neighbor (doubling that
+        neighbor's draw probability, as the reference's 7-entry array
+        does).
+
+    The returned CSR therefore carries one appended (possibly duplicate
+    or self) entry per row and is marked ``asymmetric`` so the
+    symmetry-dependent fast paths stay off.
+    """
+    base = build_grid3d(num_nodes)
+    n = base.num_nodes
+    src = np.arange(n, dtype=np.int64)
+    extra = uniform_int(seed, src, max(n - 1, 1))  # [0, n-1): off-by-one
+    off = np.asarray(base.offsets, np.int64)
+    idx = np.asarray(base.indices)
+    new_off = off + np.arange(n + 1, dtype=np.int64)
+    new_idx = np.empty(len(idx) + n, dtype=idx.dtype)
+    keep = np.ones(len(new_idx), bool)
+    ends = new_off[1:] - 1                      # appended slot per row
+    keep[ends] = False
+    new_idx[keep] = idx
+    new_idx[ends] = extra.astype(idx.dtype)
+    otype = base.offsets.dtype
+    return Topology(
+        kind="imp3D",
+        num_nodes=n,
+        offsets=new_off.astype(otype),
+        indices=new_idx,
+        asymmetric=True,
+    )
+
+
+def add_isolated_rows(topo: Topology, count: int = 1) -> Topology:
+    """Append ``count`` edge-less rows to an explicit topology.
+
+    Renders the reference's N+1-actor population (``Program.fs:169-176``
+    spawns actors ``0..nodes``) for the 3D/imp3D arms, whose wiring loop
+    covers only the cube — the extra actor exists but never receives a
+    neighbor list. Isolated rows are excluded from the convergence
+    predicate by the engine's birth-exclusion rule, which reproduces the
+    supervisor only ever hearing ``nodes`` Alerts.
+    """
+    if topo.implicit_full:
+        raise ValueError("add_isolated_rows needs an explicit topology")
+    off = np.asarray(topo.offsets)
+    tail = np.full(count, off[-1], dtype=off.dtype)
+    out = Topology(
+        kind=topo.kind,
+        num_nodes=topo.num_nodes + count,
+        offsets=np.concatenate([off, tail]),
+        indices=topo.indices,
+        asymmetric=topo.asymmetric,
+    )
+    # pre-populate the birth mask: kinds connected by construction skip
+    # the component pass (Topology.birth_alive), which would miss the
+    # appended rows and leave the supervisor waiting on them forever
+    base_mask = topo.birth_alive()
+    if base_mask is None:
+        base_mask = np.ones(topo.num_nodes, bool)
+    mask = np.concatenate([base_mask, np.zeros(count, bool)])
+    # birth_alive() freezes cached masks because the cache hands the same
+    # array to every caller; a seeded cache must honor the same contract
+    mask.setflags(write=False)
+    object.__setattr__(out, "_birth_alive_cache", mask)
+    return out
 
 
 def build_erdos_renyi(num_nodes: int, avg_degree: float = 8.0, seed: int = 0) -> Topology:

@@ -368,7 +368,8 @@ def test_cli_stall_exit_1(capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["64", "imp3D", "gossip", "--semantics", "reference"], "--semantics"),
+    (["64", "imp3D", "push-sum", "--semantics", "reference", "--predicate",
+      "global"], "semantics='reference'"),
     (["64", "imp3D", "push-sum", "--delivery", "invert"],
      "--delivery invert"),
     (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "scatter"],

@@ -44,4 +44,8 @@ def test_walk_finds_the_package():
     assert {"classops.py", "pallasdelivery.py", "driver.py",
             "chip_smoke.py", "exec.py", "clos.py", "plan.py", "native.py",
             "delivery.py", "mesh.py", "sharded.py",
-            "sharddelivery.py", "sampling.py", "gossip.py"} <= names
+            "sharddelivery.py", "sampling.py", "gossip.py", "walk.py",
+            "probes.py", "slab_probe.py", "route_probe.py",
+            "tile_perm_probe.py"} <= names
+    assert (ROOT / "gossipprotocol_tpu_torch" / "probes" / "__init__.py"
+            in _FILES)

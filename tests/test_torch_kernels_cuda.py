@@ -428,3 +428,122 @@ def test_gossip_inverted_card_equals_cpu(cuda):
         scatter = torch.zeros(n, dtype=torch.int32, device="cuda")
         scatter.index_add_(0, targets, valid.to(torch.int32))
         assert torch.equal(hits_by_inversion(nbrs, key), scatter)
+
+
+# ---- the measurement probes' kernels (ops/probes.py, csrc/probes.cu) ----
+
+def _randn(cuda, *shape, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("bucket_major", [True, False])
+@pytest.mark.parametrize("tiles,buckets,cr", [(1, 102, 1), (37, 102, 1),
+                                              (512, 102, 1), (9, 16, 8),
+                                              (3, 1, 128)])
+def test_probe_slab_kernel(cuda, tiles, buckets, cr, bucket_major):
+    from gossipprotocol_tpu_torch.ops import probes as pr
+
+    x = _randn(cuda, tiles, 128, 128, seed=tiles)
+    before = pr.LAUNCHES["probe_slab"]
+    got = pr.probe_slab(x, buckets, cr, bucket_major)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES["probe_slab"] == before + 1
+    assert _bits_equal(got, pr.probe_slab_plain(x, buckets, cr,
+                                                bucket_major))
+
+
+@pytest.mark.parametrize("rows,tile_rows", [(4096, None), (32768, None),
+                                            (131072, 1024), (3000, 1024),
+                                            (7, 2)])
+def test_probe_scale2_kernel(cuda, rows, tile_rows):
+    from gossipprotocol_tpu_torch.ops import probes as pr
+
+    x = _randn(cuda, rows, 128, seed=rows)
+    x[0, :4] = torch.tensor([-0.0, float("inf"), 3e38, 1e-40])
+    got = pr.probe_scale2(x, tile_rows)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, pr.probe_scale2_plain(x))
+
+
+@pytest.mark.parametrize("rows", [8, 256, 1024, 4096])
+def test_probe_gather_rows_kernel(cuda, rows):
+    from gossipprotocol_tpu_torch.ops import probes as pr
+
+    x = _randn(cuda, rows, 128, seed=rows)
+    idx = torch.from_numpy(np.random.default_rng(rows + 1).integers(
+        0, rows, (rows, 128)).astype(np.int32)).to(cuda)
+    got = pr.probe_gather_rows(x, idx)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, pr.probe_gather_rows_plain(x, idx))
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (128, 512), (128, 4096),
+                                   (15, 4096, 128), (2, 3, 4)])
+def test_probe_gather_lanes_kernel(cuda, shape):
+    from gossipprotocol_tpu_torch.ops import probes as pr
+
+    x = _randn(cuda, *shape, seed=sum(shape))
+    idx = torch.from_numpy(np.random.default_rng(1).integers(
+        0, shape[-1], shape).astype(np.int32)).to(cuda)
+    got = pr.probe_gather_lanes(x, idx)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, pr.probe_gather_lanes_plain(x, idx))
+
+
+@pytest.mark.parametrize("tiles", [1, 7, 488])
+def test_probe_tile_perm_kernel(cuda, tiles):
+    """Arbitrary int8 planes (any index planes compose), a different set
+    per tile, with index 127 held in every plane."""
+    from gossipprotocol_tpu_torch.ops import probes as pr
+
+    rng = np.random.default_rng(tiles)
+    x = _randn(cuda, tiles, 128, 128, seed=tiles)
+    planes = []
+    for _ in range(3):
+        p = rng.integers(0, 128, (tiles, 128, 128)).astype(np.int8)
+        p[:, 0, :] = 127
+        p[:, :, 0] = 127
+        planes.append(torch.from_numpy(p).to(cuda))
+    got = pr.probe_tile_perm(x, *planes)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, pr.probe_tile_perm_plain(x, *planes))
+
+
+# ---- the reference semantics: card against CPU ---------------------------
+
+@pytest.mark.parametrize("graph", [("full", 300), ("line", 60),
+                                   ("imp3D", 200), ("power_law", 300)])
+def test_reference_walk_card_equals_cpu(cuda, graph):
+    """The single-token walk: hop count and state bitwise (each hop is
+    one scalar add, halve and divide; no atomics)."""
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology(*graph, seed=1)
+    res = [run_simulation(topo, RunConfig(
+        algorithm="push-sum", semantics="reference", seed=2, device=d))
+        for d in ("cuda", "cpu")]
+    assert res[0].converged and res[0].rounds == res[1].rounds
+    for a, b in zip(res[0].final_state, res[1].final_state):
+        assert a.dtype == b.dtype
+        assert (_bits_equal(a, b) if a.dtype == torch.float32
+                else torch.equal(a, b))
+
+
+@pytest.mark.parametrize("argv", [["300", "full"], ["100", "line"],
+                                  ["300", "3D"], ["300", "imp3D"]])
+@pytest.mark.parametrize("algo", ["gossip", "push-sum"])
+def test_reference_cli_card_equals_cpu(cuda, argv, algo, capsys):
+    from gossipprotocol_tpu_torch.cli import main
+
+    out = []
+    for d in ("cuda", "cpu"):
+        assert main(argv + [algo, "--semantics", "reference",
+                            "--device", d]) == 0
+        text = capsys.readouterr().out
+        out.append([ln for ln in text.splitlines()
+                    if not ln.startswith(("Convergence Time", "rounds"))]
+                   + [ln.split("compile")[0] for ln in text.splitlines()
+                      if ln.startswith("rounds")])
+    assert out[0] == out[1]

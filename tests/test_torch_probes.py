@@ -1,0 +1,321 @@
+"""PyTorch port, the measurement probes (ops/probes.py and the probes/
+entry points) against the JAX package's probe scripts on the CPU.
+
+The JAX probes' kernels run in Pallas interpret mode: ``make_kernel`` of
+``experiments/tile_perm_probe.py`` imported by path, and the slab,
+contig, ``g0``, ``g1`` and ``grid_call`` bodies, which the scripts define
+inside ``main()``, copied here verbatim from the probe text. The port's
+plain versions (what its wrappers run for a CPU tensor, and what
+``chip_smoke.py`` holds each CUDA kernel to on the card) must equal them
+bitwise: every kernel only copies, doubles or gathers. The host routing of
+the tile permutation (a verbatim copy in the port) must give the JAX
+probe's planes; one tile takes ~10 s to route per side, so it is routed
+once in a module fixture."""
+
+from __future__ import annotations
+
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from gossipprotocol_tpu_torch.ops import probes as pr
+from gossipprotocol_tpu_torch.probes import (
+    ProbeMismatch, check_plain, route_probe, slab_probe, tile_perm_probe,
+)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_openmp_thread():
+    """This module's OpenMP code (torch's CPU kernels) runs on one
+    thread, restored afterwards: once a process has run a parallel region
+    on several threads, GNU OpenMP waits forever in a child forked from
+    it, and the JAX package's shard builds fork their workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _jax_probe(name):
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", ROOT / "experiments" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _same(port: torch.Tensor, jax_out) -> bool:
+    j = np.asarray(jax_out)
+    return port.shape == j.shape and np.array_equal(_bits(port.numpy()),
+                                                    _bits(j))
+
+
+def _randn(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+# ---- slab_probe.py: slab_kernel (:73), contig_kernel (:94) --------------
+
+@pytest.mark.parametrize("t,b,cr", [(3, 102, 1), (2, 16, 8), (1, 1, 128)])
+def test_slab_plain_equals_jax_interpret(t, b, cr):
+    T, B, CR = t, b, cr
+    x_np = _randn(t, T, 128, 128)
+
+    # verbatim from experiments/slab_probe.py:main
+    def slab_kernel(x_ref, o_ref):
+        tile = x_ref[0] * 2.0
+        # write the tile's rows as B runs of CR rows (first B*CR rows are
+        # real content here; the layout cost is what we measure)
+        o_ref[:, 0] = tile[: B * CR].reshape(B, 1, CR, 128)[:, 0]
+
+    slab = pl.pallas_call(
+        slab_kernel,
+        grid=(T,),
+        out_shape=jax.ShapeDtypeStruct((B, T, CR, 128), jnp.float32),
+        in_specs=[pl.BlockSpec((1, 128, 128), lambda i: (i, 0, 0))],
+        out_specs=pl.BlockSpec((B, 1, CR, 128), lambda i: (0, i, 0, 0)),
+        interpret=True,
+    )
+
+    def contig_kernel(x_ref, o_ref):
+        o_ref[0] = (x_ref[0] * 2.0)[: B * CR].reshape(B, CR, 128)
+
+    contig = pl.pallas_call(
+        contig_kernel,
+        grid=(T,),
+        out_shape=jax.ShapeDtypeStruct((T, B, CR, 128), jnp.float32),
+        in_specs=[pl.BlockSpec((1, 128, 128), lambda i: (i, 0, 0))],
+        out_specs=pl.BlockSpec((1, B, CR, 128), lambda i: (i, 0, 0, 0)),
+        interpret=True,
+    )
+    x = torch.from_numpy(x_np)
+    assert _same(pr.probe_slab(x, b, cr, True), slab(jnp.asarray(x_np)))
+    assert _same(pr.probe_slab(x, b, cr, False), contig(jnp.asarray(x_np)))
+
+
+# ---- route_probe.py: copy_kernel (:158, :240), g0 (:180), g1 (:202),
+# ---- grid_call (:216) ----------------------------------------------------
+
+def copy_kernel(x_ref, o_ref):
+    o_ref[:] = x_ref[:] * 2.0
+
+
+@pytest.mark.parametrize("rows", [8, 64])
+def test_resident_copy_plain_equals_jax_interpret(rows):
+    x_np = _randn(rows, rows, 128)
+    x_np[0, :3] = [-0.0, np.inf, 3e38]
+    xb = jnp.asarray(x_np)
+    y = pl.pallas_call(
+        copy_kernel,
+        out_shape=jax.ShapeDtypeStruct(xb.shape, xb.dtype),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )(xb)
+    assert _same(pr.probe_scale2(torch.from_numpy(x_np)), y)
+
+
+def test_stream_copy_plain_equals_jax_interpret():
+    big_rows = 4 * 1024
+    x_np = _randn(5, big_rows, 128)
+    stream_call = pl.pallas_call(
+        copy_kernel,
+        grid=(big_rows // 1024,),
+        out_shape=jax.ShapeDtypeStruct((big_rows, 128), jnp.float32),
+        in_specs=[pl.BlockSpec((1024, 128), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((1024, 128), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM),
+        interpret=True,
+    )
+    assert _same(pr.probe_scale2(torch.from_numpy(x_np), 1024),
+                 stream_call(jnp.asarray(x_np)))
+
+
+@pytest.mark.parametrize("rows", [8, 256])
+def test_dim0_gather_plain_equals_jax_interpret(rows):
+    rng = np.random.default_rng(rows)
+    x_np = _randn(rows + 1, rows, 128)
+    i_np = rng.integers(0, rows, size=(rows, 128)).astype(np.int32)
+    xg, ig = jnp.asarray(x_np), jnp.asarray(i_np)
+
+    def g0(x_ref, i_ref, o_ref):
+        o_ref[:] = jnp.take_along_axis(x_ref[:], i_ref[:], axis=0)
+
+    y = pl.pallas_call(
+        g0,
+        out_shape=jax.ShapeDtypeStruct((rows, 128), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
+                  pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )(xg, ig)
+    assert _same(pr.probe_gather_rows(torch.from_numpy(x_np),
+                                      torch.from_numpy(i_np)), y)
+
+
+@pytest.mark.parametrize("cols", [128, 512])
+def test_dim1_gather_plain_equals_jax_interpret(cols):
+    rng = np.random.default_rng(cols)
+    x_np = _randn(cols + 1, 128, cols)
+    i_np = rng.integers(0, cols, size=(128, cols)).astype(np.int32)
+    xg, ig = jnp.asarray(x_np), jnp.asarray(i_np)
+
+    def g1(x_ref, i_ref, o_ref):
+        o_ref[:] = jnp.take_along_axis(x_ref[:], i_ref[:], axis=1)
+
+    y = pl.pallas_call(
+        g1,
+        out_shape=jax.ShapeDtypeStruct((128, cols), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
+                  pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )(xg, ig)
+    assert _same(pr.probe_gather_lanes(torch.from_numpy(x_np),
+                                       torch.from_numpy(i_np)), y)
+
+
+def test_tiled_lane_gather_plain_equals_jax_interpret():
+    T, rows = 2, 256
+    rng = np.random.default_rng(7)
+    x_np = _randn(8, T, rows, 128)
+    i_np = rng.integers(0, 128, size=(T, rows, 128)).astype(np.int32)
+    grid_call = pl.pallas_call(
+        lambda x_ref, i_ref, o_ref: o_ref.__setitem__(
+            0, jnp.take_along_axis(x_ref[0], i_ref[0], axis=1)),
+        grid=(T,),
+        out_shape=jax.ShapeDtypeStruct((T, rows, 128), jnp.float32),
+        in_specs=[
+            pl.BlockSpec((1, rows, 128), lambda i: (i, 0, 0),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, rows, 128), lambda i: (i, 0, 0),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((1, rows, 128), lambda i: (i, 0, 0),
+                               memory_space=pltpu.VMEM),
+        interpret=True,
+    )
+    assert _same(pr.probe_gather_lanes(torch.from_numpy(x_np),
+                                       torch.from_numpy(i_np)),
+                 grid_call(jnp.asarray(x_np), jnp.asarray(i_np)))
+
+
+# ---- tile_perm_probe.py: route_tile_perm, make_kernel (:141) -----------
+
+@pytest.fixture(scope="module")
+def routed():
+    """One seeded permutation routed by both copies of the host routing
+    (``main``'s permutation: the first draw of ``default_rng(0)``)."""
+    jprobe = _jax_probe("tile_perm_probe")
+    perm = np.random.default_rng(0).permutation(128 * 128)
+    port_planes, _ = tile_perm_probe.route_tile_perm_cached(perm)
+    return perm, port_planes, jprobe.route_tile_perm(perm), jprobe
+
+
+def test_route_tile_perm_planes_equal_jax(routed):
+    perm, port_planes, jax_planes, _ = routed
+    for a, b in zip(port_planes, jax_planes):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    x = _randn(1, 128, 128)
+    y = tile_perm_probe.apply_route_np(x, *port_planes)
+    assert np.array_equal(y, x.reshape(-1)[perm].reshape(128, 128))
+
+
+def test_tile_perm_plain_equals_jax_interpret(routed):
+    perm, planes, _, jprobe = routed
+    T = 2
+    x_np = _randn(3, T, 128, 128)
+    mk = lambda a: np.ascontiguousarray(np.broadcast_to(  # noqa: E731
+        a.astype(np.int8), (T, 128, 128)))
+    i8 = [mk(a) for a in planes]
+    y = jprobe.make_kernel(T, True)(jnp.asarray(x_np),
+                                    *[jnp.asarray(a) for a in i8])
+    got = pr.probe_tile_perm(torch.from_numpy(x_np),
+                             *[torch.from_numpy(a) for a in i8])
+    assert _same(got, y)
+    assert torch.equal(got, torch.from_numpy(
+        x_np.reshape(T, -1)[:, perm].reshape(T, 128, 128)))
+
+
+def test_tile_perm_plain_reads_index_127_as_a_lane():
+    """int8 planes hold 0..127: the top lane must read as 127, not -1."""
+    x = torch.from_numpy(_randn(4, 1, 128, 128))
+    full = torch.full((1, 128, 128), 127, dtype=torch.int8)
+    got = pr.probe_tile_perm(x, full, full, full)
+    # Y[r, c] = X[idx2[k, r], idx1[., k]] with every index 127
+    assert torch.equal(got, torch.full_like(x, float(x[0, 127, 127])))
+
+
+# ---- the wrappers on the CPU, and the entry points --------------------------
+
+def test_cpu_wrappers_launch_nothing():
+    before = dict(pr.LAUNCHES)
+    x = torch.from_numpy(_randn(9, 2, 128, 128))
+    pr.probe_slab(x, 102, 1, True)
+    pr.probe_scale2(x[0])
+    pr.probe_gather_rows(x[0], torch.zeros(128, 128, dtype=torch.int32))
+    pr.probe_gather_lanes(x, torch.zeros(2, 128, 128, dtype=torch.int32))
+    i8 = torch.zeros(2, 128, 128, dtype=torch.int8)
+    pr.probe_tile_perm(x, i8, i8, i8)
+    assert pr.LAUNCHES == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda: pr.probe_slab(torch.zeros(2, 128, 64), 1, 1, True),
+    lambda: pr.probe_slab(torch.zeros(2, 128, 128), 65, 2, True),
+    lambda: pr.probe_scale2(torch.zeros(4, 64)),
+    lambda: pr.probe_gather_rows(torch.zeros(4, 128),
+                                 torch.zeros(4, 64, dtype=torch.int32)),
+    lambda: pr.probe_gather_lanes(torch.zeros(4, 6),
+                                  torch.zeros(4, 6, dtype=torch.int32)),
+    lambda: pr.probe_tile_perm(torch.zeros(1, 128, 128),
+                               *[torch.zeros(1, 128, 64,
+                                             dtype=torch.int8)] * 3),
+])
+def test_wrappers_refuse_bad_shapes(call):
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_check_plain_raises_on_a_flipped_bit():
+    a = torch.ones(4)
+    b = a.clone()
+    b[2] = -1.0
+    with pytest.raises(ProbeMismatch):
+        check_plain("x", a, b)
+
+
+@pytest.mark.parametrize("module,argv", [
+    (slab_probe, ["--tiles", "3", "--sum-elems", "4096"]),
+    (route_probe, ["--e", "100000", "--n", "1000", "--stream-rows", "1024"]),
+    (tile_perm_probe, ["--tiles", "2"]),
+], ids=["slab_probe", "route_probe", "tile_perm_probe"])
+def test_probe_main_on_cpu_exit_0(module, argv, routed, capsys):
+    assert module.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: cpu")
+    assert "GB/s" in out and "plain version on the cpu" in out
+
+
+def test_probe_main_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        slab_probe.main(["--tiles", "1"])

@@ -243,7 +243,8 @@ def test_golden_graph_rounds_equal_jax(key):
 
 @pytest.mark.parametrize("kw", [dict(delivery="invert"),
                                 dict(fanout="all", delivery="scatter"),
-                                dict(semantics="reference")])
+                                dict(fanout="all", delivery="routed",
+                                     routed_design="pull")])
 def test_unported_variants_raise(kw):
     with pytest.raises(tdriver.NotPortedError):
         tx.RunConfig(device="cpu", algorithm="push-sum", **kw)

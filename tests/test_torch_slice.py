@@ -276,7 +276,8 @@ def test_entry_point_defaults_to_cuda(entry):
             call()
 
 
-@pytest.mark.parametrize("kw", [dict(semantics="reference"),
+@pytest.mark.parametrize("kw", [dict(delivery="routed",
+                                     routed_design="pull"),
                                 dict(fanout="one", delivery="invert"),
                                 dict(delivery="scatter")])
 def test_unported_config_raises(kw):
@@ -310,8 +311,8 @@ def test_cli_not_converged_exit_1(capsys):
 @pytest.mark.parametrize("argv,needle", [
     (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery",
       "megakernel", "--device", "cpu", "--devices", "2"], "--devices"),
-    (["64", "imp3D", "gossip", "--semantics", "reference", "--device",
-      "cpu"], "gossip"),
+    (["64", "imp3D", "gossip", "--semantics", "reference", "--devices",
+      "2", "--device", "cpu"], "gossip"),
     (["64", "imp3D", "push-sum", "--fanout", "one", "--delivery", "invert",
       "--device", "cpu"], "--fanout one"),
     (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "scatter",
@@ -321,6 +322,8 @@ def test_cli_not_converged_exit_1(capsys):
     (["64", "torus", *_CLI], "unknown topology"),
     (["64", "full", *_CLI], "complete graph"),
     (["64", "imp3D", "wiretap", "--device", "cpu"], "option invalid"),
+    (["64", "line", "gossip", "--repair", "prune", "--device", "cpu"],
+     "option not yet ported: --repair"),
 ])
 def test_cli_exit_2(argv, needle, capsys):
     assert torch_main(argv) == 2
