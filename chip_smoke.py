@@ -9,8 +9,14 @@ Phases (each prints its lines; any failure exits non-zero):
       from ``gossipprotocol_tpu_torch/csrc`` (ptxas report per kernel);
   (b) each CUDA kernel against its plain PyTorch version on the card, at
       the shapes the main path gives it on the three smoke graphs —
-      bitwise equal — with its time (CUDA events), the bytes/operations
-      bound, the plain version's time and one PyTorch library call's;
+      bitwise equal, ``class_reduce_split`` on a second call too (its
+      arrival counters reset) — with its time back to back (CUDA
+      events) and as CUDA-graph replays (``graph_ms``: device time
+      without the host's enqueue), the bytes/operations bound, the plain
+      version's time and one PyTorch library call's, back to back and by
+      graph; every bucket gather also with the other evict-first hint
+      choice and as the one-level resident gather over the same source
+      (each bitwise equal, each timed);
   (c) the main path end to end through the CLI entry point, in process:
       1M-node imp3D and power_law (bucket gathers, both folds) and a
       262,144-node imp3D (resident gathers), each to convergence, with
@@ -88,12 +94,12 @@ Phases (each prints its lines; any failure exits non-zero):
       version (the tile permutation also exactly against
       ``x.view(T, -1)[:, perm]``), with its time (back to back, and as
       replays of a CUDA graph of the calls: device time without host
-      enqueue), bytes bound, plain time and one PyTorch call's; the
-      measured stream ceiling is the best graph-replay rate over 64 MiB
-      of the streamed copy, ``torch.mul`` and ``copy_``, and every
-      kernel record gets ``bound_stream_ms`` (its bytes over that rate)
-      beside the nominal ``bound_ms``; then the three probe entry points
-      in process at their default argv, each exiting 0;
+      enqueue), bytes bound, plain time and one PyTorch call's (also
+      both ways); the measured stream ceiling is the best graph-replay
+      rate over 64 MiB of the streamed copy, ``torch.mul`` and ``copy_``,
+      and every kernel record gets ``bound_stream_ms`` (its bytes over
+      that rate) beside the nominal ``bound_ms``; then the three probe
+      entry points in process at their default argv, each exiting 0;
   (l) the reference semantics (``--semantics reference``) through the
       CLI: gossip and the push-sum walk at line, full, 3D and imp3D of
       100, 500 and 1,000 nodes (line push-sum not at 1,000:
@@ -364,6 +370,7 @@ def expected_kernels(pd):
 
 def check_gather(torch, records, gname, which, plan, x2d):
     from gossipprotocol_tpu_torch.ops import pallasdelivery as pdm
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
 
     lanes = pdm.LANES
     out_k = plan.gather_padded(x2d)
@@ -395,24 +402,81 @@ def check_gather(torch, records, gname, which, plan, x2d):
     require(bitwise_equal(torch, out_k, out_p),
             f"{kname} ({gname} {which}) differs from its plain version: "
             f"max abs err {err}")
+    lib = lambda: flat[gidx]  # noqa: E731
     ms = cuda_ms(torch, kern, 20)
+    # device time: R calls captured once into a CUDA graph, the best of
+    # three replays (no host enqueue, which back to back hides a kernel
+    # of ~0.01 ms)
+    g_ms = seconds_per_call(kern, x2d.device) * 1e3
     plain_ms = cuda_ms(torch, plain, 5)
-    lib_ms = cuda_ms(torch, lambda: flat[gidx], 20)
+    lib_ms = cuda_ms(torch, lib, 20)
+    lib_g_ms = seconds_per_call(lib, x2d.device) * 1e3
     b_ms, b_by = bound(nbytes, 0)
     rec = dict(name=kname, graph=gname, call=which,
                shape=list(plan.lidx.shape if plan.mode == "bucket"
                           else plan.idx.shape),
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=lib_ms, bytes=nbytes)
+               max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               library_graph_ms=lib_g_ms, bytes=nbytes)
+    say(f"(b) {kname:18s} {gname} {which}: bitwise ok, {ms:.4f} ms back "
+        f"to back, {g_ms:.4f} ms graph (plain {plain_ms:.4f}, library "
+        f"x[idx] {lib_ms:.4f}, graph {lib_g_ms:.4f}; bound {b_ms:.4f} by "
+        f"{b_by}, {nbytes / 1e6:.1f} MB)")
+    if plan.mode == "bucket":
+        rec.update(bucket_alternatives(torch, gname, which, plan, x2d, gidx,
+                                       out_k))
+        say(f"(b) gather_bucket {gname} {which} (hints "
+            f"{'on' if rec['hints'] else 'off'}): graph_ms {g_ms:.4f} "
+            f"{'<=' if g_ms <= lib_g_ms else '>'} x[idx] {lib_g_ms:.4f}")
     records.append(rec)
-    say(f"(b) {kname:18s} {gname} {which}: bitwise ok, {ms:.4f} ms "
-        f"(plain {plain_ms:.4f}, library x[idx] {lib_ms:.4f}, bound "
-        f"{b_ms:.4f} by {b_by}, {nbytes / 1e6:.1f} MB)")
     return out_k
+
+
+def bucket_alternatives(torch, gname, which, plan, x2d, gidx, out_k):
+    """Other shapes of the same gather, timed beside the wrapper's launch
+    (evict-first hints as :func:`_stream_hints` picks them): the bucket
+    kernel launched directly with the other hint choice, and the one-level
+    resident gather over the same source with the resident plan's table
+    (the composed index ``rows[t, lidx >> 7] * 128 + (lidx & 127)``,
+    which is the table ``build_gather_plan`` makes when ``resident_rows``
+    covers the source). Each bitwise equal to the bucket kernel's
+    output."""
+    from gossipprotocol_tpu_torch.ops import build
+    from gossipprotocol_tpu_torch.ops import pallasdelivery as pdm
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
+
+    hints = pdm._stream_hints(plan.lidx, plan.rows)
+    idx = gidx.to(torch.int32).view(-1, pdm.TILE_ROWS, pdm.LANES)
+    other = torch.empty_like(out_k)
+
+    def other_hints():
+        rc = build.library("gather").gossip_gather_bucket(
+            x2d.data_ptr(), plan.rows.data_ptr(), plan.lidx.data_ptr(),
+            other.data_ptr(), plan.rows.shape[0], plan.rows.shape[1],
+            int(not hints), build.stream_handle(x2d.device))
+        build.check(build.library("gather"), rc, "gather_bucket")
+        return other
+
+    shapes = {
+        f"hints {'off' if hints else 'on'}": other_hints,
+        "one-level gather_resident with the resident plan's table":
+            lambda: pdm.gather_resident(x2d, idx),
+    }
+    alt = dict(hints=hints)
+    for key, (what, fn) in zip(("other_hints", "resident"), shapes.items()):
+        require(bitwise_equal(torch, fn().reshape(-1), out_k),
+                f"gather_bucket {gname} {which}: the {what} differs")
+        alt[f"{key}_ms"] = cuda_ms(torch, fn, 20)
+        alt[f"{key}_graph_ms"] = seconds_per_call(fn, x2d.device) * 1e3
+        say(f"(b) gather_bucket {gname} {which}: {what} "
+            f"{alt[f'{key}_ms']:.4f} ms back to back, "
+            f"{alt[f'{key}_graph_ms']:.4f} graph (bitwise equal)")
+    return alt
 
 
 def check_folds(torch, records, gname, pd, f):
     from gossipprotocol_tpu_torch.ops import classops as co
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
 
     lanes = co.LANES
     ys = []
@@ -435,18 +499,31 @@ def check_folds(torch, records, gname, pd, f):
         require(bitwise_equal(torch, out_k, out_p),
                 f"{kname} c={c} ({gname}) differs from its plain version: "
                 f"max abs err {err}")
+        if kname == "class_reduce_split":
+            # a second call on the same region: the arrival counters the
+            # first launch left must give the same bits
+            require(bitwise_equal(torch, kern(), out_k),
+                    f"{kname} c={c} ({gname}): a second call differs")
         ms = cuda_ms(torch, kern, 50)
+        g_ms = seconds_per_call(kern, f.device) * 1e3
         plain_ms = cuda_ms(torch, plain, 3 if 2 * c > lanes else 20)
         lib_ms = cuda_ms(torch, lib, 50)
+        lib_g_ms = seconds_per_call(lib, f.device) * 1e3
         nbytes = region.numel() * 4 + out_k.numel() * 4
         b_ms, b_by = bound(nbytes, region.numel() - out_k.numel())
         records.append(dict(name=kname, graph=gname, call=f"c={c}",
                             shape=[region.numel()], max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=lib_ms, bytes=nbytes))
+                            graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms,
+                            library_graph_ms=lib_g_ms, bytes=nbytes))
         say(f"(b) {kname:18s} {gname} c={c} n_c={n_c} rows={reg_rows}: "
-            f"bitwise ok, {ms:.4f} ms (plain {plain_ms:.4f}, library sum "
-            f"{lib_ms:.4f}, bound {b_ms:.4f} by {b_by})")
+            f"bitwise ok, {ms:.4f} ms back to back, {g_ms:.4f} ms graph "
+            f"(plain {plain_ms:.4f}, library sum {lib_ms:.4f}, graph "
+            f"{lib_g_ms:.4f}; bound {b_ms:.4f} by {b_by})")
+        if kname == "class_reduce_split":
+            say(f"(b) class_reduce_split {gname} c={c}: graph_ms "
+                f"{g_ms:.4f} {'<=' if g_ms <= lib_g_ms else '>'} library "
+                f"{lib_g_ms:.4f}")
         ys.append(out_k[: 2 * n_c])
     return torch.cat(ys)
 
@@ -1625,6 +1702,9 @@ def phase_probes(torch):
         g_ms = seconds_per_call(kern, torch.device("cuda")) * 1e3
         plain_ms = cuda_ms(torch, plain, 5)
         lib_ms = cuda_ms(torch, lib, 20)
+        # the library call's device time alike, so that kernel and call
+        # compare without the host's enqueue on either side
+        lib_g_ms = seconds_per_call(lib, torch.device("cuda")) * 1e3
         b_ms, b_by = bound(nbytes, 0)
         if row == 19:
             # the ceiling is the best graph-replay rate of the kernel and
@@ -1633,7 +1713,7 @@ def phase_probes(torch):
             dst = torch.empty_like(got)
             rates = {
                 "probe_scale2": g_ms * 1e-3,
-                lib_what: seconds_per_call(lib, got.device),
+                lib_what: lib_g_ms * 1e-3,
                 "y.copy_(x)": seconds_per_call(lambda: dst.copy_(got),
                                                got.device)}
             for what, secs in rates.items():
@@ -1644,13 +1724,14 @@ def phase_probes(torch):
         records.append(dict(
             name=name, graph=f"row {row}", call=call, shape=list(got.shape),
             max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bytes=nbytes,
-            row=row))
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library_graph_ms=lib_g_ms, bytes=nbytes, row=row))
         say(f"(k) row {row} {name:18s} {call}: bitwise ok, {ms:.4f} ms "
             f"back to back, {g_ms:.4f} ms graph replay "
             f"({nbytes / g_ms / 1e6:.1f} GB/s), plain {plain_ms:.4f}, "
-            f"library {lib_what} {lib_ms:.4f} (same values: {lib_same}), "
-            f"bound {b_ms:.4f} by {b_by}, {nbytes / 1e6:.2f} MB)")
+            f"library {lib_what} {lib_ms:.4f} back to back, {lib_g_ms:.4f} "
+            f"graph (same values: {lib_same}), bound {b_ms:.4f} by {b_by}, "
+            f"{nbytes / 1e6:.2f} MB)")
     del cases, firsts
     torch.cuda.empty_cache()
     require(stream, "row 19 (the stream copy) was not measured")
@@ -1787,8 +1868,10 @@ def summarize(records, totals, stream_rate):
         extra = {"launches_from": NO_CLI_PATH} if kname in HUB_KERNELS \
             else {}
         if kname in PROBE_KERNELS:
-            extra = {"launches_from": NO_CLI_PATH_PROBES,
-                     "graph_ms": big["graph_ms"], "row": big["row"]}
+            extra = {"launches_from": NO_CLI_PATH_PROBES, "row": big["row"]}
+        for key in ("graph_ms", "library_graph_ms"):
+            if key in big:
+                extra[key] = big[key]
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=totals[kname], **extra,

@@ -42,63 +42,119 @@ __global__ void reduce_small_kernel(const float* __restrict__ x,
 }
 
 // class_reduce_split — replaces gossipprotocol_tpu/ops/classops.py:183
-// (class_reduce_split's pallas_call).
+// (class_reduce_split's pallas_call; the function at :140).
 //
 // Input: f32 [q * cap * 128], row j*cap + r holding node slot r's j-th
 // 64-pair chunk; output: f32 [2 * cap]. Per row, the full 128-lane roll
 // fold gives an (s, w) partial; the q partials of a node then add as a
 // left fold in ascending j: acc = p_0, acc = acc + p_1, ...
 //
-// The TPU kernel carried that sum across sequential grid steps in j. On
-// the GPU blocks run in no order, so one block owns one node slot and the
-// ascending-j fold runs inside it: its 8 warps compute the partials of up
-// to SPLIT_CHUNK rows (lane t sums a[4t] + a[4t+2] and a[4t+1] + a[4t+3],
-// then __shfl_down_sync with offsets 1, 2, ..., 16 — at every level
-// (left block) + (right block) in index order, which is the roll tree),
-// stage them in shared memory, and thread 0 folds them in j order.
+// The TPU kernel carried that sum across sequential grid steps in j. The
+// widest hub classes have few node slots (cap 8 with q = 2,048 on a
+// 1M-node power-law graph), so one block per slot would leave most of the
+// 132 SMs idle. One launch, two phases:
+//   1. the q*cap rows, taken slot-major (k = r*q + j), are spread over
+//      blocks of SPLIT_ROWS rows: each warp loads its SPLIT_ROWS_PER_WARP
+//      rows first (that many 16-byte loads per lane in flight, read
+//      evict-first: each row is read once), then folds each with
+//      fold_row_warp (the roll tree) and
+//      writes the partial to part[k] — the scratch [cap, q], so a slot's
+//      partials lie contiguous;
+//   2. after a barrier, every block adds, per slot it touched, its row
+//      count to the slot's arrival counter with an acq_rel atomic: it
+//      releases the block's partials (the barrier orders them before
+//      it) and acquires the other blocks'. (Two __threadfence()s around
+//      a relaxed atomicAdd order the same, and timed slower.) The block
+//      that brings a slot's count to q is the last to finish its rows:
+//      it resets the counter to 0 (so the next launch on the stream
+//      needs no memset) and left-folds the slot's q partials with
+//      warp_left_fold (csrc/fold.cuh), one warp per slot.
+// A slot with q >= SPLIT_ROWS is spread over q/SPLIT_ROWS blocks and
+// folded in whichever SM finishes it last; small q packs whole slots into
+// one block, which folds them itself.
 //
-// Bound on this card: bytes. The widest hub classes have few node slots
-// (cap 8 with q = 2048 on a 1M-node power-law graph), so few blocks are
-// busy and the serial fold of thread 0 is on the critical path; recorded
-// in PERF.md, not tuned here.
+// Bound on this card: bytes (each value read once, one add per value).
+// What remains beyond it: the ascending-j fold is q dependent adds per
+// stream, which the bitwise contract forbids reassociating; at q = 2,048
+// that chain, not the bytes, sets the kernel's time (PERF.md).
 constexpr int SPLIT_THREADS = 256;
 constexpr int SPLIT_WARPS = SPLIT_THREADS / 32;
-constexpr int SPLIT_CHUNK = 256;
+constexpr int SPLIT_ROWS = 64;  // rows per block
+constexpr int SPLIT_ROWS_PER_WARP = SPLIT_ROWS / SPLIT_WARPS;
+// chunks of 16 pairs the slot's fold loads ahead (csrc/fold.cuh)
+constexpr int SPLIT_FOLD_DEPTH = 16;
+
+__device__ __forceinline__ unsigned int atomic_add_acq_rel(unsigned int* p,
+                                                          unsigned int v) {
+  unsigned int old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
 
 __global__ void __launch_bounds__(SPLIT_THREADS)
 reduce_split_kernel(const float* __restrict__ x, float* __restrict__ out,
-                    long long cap, int q) {
-  __shared__ float2 part[SPLIT_CHUNK];
-  const long long r = blockIdx.x;
+                    float2* __restrict__ part,
+                    unsigned int* __restrict__ arrived, long long cap,
+                    int q) {
+  __shared__ int s_done[SPLIT_ROWS];  // slots (offsets from r0) to fold here
+  __shared__ int s_ndone;
+  __shared__ __align__(16)
+      float s_stage[SPLIT_WARPS][LEFT_FOLD_STAGE(SPLIT_FOLD_DEPTH)];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float2 acc = make_float2(0.f, 0.f);  // meaningful in thread 0 only
-  for (int j0 = 0; j0 < q; j0 += SPLIT_CHUNK) {
-    const int jn = min(SPLIT_CHUNK, q - j0);
-#pragma unroll 4
-    for (int jj = warp; jj < jn; jj += SPLIT_WARPS) {
-      const float4* row = reinterpret_cast<const float4*>(
-          x + (static_cast<long long>(j0 + jj) * cap + r) * GOSSIP_LANES);
-      const float2 p = fold_row_warp(__ldg(row + lane));
-      if (lane == 0) part[jj] = p;
+  const long long k0 = blockIdx.x * static_cast<long long>(SPLIT_ROWS);
+  const long long k1 = min(k0 + SPLIT_ROWS, cap * q);
+  if (threadIdx.x == 0) s_ndone = 0;
+
+  // 1. the row folds
+  const long long kw = k0 + warp * SPLIT_ROWS_PER_WARP;
+  float4 a[SPLIT_ROWS_PER_WARP];
+#pragma unroll
+  for (int i = 0; i < SPLIT_ROWS_PER_WARP; ++i) {
+    const long long k = kw + i;
+    if (k < k1) {
+      const long long r = k / q;
+      const long long j = k - r * q;
+      a[i] = __ldcs(reinterpret_cast<const float4*>(
+                        x + (j * cap + r) * GOSSIP_LANES) + lane);
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int jj = 0; jj < jn; ++jj) {
-        const float2 p = part[jj];
-        if (j0 + jj == 0) {
-          acc = p;
-        } else {
-          acc.x = acc.x + p.x;
-          acc.y = acc.y + p.y;
-        }
-      }
-    }
-    __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    out[2 * r] = acc.x;
-    out[2 * r + 1] = acc.y;
+#pragma unroll
+  for (int i = 0; i < SPLIT_ROWS_PER_WARP; ++i) {
+    if (kw + i < k1) {  // warp-uniform: the whole warp shuffles
+      const float2 p = fold_row_warp(a[i]);
+      if (lane == 0) part[kw + i] = p;
+    }
+  }
+  __syncthreads();
+
+  // 2. arrivals; the last block of a slot folds it
+  const long long r0 = k0 / q;
+  const int nslots = static_cast<int>((k1 - 1) / q - r0 + 1);
+  if (threadIdx.x < nslots) {
+    const long long r = r0 + threadIdx.x;
+    const unsigned int rows = static_cast<unsigned int>(
+        min(k1, (r + 1) * q) - max(k0, r * q));
+    if (atomic_add_acq_rel(arrived + r, rows) + rows
+        == static_cast<unsigned int>(q)) {
+      arrived[r] = 0;
+      s_done[atomicAdd(&s_ndone, 1)] = static_cast<int>(threadIdx.x);
+    }
+  }
+  __syncthreads();
+  const int ndone = s_ndone;
+  if (ndone == 0) return;
+  // the other blocks' partials: acquired by the arrival and this
+  // barrier, read from L2 (the point of coherence) by the fold's __ldcg
+  for (int i = warp; i < ndone; i += SPLIT_WARPS) {
+    const long long r = r0 + s_done[i];
+    const float2 acc = warp_left_fold<SPLIT_FOLD_DEPTH>(part + r * q, q, lane,
+                                                       s_stage[warp]);
+    if (lane == 0) {
+      out[2 * r] = acc.x;
+      out[2 * r + 1] = acc.y;
+    }
   }
 }
 
@@ -301,12 +357,19 @@ GOSSIP_EXPORT int gossip_class_reduce_small(const float* x, float* out,
   }
 }
 
+// part: f32 scratch [2 * cap * q]; arrived: int32 [cap], all 0 on entry
+// and left all 0 by the launch
 GOSSIP_EXPORT int gossip_class_reduce_split(const float* x, float* out,
+                                            float* part, int* arrived,
                                             long long cap, int q,
                                             void* stream) {
   if (cap == 0) return 0;
-  reduce_split_kernel<<<static_cast<unsigned int>(cap), SPLIT_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(x, out, cap, q);
+  if (q < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = gossip_blocks(cap * q, SPLIT_ROWS);
+  reduce_split_kernel<<<static_cast<unsigned int>(blocks), SPLIT_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      x, out, reinterpret_cast<float2*>(part),
+      reinterpret_cast<unsigned int*>(arrived), cap, q);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,11 +23,12 @@
 // thread reads its run's lanes through idx_pre and folds them with the
 // exact roll tree (csrc/fold.cuh); split classes write per-row partials,
 // then (after a barrier) one warp per node slot left-folds its q partials
-// in ascending j; each class's packed output lands at its prefix offset
-// in `yp`; barrier; (3) gather-out and the update. The predicate "global"
-// adds per-block partial sums of s and w, a barrier, and the mean. (4) Each
-// block counts its converged rows; the next round's done test sums the
-// counts after its first barrier.
+// in ascending j (warp_left_fold, csrc/fold.cuh, shared with the split
+// fold of csrc/classops.cu); each class's packed output lands at its
+// prefix offset in `yp`; barrier; (3) gather-out and the update. The
+// predicate "global" adds per-block partial sums of s and w, a barrier,
+// and the mean. (4) Each block counts its converged rows; the next round's
+// done test sums the counts after its first barrier.
 //
 // Bitwise rules: s' = fadd(fma(-share, deg, s), in) — the single rounding
 // of s - share*deg that XLA on the CPU computes (the port's plain version
@@ -54,6 +55,13 @@ namespace {
 
 constexpr int MK_THREADS = 256;
 constexpr int MK_WARPS = MK_THREADS / 32;
+// Four co-resident blocks per SM (at most 64 registers a thread) fix the
+// cooperative grid at 4 x the SM count, and with it the block order in
+// which the global mean's partial sums are folded.
+constexpr int MK_MIN_BLOCKS = 4;
+// chunks of 16 pairs the split classes' left fold loads ahead
+// (csrc/fold.cuh), within the register bound above
+constexpr int MK_FOLD_DEPTH = 4;
 constexpr unsigned FULL = 0xffffffffu;
 
 // columns of the class table (int32 [ncls, 8], built by ops/megakernel.py)
@@ -156,30 +164,6 @@ __device__ __forceinline__ float2 block_sum2(float2 v, float2* s_warp) {
   return t;  // meaningful in thread 0
 }
 
-// Left fold a[0] + a[1] + ... + a[m-1] in index order by one warp: the
-// lanes load 32 values at a time, every lane folds them in order through
-// shuffles. Returns the sum in every lane.
-__device__ __forceinline__ float2 warp_left_fold(const float2* a, long long m,
-                                                 int lane) {
-  float2 acc = make_float2(0.f, 0.f);
-  for (long long j0 = 0; j0 < m; j0 += 32) {
-    float2 v = make_float2(0.f, 0.f);
-    if (j0 + lane < m) v = __ldcg(a + j0 + lane);
-    const int len = static_cast<int>(min(32LL, m - j0));
-    for (int jj = 0; jj < len; ++jj) {
-      const float xs = __shfl_sync(FULL, v.x, jj);
-      const float xw = __shfl_sync(FULL, v.y, jj);
-      if (j0 + jj == 0) {
-        acc = make_float2(xs, xw);
-      } else {
-        acc.x = acc.x + xs;
-        acc.y = acc.y + xw;
-      }
-    }
-  }
-  return acc;
-}
-
 // Small class: one thread per packed output, its c values gathered
 // through idx_pre and folded with the roll tree.
 template <int C>
@@ -212,10 +196,13 @@ __device__ void fold_small_dispatch(const MkParams& p, const int* cls,
   }
 }
 
-__global__ void __launch_bounds__(MK_THREADS) megakernel(const MkParams p) {
+__global__ void __launch_bounds__(MK_THREADS, MK_MIN_BLOCKS)
+megakernel(const MkParams p) {
   __shared__ int s_count[MK_WARPS];
   __shared__ float2 s_sum[MK_WARPS];
   __shared__ long long s_total;
+  __shared__ __align__(16)
+      float s_stage[MK_WARPS][LEFT_FOLD_STAGE(MK_FOLD_DEPTH)];
   __shared__ float s_mean;
   const unsigned nb = gridDim.x;
   const long long gtid = blockIdx.x * static_cast<long long>(MK_THREADS)
@@ -302,7 +289,8 @@ __global__ void __launch_bounds__(MK_THREADS) megakernel(const MkParams p) {
         const float2* part = p.part + cls[K_PART_AT];
         float* out = p.yp + cls[K_OUT_AT];
         for (long long rr = gwarp; rr < n_c; rr += nwarps) {
-          const float2 acc = warp_left_fold(part + rr * q, q, lane);
+          const float2 acc = warp_left_fold<MK_FOLD_DEPTH>(
+              part + rr * q, q, lane, s_stage[threadIdx.x >> 5]);
           if (lane == 0) {
             out[2 * rr] = acc.x;
             out[2 * rr + 1] = acc.y;
@@ -346,7 +334,8 @@ __global__ void __launch_bounds__(MK_THREADS) megakernel(const MkParams p) {
       if (threadIdx.x == 0) p.red[blockIdx.x] = local;
       grid_sync(p.bar, nb);
       if (threadIdx.x < 32) {
-        const float2 tot = warp_left_fold(p.red, nb, lane);
+        const float2 tot = warp_left_fold<MK_FOLD_DEPTH>(p.red, nb, lane,
+                                                        s_stage[0]);
         if (lane == 0)
           s_mean = __fdiv_rn(tot.x, tot.y < 1e-30f ? 1e-30f : tot.y);
       }

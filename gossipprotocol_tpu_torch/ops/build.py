@@ -52,7 +52,9 @@ _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "classops": {
         "gossip_class_reduce_small": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
-        "gossip_class_reduce_split": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
+        # x, out, part scratch, arrival counters, cap, q, stream
+        "gossip_class_reduce_split": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _LL,
+                                      _INT, _VOIDP),
         "gossip_class_expand_small": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
         "gossip_class_expand_split": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
         "gossip_class_reduce_big": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
@@ -65,8 +67,10 @@ _SIGNATURES = {
     },
     "gather": {
         "gossip_gather_resident": (_VOIDP, _VOIDP, _VOIDP, _LL, _VOIDP),
+        # x, rows, lidx, out, tiles, r_cap, evict-first hints on the
+        # stream (0 or 1), stream
         "gossip_gather_bucket": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _LL, _INT,
-                                 _VOIDP),
+                                 _INT, _VOIDP),
     },
     "megakernel": {
         "gossip_megakernel_max_grid": (_VOIDP,),

@@ -141,6 +141,23 @@ def class_reduce_split_plain(region: torch.Tensor, c: int) -> torch.Tensor:
     return out.reshape(-1)
 
 
+# the split kernel's scratch per (device, stream, cap, q): the row
+# partials (float2 [cap, q]) and the per-slot arrival counters, zeroed
+# once here; every launch leaves the counters at zero again. Launches on
+# one stream run in order, so they may share it; another stream gets its
+# own.
+_SPLIT_SCRATCH: dict = {}
+
+
+def _split_scratch(device: torch.device, stream: int, cap: int, q: int):
+    key = (device, stream, cap, q)
+    if key not in _SPLIT_SCRATCH:
+        _SPLIT_SCRATCH[key] = (
+            torch.empty(2 * cap * q, dtype=torch.float32, device=device),
+            torch.zeros(cap, dtype=torch.int32, device=device))
+    return _SPLIT_SCRATCH[key]
+
+
 def class_reduce_split(region: torch.Tensor, c: int) -> torch.Tensor:
     """Reduce a hub-split class region: q = 2c/128 sub-classes of one
     64-pair row per node, sub-class-major (row j*cap + r = node slot r's
@@ -149,19 +166,23 @@ def class_reduce_split(region: torch.Tensor, c: int) -> torch.Tensor:
 
     On CUDA: ``csrc/classops.cu`` ``reduce_split_kernel``, replacing the
     Pallas kernel at ``gossipprotocol_tpu/ops/classops.py:183``. Bound by
-    bytes; one block per node slot keeps the ascending-j fold inside the
-    block (GPU blocks run in no order, so the TPU's cross-step carry has
-    no counterpart)."""
+    bytes. One launch: the row folds spread over blocks of 64 rows, their
+    partials written to a ``[cap, q]`` scratch, and each node slot
+    left-folded in ascending j by the last block to finish its rows (a
+    per-slot arrival counter, which that block resets). The scratch is
+    cached per stream (:func:`_split_scratch`)."""
     q, cap = _split_geometry(region.numel(), c)
     if region.device.type == "cpu":
         return class_reduce_split_plain(region, c)
     _require_cuda_f32(region, "class_reduce_split")
     require_aligned(region, "class_reduce_split")
     out = torch.empty(2 * cap, dtype=torch.float32, device=region.device)
+    stream = build.stream_handle(region.device)
+    part, arrived = _split_scratch(region.device, stream, cap, q)
     lib = build.library("classops")
     rc = lib.gossip_class_reduce_split(
-        region.data_ptr(), out.data_ptr(), cap, q,
-        build.stream_handle(region.device))
+        region.data_ptr(), out.data_ptr(), part.data_ptr(),
+        arrived.data_ptr(), cap, q, stream)
     build.check(lib, rc, "class_reduce_split")
     LAUNCHES["class_reduce_split"] += 1
     return out

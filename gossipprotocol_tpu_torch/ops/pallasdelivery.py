@@ -28,6 +28,7 @@ and :func:`exchange_plain`, the one-permutation spelling.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple, Optional, Tuple
 
@@ -126,19 +127,40 @@ def gather_bucket_plain(x2d: torch.Tensor, rows: torch.Tensor,
         tiles, TILE_ROWS, LANES)
 
 
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def _stream_hints(lidx: torch.Tensor, rows: torch.Tensor) -> bool:
+    """Whether a bucket gather streams its lidx, table and output
+    evict-first: when they come to more than half the card's L2
+    (gather_pre at 1M nodes, ~240 MB, against an H100's 50 MB), they
+    cannot stay there and would push the source out; a smaller stream
+    (gather_out, ~24 MB) keeps the normal policy, so that its output
+    stays in L2 for the kernel that reads it next."""
+    return (2 * lidx.numel() + rows.numel()) * 4 > _l2_bytes(lidx.device) // 2
+
+
 def gather_bucket(x2d: torch.Tensor, rows: torch.Tensor,
                   lidx: torch.Tensor) -> torch.Tensor:
     """Bucketed gather. ``rows``: int32 [tiles, R] per-tile source-row
-    table; ``lidx``: int32 [tiles, 8, 128] slab-local indices.
+    table (R <= 1024: a tile has 1024 outputs); ``lidx``: int32
+    [tiles, 8, 128] slab-local indices.
 
     On CUDA: ``csrc/gather.cu`` ``gather_bucket_kernel``, replacing the
     Pallas kernel at ``gossipprotocol_tpu/ops/pallasdelivery.py:153``.
-    Bound by bytes; R reaches ~1016 rows (508 KB) at 1M nodes, past a
-    block's shared memory, so the rows are staged in chunks of 64."""
+    Bound by bytes. One block per tile stages only the tile's row table
+    in shared memory (cp.async) and reads every output once from the
+    L2-resident source; the stream is read and written evict-first as
+    :func:`_stream_hints` decides."""
     if (rows.dim() != 2 or lidx.dim() != 3
             or lidx.shape != (rows.shape[0], TILE_ROWS, LANES)):
         raise ValueError("gather_bucket: rows [tiles, R] and lidx "
                          "[tiles, 8, 128] disagree")
+    if rows.shape[1] > TILE or rows.shape[1] % 4:
+        raise ValueError(f"gather_bucket: row table width {rows.shape[1]} "
+                         f"is not a multiple of 4 up to {TILE}")
     if x2d.device.type == "cpu":
         return gather_bucket_plain(x2d, rows, lidx)
     _require_gather_args(x2d, (rows, lidx), "gather_bucket")
@@ -146,7 +168,8 @@ def gather_bucket(x2d: torch.Tensor, rows: torch.Tensor,
     lib = build.library("gather")
     rc = lib.gossip_gather_bucket(
         x2d.data_ptr(), rows.data_ptr(), lidx.data_ptr(), out.data_ptr(),
-        rows.shape[0], rows.shape[1], build.stream_handle(x2d.device))
+        rows.shape[0], rows.shape[1], int(_stream_hints(lidx, rows)),
+        build.stream_handle(x2d.device))
     build.check(lib, rc, "gather_bucket")
     LAUNCHES["gather_bucket"] += 1
     return out

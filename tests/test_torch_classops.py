@@ -55,7 +55,10 @@ def test_reduce_small_bitwise_vs_jax(c):
     assert _bits_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("q,cap", [(2, 8), (2, 256), (8, 8), (8, 256)])
+# q = 33 and 257: the card's split kernel packs whole slots into a block
+# (q < 64) or spreads one over several (q > 64), with ragged ends
+@pytest.mark.parametrize("q,cap", [(2, 8), (2, 256), (8, 8), (8, 256),
+                                   (33, 8), (257, 16)])
 def test_reduce_split_bitwise_vs_jax(q, cap):
     c = 64 * q
     x = _mixed(np.random.default_rng(q * 1000 + cap), q * cap * tco.LANES)
@@ -180,3 +183,35 @@ def test_cpu_path_launches_nothing_and_other_devices_raise():
     with pytest.raises(ValueError, match="no kernel"):
         tco.class_reduce_split(torch.empty(2 * 8 * tco.LANES, device="meta"),
                                128)
+
+
+# ---- class_reduce_split on the values where a fold's start and order
+# show: all -0.0, +-inf, NaN ----------------------------------------------
+
+def _special_region(kind, q, cap):
+    rng = np.random.default_rng(q + cap)
+    if kind == "negzero":
+        return np.full(q * cap * tco.LANES, -0.0, np.float32)
+    x = rng.standard_normal((q, cap, tco.LANES)).astype(np.float32)
+    x[rng.integers(0, q), 0, 4] = np.inf           # slot 0: +inf in s
+    x[rng.integers(0, q), 1, 5] = -np.inf          # slot 1: -inf in w
+    x[rng.integers(0, q), 2, 6] = np.inf           # slot 2: +inf - inf
+    x[rng.integers(0, q), 2, 8] = -np.inf          #   = NaN in s
+    x[rng.integers(0, q), 3, 9] = np.nan           # slot 3: NaN in w
+    return x.reshape(-1)
+
+
+@pytest.mark.parametrize("kind", ["negzero", "inf_nan"])
+@pytest.mark.parametrize("q,cap", [(2, 8), (33, 8)])
+def test_reduce_split_special_values_vs_jax(kind, q, cap):
+    x = _special_region(kind, q, cap)
+    want = np.asarray(jco.class_reduce_split(jnp.asarray(x), 64 * q,
+                                             interpret=True))
+    got = tco.class_reduce_split(torch.from_numpy(x), 64 * q).numpy()
+    assert _bits_equal(got, want)
+    if kind == "negzero":
+        # the left fold starts at p_0 = -0.0: every sum stays -0.0
+        assert np.all(got == 0) and np.all(np.signbit(got))
+    else:
+        assert got[0] == np.inf and got[3] == -np.inf
+        assert np.isnan(got[4]) and np.isnan(got[7])

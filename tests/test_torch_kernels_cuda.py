@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from gossipprotocol_tpu_torch.ops import build
 from gossipprotocol_tpu_torch.ops import classops as co
 from gossipprotocol_tpu_torch.ops import pallasdelivery as pdm
 
@@ -55,14 +56,99 @@ def test_reduce_small_kernel(cuda, c, subnormal):
     assert _bits_equal(got, co.class_reduce_small_plain(x, c))
 
 
+# q > 64 spreads a slot over several blocks (the last one folds it), q < 64
+# packs whole slots in one; (2048, 8) is power_law 1M's hub class
 @pytest.mark.parametrize("subnormal", [False, True])
-@pytest.mark.parametrize("q,cap", [(2, 8), (8, 256), (64, 8), (300, 16)])
+@pytest.mark.parametrize("q,cap", [(2, 8), (8, 256), (64, 8), (300, 16),
+                                   (2048, 8), (4096, 8), (8, 1024), (33, 16),
+                                   (257, 16)])
 def test_reduce_split_kernel(cuda, q, cap, subnormal):
     x = torch.from_numpy(_mixed(np.random.default_rng(q + cap),
                                 q * cap * 128, subnormal)).to(cuda)
     got = co.class_reduce_split(x, 64 * q)
     torch.cuda.synchronize()
     assert _bits_equal(got, co.class_reduce_split_plain(x, 64 * q))
+
+
+@pytest.mark.parametrize("q,cap", [(2, 8), (2048, 8)])
+def test_reduce_split_kernel_negative_zero(cuda, q, cap):
+    """An all -0.0 region sums to -0.0: the left fold starts at p_0."""
+    x = torch.full((q * cap * 128,), -0.0, device=cuda)
+    got = co.class_reduce_split(x, 64 * q)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, co.class_reduce_split_plain(x, 64 * q))
+    assert bool(torch.signbit(got).all())
+
+
+def test_reduce_split_kernel_calls_in_a_row(cuda):
+    """The arrival counters are reset by each launch: two calls give the
+    same bits, one launch each, and leave every counter at zero."""
+    q, cap = 2048, 8
+    x = torch.from_numpy(_mixed(np.random.default_rng(5),
+                                q * cap * 128)).to(cuda)
+    before = co.LAUNCHES["class_reduce_split"]
+    a = co.class_reduce_split(x, 64 * q)
+    assert co.LAUNCHES["class_reduce_split"] == before + 1
+    b = co.class_reduce_split(x, 64 * q)
+    assert co.LAUNCHES["class_reduce_split"] == before + 2
+    torch.cuda.synchronize()
+    assert _bits_equal(a, b)
+    assert _bits_equal(a, co.class_reduce_split_plain(x, 64 * q))
+    _, arrived = co._split_scratch(x.device, build.stream_handle(x.device),
+                                   cap, q)
+    assert int(arrived.abs().sum()) == 0
+
+
+def test_reduce_split_kernel_two_streams(cuda):
+    """Calls on two streams at once use a scratch each: both give the
+    plain version's bits."""
+    q, cap = 2048, 8
+    rng = np.random.default_rng(6)
+    xs = [torch.from_numpy(_mixed(rng, q * cap * 128)).to(cuda)
+          for _ in range(2)]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    got = []
+    for _ in range(8):
+        got.append(co.class_reduce_split(xs[0], 64 * q))
+        with torch.cuda.stream(side):
+            got.append(co.class_reduce_split(xs[1], 64 * q))
+    torch.cuda.synchronize()
+    want = [co.class_reduce_split_plain(x, 64 * q) for x in xs]
+    for i, g in enumerate(got):
+        assert _bits_equal(g, want[i % 2])
+
+
+def _bucket_src(case, rng):
+    if case == "distinct1024":      # 64 tiles, each of 1024 distinct rows
+        rows = rng.permutation(64 * 1024)
+        return rows * 128 + rng.integers(0, 128, rows.size), 64 * 1024 * 128
+    if case == "one_tile":          # one tile, a few rows, and padding
+        return rng.integers(0, 3 * 128, 700), 3 * 128
+    # 1M density: gather_pre of a 1M-node graph reads 2n + tail values
+    # for about 8M outputs, ~1,000 distinct rows per tile
+    return rng.integers(0, 2_000_001, 8_000_000), 2_000_000
+
+
+@pytest.mark.parametrize("case", ["distinct1024", "one_tile", "density_1M"])
+def test_gather_bucket_kernel_plans(cuda, case):
+    rng = np.random.default_rng(11)
+    src, src_len = _bucket_src(case, rng)
+    plan = pdm.build_gather_plan(src, src_len, resident_rows=0, device=cuda)
+    assert plan.mode == "bucket"
+    flat = torch.from_numpy(rng.standard_normal(src_len).astype(
+        np.float32)).to(cuda)
+    x2d = plan.padded_source(flat)
+    before = pdm.LAUNCHES["gather_bucket"]
+    got = pdm.gather_bucket(x2d, plan.rows, plan.lidx)
+    assert pdm.LAUNCHES["gather_bucket"] == before + 1
+    want = pdm.gather_bucket_plain(x2d, plan.rows, plan.lidx)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    got = got.reshape(-1).cpu().numpy()
+    ref = np.append(flat.cpu().numpy(), np.float32(0))[src]
+    assert np.array_equal(got[: len(src)], ref)
+    assert np.all(got[len(src):] == 0)
 
 
 @pytest.mark.parametrize("resident_rows", [None, 0])

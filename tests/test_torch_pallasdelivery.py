@@ -175,3 +175,75 @@ def test_cpu_gathers_launch_nothing_and_other_devices_raise():
     idx = torch.empty(1, 8, 128, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tpd.gather_resident(x, idx)
+
+
+# ---- bucket-plan invariants the card's gather_bucket relies on ----------
+# (csrc/gather.cu stages rows[t, :max(lidx >> 7) + 1] of each tile in at
+# most 1024 ints of shared memory and reads x[rows_s[li >> 7] * 128 +
+# (li & 127)]; padding outputs must read the +0.0 slot)
+
+def _bucket_cases():
+    rng = np.random.default_rng(7)
+    cases = {}
+    for k in range(3):
+        src_len = int(rng.integers(2_000, 60_000))
+        cases[f"random{k}"] = (
+            rng.integers(0, src_len + 1, int(rng.integers(1, 5_000))),
+            src_len)
+    # one tile whose 1024 outputs read 1024 distinct rows, in a shuffled
+    # order, followed by a ragged tile
+    cases["distinct1024"] = (rng.permutation(1024) * 128 + 5, 1024 * 128)
+    # a single tile whose outputs all read one row (and padding)
+    cases["one_row"] = (np.full(700, 3 * 128 + 9), 4 * 128)
+    return cases
+
+
+_BUCKET_CASES = _bucket_cases()
+
+
+@pytest.mark.parametrize("case", list(_BUCKET_CASES))
+def test_bucket_plan_invariants(case):
+    src, src_len = _BUCKET_CASES[case]
+    plan = tpd.build_gather_plan_np(src, src_len, resident_rows=0)
+    assert plan.mode == "bucket"
+    tiles, r_cap = plan.rows.shape
+    assert r_cap <= tpd.TILE and r_cap % 8 == 0
+    li = plan.lidx.reshape(tiles, tpd.TILE).astype(np.int64)
+    pos = li // tpd.LANES
+    for t in range(tiles):
+        used = np.unique(pos[t])
+        distinct = int(pos[t].max()) + 1
+        # every position up to the max is read, so max + 1 is the tile's
+        # distinct-row count, and it fits the table
+        assert np.array_equal(used, np.arange(distinct))
+        assert distinct <= r_cap
+        rows_t = plan.rows[t, :distinct].astype(np.int64)
+        assert np.all(np.diff(rows_t) > 0)            # ascending, distinct
+        assert np.all(plan.rows[t, distinct:] == 0)   # zero table padding
+    # every output reads its source slot; padding outputs the zero slot
+    flat = np.full(tiles * tpd.TILE, src_len, np.int64)
+    flat[: len(src)] = src
+    got = (np.take_along_axis(plan.rows.astype(np.int64), pos, axis=1)
+           * tpd.LANES + li % tpd.LANES).reshape(-1)
+    assert np.array_equal(got, flat)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        src_len).astype(np.float32) + 1)
+    gp = gather_plan_from_numpy(*plan, device="cpu")
+    out = gp.gather_padded(gp.padded_source(x)).numpy()
+    assert np.array_equal(out[: len(src)], x.numpy()[src])
+    pad = out[len(src):]
+    assert np.all(pad == 0) and not np.signbit(pad).any()
+    if case == "distinct1024":
+        assert int(pos[0].max()) + 1 == 1024 == r_cap
+    if case == "one_row":
+        assert tiles == 1 and int(pos[0].max()) + 1 == 2  # the row + zero slot
+    jp = jpd.build_gather_plan(src, src_len, resident_rows=0)
+    assert _plans_equal(gather_plan_from_numpy(*plan, device="cpu"), jp)
+
+
+def test_gather_bucket_rejects_a_wider_row_table():
+    x = torch.zeros(8, tpd.LANES)
+    rows = torch.zeros(1, tpd.TILE + 8, dtype=torch.int32)
+    lidx = torch.zeros(1, tpd.TILE_ROWS, tpd.LANES, dtype=torch.int32)
+    with pytest.raises(ValueError, match="row table width"):
+        tpd.gather_bucket(x, rows, lidx)
