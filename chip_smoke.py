@@ -44,10 +44,11 @@ Phases (each prints its lines; any failure exits non-zero):
       (build seconds, coloring backend: the native library must run);
       the two expand kernels on every class, the stage kernel on both
       radix stages of the edge plan and the final kernel on its final
-      pass, each bitwise against its plain version with its time, bound,
-      plain time and one PyTorch call's time (a single ``x[idx]`` with the
-      composed route index; ``repeat_interleave``/``repeat`` for the
-      expands); the routed matvec bitwise against the pallas matvec; and
+      pass, each bitwise against its plain version with its time (back
+      to back and by graph), bound, plain time and one PyTorch call's time
+      (both ways: a single ``x[idx]`` with the composed route index;
+      ``repeat_interleave``/``repeat`` for the expands); the routed
+      matvec bitwise against the pallas matvec; and
       two routed CLI runs with phase (c)'s argv, each converging in the
       pallas run's round count with the same printed estimate error and
       every routed kernel launched;
@@ -58,9 +59,10 @@ Phases (each prints its lines; any failure exits non-zero):
       round, table bytes, peak device memory after placement); the
       exchange kernel at the real slab shapes — f32, bf16, int8 and the
       int8 wire's [S, 1] scales, both schedules — bitwise against its
-      plain version and ``exchange_plain``, with its time, bytes bound,
-      plain time and one PyTorch call's (``transpose(0, 1).contiguous()``
-      of the stacked slabs); the 4-shard matvec on every transport
+      plain version and ``exchange_plain``, with its time (back to back
+      and by graph), bytes bound, plain time and one PyTorch call's
+      (``transpose(0, 1).contiguous()`` of the stacked slabs, both ways);
+      the 4-shard matvec on every transport
       bitwise against the single-card routed matvec (phase (g)'s outputs
       kept for imp3D 1M, not rebuilt); and three CLI runs per graph with
       phase (c)'s argv plus ``--devices 4`` (``--delivery pallas``,
@@ -72,8 +74,10 @@ Phases (each prints its lines; any failure exits non-zero):
       ``class_expand_big``), which no CLI path of either package runs:
       at every hub class of power_law 1M (the first round's fold input of
       phase (b), laid out node-major from its split layout), each bitwise
-      against its plain version, with its time, bytes bound, plain time
-      and one PyTorch call's (``view(n_c, q*64, 2).sum(1)``,
+      against its plain version (the reduce on a second call too: its
+      arrival counters reset), with its time (back to back and by graph),
+      bytes bound, plain time and one PyTorch call's, both ways
+      (``view(n_c, q*64, 2).sum(1)``,
       ``view(n_c, 1, 2).expand(n_c, q*64, 2).contiguous()``); launches
       are the phase's own calls;
   (j) the reference surface (gossip and fanout-one push-sum over the
@@ -829,16 +833,29 @@ def phase_megakernel_cli(torch):
 
 # ---------------------------------------------------------------- (g)
 
-def _record(records, name, gname, call, shape, err, ms, plain_ms, nbytes,
-            lib_ms, lib_what):
+def _record(torch, records, name, gname, call, shape, err, nbytes, kern,
+            plain, lib, lib_what, plain_iters=3):
+    """Time a kernel checked bitwise: back to back and as CUDA-graph
+    replays (device time), beside its plain version and one library
+    call (both ways); append its record and return it."""
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
+
+    dev = torch.device("cuda")
+    ms, g_ms = cuda_ms(torch, kern, 20), seconds_per_call(kern, dev) * 1e3
+    plain_ms = cuda_ms(torch, plain, plain_iters)
+    lib_ms = cuda_ms(torch, lib, 20)
+    lib_g_ms = seconds_per_call(lib, dev) * 1e3
     b_ms, b_by = bound(nbytes, 0)
-    records.append(dict(name=name, graph=gname, call=call, shape=shape,
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                        bytes=nbytes))
-    say(f"(g) {name:18s} {gname} {call}: bitwise ok, {ms:.4f} ms (plain "
-        f"{plain_ms:.4f}, library {lib_what} {lib_ms:.4f}, bound "
-        f"{b_ms:.4f} by {b_by}, {nbytes / 1e6:.1f} MB)")
+    rec = dict(name=name, graph=gname, call=call, shape=shape,
+               max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               library_graph_ms=lib_g_ms, bytes=nbytes)
+    records.append(rec)
+    say(f"(g) {name:18s} {gname} {call}: bitwise ok, {ms:.4f} ms back to "
+        f"back, {g_ms:.4f} ms graph (plain {plain_ms:.4f}, library "
+        f"{lib_what} {lib_ms:.4f}, graph {lib_g_ms:.4f}; bound {b_ms:.4f} "
+        f"by {b_by}, {nbytes / 1e6:.1f} MB)")
+    return rec
 
 
 def check_expands(torch, records, gname, rd, cls_pairs):
@@ -872,10 +889,9 @@ def check_expands(torch, records, gname, rd, cls_pairs):
                 f"max abs err {err}")
         require(bitwise_equal(torch, lib().reshape(-1), out_k),
                 f"{name} c={c} ({gname}): library call differs")
-        _record(records, name, gname, f"c={c}", [packed.numel()], err,
-                cuda_ms(torch, kern, 50), cuda_ms(torch, plain, 10),
-                (packed.numel() + out_k.numel()) * 4,
-                cuda_ms(torch, lib, 50), lib_what)
+        _record(torch, records, name, gname, f"c={c}", [packed.numel()], err,
+                (packed.numel() + out_k.numel()) * 4, kern, plain, lib,
+                lib_what, plain_iters=10)
         segs.append(out_k)
     return torch.cat(segs)
 
@@ -910,11 +926,11 @@ def check_route(torch, records, gname, dp, x):
                 f"stage_call {si} ({gname}): composed-index gather differs")
         nbytes = (cur.numel() * 4 + st.idx.numel()
                   + st.p * st.b * st.tau_in * st.cr * lanes * 4)
-        _record(records, "stage_call", gname,
+        _record(torch, records, "stage_call", gname,
                 f"plan_m stage {si} {tuple(st[:6])}", list(st.idx.shape),
-                err, cuda_ms(torch, lambda: ex.stage_call(st, cur, unit), 20),
-                cuda_ms(torch, lambda: ex.stage_call_plain(st, cur, unit), 3),
-                nbytes, cuda_ms(torch, lambda: flat[gidx], 20), "x[idx]")
+                err, nbytes, lambda: ex.stage_call(st, cur, unit),
+                lambda: ex.stage_call_plain(st, cur, unit),
+                lambda: flat[gidx], "x[idx]")
         del gidx, out_p
         cur = out_k
     fin, nt_out = dp.final, dp.nt_out
@@ -939,12 +955,14 @@ def check_route(torch, records, gname, dp, x):
             f"final_call ({gname}): composed-index gather differs")
     nbytes = (nt_out * fin.k * tile * 4 + fin.idx.numel()
               + fin.mask.numel() + out_k.numel() * 4)
-    _record(records, "final_call", gname, f"plan_m final k={fin.k}",
-            list(fin.idx.shape), err,
-            cuda_ms(torch, lambda: ex.final_call(fin, nt_out, cur, unit), 20),
-            cuda_ms(torch, lambda: ex.final_call_plain(fin, nt_out, cur,
-                                                       unit), 3),
-            nbytes, cuda_ms(torch, lambda: x_ext[sel], 20), "x[idx]")
+    rec = _record(torch, records, "final_call", gname,
+                  f"plan_m final k={fin.k}", list(fin.idx.shape), err, nbytes,
+                  lambda: ex.final_call(fin, nt_out, cur, unit),
+                  lambda: ex.final_call_plain(fin, nt_out, cur, unit),
+                  lambda: x_ext[sel], "x[idx]")
+    say(f"(g) final_call {gname}: graph_ms {rec['graph_ms']:.4f} "
+        f"{'<=' if rec['graph_ms'] <= rec['library_graph_ms'] else '>'} "
+        f"x[idx] {rec['library_graph_ms']:.4f}")
     return out_k.reshape(-1)
 
 
@@ -1057,13 +1075,14 @@ def _as_bytes(torch, t):
 
 
 def exchange_kernel_ms(torch, slabs, overlap, iters=50):
-    """Device time of one exchange (one launch, or S on the ring): the
-    launcher called straight with prebuilt pointer tables, since the
-    wrapper's checks and allocation take longer on the host than the copy
-    takes on the card."""
+    """Time of one exchange (one launch, or S on the ring), back to back
+    and as CUDA-graph replays: the launcher called straight with prebuilt
+    pointer tables, since the wrapper's checks and allocation take longer
+    on the host than the copy takes on the card."""
     import ctypes
 
     from gossipprotocol_tpu_torch.ops import build
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
 
     ns, block = slabs[0].shape
     out = torch.empty((ns, ns, block), dtype=slabs[0].dtype, device="cuda")
@@ -1078,13 +1097,20 @@ def exchange_kernel_ms(torch, slabs, overlap, iters=50):
         for o in offsets:
             lib.gossip_exchange(src, dst, ns, row, o, stream)
 
-    return cuda_ms(torch, launch, iters)
+    def launch_on_current():  # the capture stream, when captured
+        for o in offsets:
+            lib.gossip_exchange(src, dst, ns, row, o,
+                                build.stream_handle(out.device))
+
+    return (cuda_ms(torch, launch, iters),
+            seconds_per_call(launch_on_current, out.device) * 1e3)
 
 
 def check_exchange(torch, records, gname, slabs, wire):
     """The exchange kernel on one wire's real slabs, both schedules,
     against its plain version and the one-permutation spelling."""
     from gossipprotocol_tpu_torch.ops import pallasdelivery as pdm
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
 
     ns, block = slabs[0].shape
     nbytes = 2 * ns * ns * block * slabs[0].element_size()
@@ -1102,24 +1128,27 @@ def check_exchange(torch, records, gname, slabs, wire):
                         f"pallas_exchange ({gname} {wire}, overlap "
                         f"{overlap}) differs from {what} at shard {d}")
         sched = "ring" if overlap else "all"
-        ms = exchange_kernel_ms(torch, slabs, overlap)
+        ms, g_ms = exchange_kernel_ms(torch, slabs, overlap)
         wrapper_ms = cuda_ms(torch, lambda: pdm.pallas_exchange(
             slabs, overlap=overlap), 20)
         plain_ms = cuda_ms(torch, lambda: pdm.pallas_exchange_plain(
             slabs, overlap=overlap), 5)
         lib_ms = cuda_ms(torch, lib, 20)
+        lib_g_ms = seconds_per_call(lib, stacked.device) * 1e3
         b_ms, b_by = bound(nbytes, 0)
         records.append(dict(name="pallas_exchange", graph=gname,
                             call=f"{wire} {sched}", shape=[ns, ns, block],
-                            max_abs_err=0.0, ms=ms, wrapper_ms=wrapper_ms,
-                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=lib_ms, bytes=nbytes))
+                            max_abs_err=0.0, ms=ms, graph_ms=g_ms,
+                            wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                            library_graph_ms=lib_g_ms, bytes=nbytes))
         say(f"(h) pallas_exchange    {gname} {wire} {sched} "
             f"[{ns}, {ns}, {block}] {slabs[0].dtype}: bitwise ok, "
             f"{ms:.4f} ms ({'%d launches' % ns if overlap else '1 launch'}"
-            f"; through the wrapper {wrapper_ms:.4f}, host-paced), plain "
-            f"{plain_ms:.4f}, library transpose(0,1).contiguous() "
-            f"{lib_ms:.4f}, bound {b_ms:.4f} by {b_by}, "
+            f"; through the wrapper {wrapper_ms:.4f}, host-paced), "
+            f"{g_ms:.4f} graph, plain {plain_ms:.4f}, library "
+            f"transpose(0,1).contiguous() {lib_ms:.4f}, graph "
+            f"{lib_g_ms:.4f}, bound {b_ms:.4f} by {b_by}, "
             f"{nbytes / 1e6:.2f} MB")
 
 
@@ -1318,6 +1347,7 @@ def phase_hub_kernels(torch, hubs):
     from gossipprotocol_tpu_torch.ops import (
         kernel_launches, reset_kernel_launches,
     )
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
 
     records = []
     require(hubs, f"{HUB_GRAPH} has no hub class")
@@ -1354,21 +1384,34 @@ def phase_hub_kernels(torch, hubs):
             if name == "class_expand_big":
                 require(bitwise_equal(torch, lib_out, got),
                         f"class_expand_big c={c}: library call differs")
+            if name == "class_reduce_big":
+                # a second call: the arrival counters the first launch
+                # left must give the same bits
+                require(bitwise_equal(torch, kern(), got),
+                        f"class_reduce_big c={c}: a second call differs")
             ms = cuda_ms(torch, kern, 50)
+            g_ms = seconds_per_call(kern, region.device) * 1e3
             plain_ms = cuda_ms(torch, plain, 3)
             lib_ms = cuda_ms(torch, lib, 50)
+            lib_g_ms = seconds_per_call(lib, region.device) * 1e3
             b_ms, b_by = bound(nbytes, region.numel()
                                if name == "class_reduce_big" else 0)
             records.append(dict(
                 name=name, graph=HUB_GRAPH, call=f"c={c}",
-                shape=[cap, q, 128], max_abs_err=err, ms=ms,
+                shape=[cap, q, 128], max_abs_err=err, ms=ms, graph_ms=g_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, bytes=nbytes))
+                library_ms=lib_ms, library_graph_ms=lib_g_ms,
+                bytes=nbytes))
             say(f"(i) {name:16s} {HUB_GRAPH} c={c} q={q} n_c={cap} "
-                f"({n_c} real nodes): bitwise ok, {ms:.4f} ms (plain "
-                f"{plain_ms:.4f}, library {lib_what} {lib_ms:.4f} "
+                f"({n_c} real nodes): bitwise ok, {ms:.4f} ms back to "
+                f"back, {g_ms:.4f} ms graph (plain {plain_ms:.4f}, library "
+                f"{lib_what} {lib_ms:.4f}, graph {lib_g_ms:.4f} "
                 f"[max |diff| {lib_err:.3e}], bound {b_ms:.4f} by {b_by}, "
                 f"{nbytes / 1e6:.2f} MB)")
+            if name == "class_reduce_big":
+                say(f"(i) class_reduce_big c={c}: graph_ms {g_ms:.4f} "
+                    f"{'<=' if g_ms <= lib_g_ms else '>'} library "
+                    f"{lib_g_ms:.4f}")
         split = co.class_reduce_split(region.view(cap, q, 128).transpose(
             0, 1).contiguous().view(-1), c)
         say(f"(i) c={c}: node-major reduce against the split layout's "

@@ -69,6 +69,8 @@ __global__ void reduce_small_kernel(const float* __restrict__ x,
 //      it resets the counter to 0 (so the next launch on the stream
 //      needs no memset) and left-folds the slot's q partials with
 //      warp_left_fold (csrc/fold.cuh), one warp per slot.
+// (fold_rows_and_arrive, shared with reduce_big_kernel; a slot whose
+// rows all lie in one block takes no counter.)
 // A slot with q >= SPLIT_ROWS is spread over q/SPLIT_ROWS blocks and
 // folded in whichever SM finishes it last; small q packs whole slots into
 // one block, which folds them itself.
@@ -92,6 +94,62 @@ __device__ __forceinline__ unsigned int atomic_add_acq_rel(unsigned int* p,
   return old;
 }
 
+// Phases 1 and 2 of a spread fold, shared by the split and the node-major
+// hub reduce: the block folds rows k0..k1-1 of a node-contiguous order
+// (k = node*q + j; row k at x + row_of(k)*128) into part[k], then makes
+// one arrival per node it touched. Returns the number of nodes whose
+// rows this block finished last; their offsets from k0/q are in s_done.
+// The caller's threads all call it (it holds two block barriers).
+template <class RowOf>
+__device__ __forceinline__ int fold_rows_and_arrive(
+    const float* __restrict__ x, RowOf row_of, float2* __restrict__ part,
+    unsigned int* __restrict__ arrived, long long k0, long long k1, int q,
+    int* s_done, int* s_ndone) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) *s_ndone = 0;
+
+  // 1. the row folds
+  const long long kw = k0 + warp * SPLIT_ROWS_PER_WARP;
+  float4 a[SPLIT_ROWS_PER_WARP];
+#pragma unroll
+  for (int i = 0; i < SPLIT_ROWS_PER_WARP; ++i) {
+    const long long k = kw + i;
+    if (k < k1) {
+      a[i] = __ldcs(reinterpret_cast<const float4*>(
+                        x + row_of(k) * GOSSIP_LANES) + lane);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < SPLIT_ROWS_PER_WARP; ++i) {
+    if (kw + i < k1) {  // warp-uniform: the whole warp shuffles
+      const float2 p = fold_row_warp(a[i]);
+      if (lane == 0) part[kw + i] = p;
+    }
+  }
+  __syncthreads();
+
+  // 2. arrivals; the last block of a node folds it. A node whose rows
+  // all lie in this block needs no counter (it stays 0): the barriers
+  // make the block's own partials visible to all its threads
+  const long long r0 = k0 / q;
+  const int nslots = static_cast<int>((k1 - 1) / q - r0 + 1);
+  if (threadIdx.x < nslots) {
+    const long long r = r0 + threadIdx.x;
+    const unsigned int rows = static_cast<unsigned int>(
+        min(k1, (r + 1) * q) - max(k0, r * q));
+    const unsigned int uq = static_cast<unsigned int>(q);
+    if (rows == uq || atomic_add_acq_rel(arrived + r, rows) + rows == uq) {
+      if (rows != uq) arrived[r] = 0;
+      s_done[atomicAdd(s_ndone, 1)] = static_cast<int>(threadIdx.x);
+    }
+  }
+  __syncthreads();
+  // the other blocks' partials: acquired by the arrival and this
+  // barrier, read from L2 (the point of coherence) by __ldcg
+  return *s_ndone;
+}
+
 __global__ void __launch_bounds__(SPLIT_THREADS)
 reduce_split_kernel(const float* __restrict__ x, float* __restrict__ out,
                     float2* __restrict__ part,
@@ -105,48 +163,11 @@ reduce_split_kernel(const float* __restrict__ x, float* __restrict__ out,
   const int lane = threadIdx.x & 31;
   const long long k0 = blockIdx.x * static_cast<long long>(SPLIT_ROWS);
   const long long k1 = min(k0 + SPLIT_ROWS, cap * q);
-  if (threadIdx.x == 0) s_ndone = 0;
-
-  // 1. the row folds
-  const long long kw = k0 + warp * SPLIT_ROWS_PER_WARP;
-  float4 a[SPLIT_ROWS_PER_WARP];
-#pragma unroll
-  for (int i = 0; i < SPLIT_ROWS_PER_WARP; ++i) {
-    const long long k = kw + i;
-    if (k < k1) {
-      const long long r = k / q;
-      const long long j = k - r * q;
-      a[i] = __ldcs(reinterpret_cast<const float4*>(
-                        x + (j * cap + r) * GOSSIP_LANES) + lane);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < SPLIT_ROWS_PER_WARP; ++i) {
-    if (kw + i < k1) {  // warp-uniform: the whole warp shuffles
-      const float2 p = fold_row_warp(a[i]);
-      if (lane == 0) part[kw + i] = p;
-    }
-  }
-  __syncthreads();
-
-  // 2. arrivals; the last block of a slot folds it
+  // slot-major k = r*q + j is row j*cap + r of the sub-class-major region
+  const int ndone = fold_rows_and_arrive(
+      x, [=](long long k) { return (k % q) * cap + k / q; }, part, arrived,
+      k0, k1, q, s_done, &s_ndone);
   const long long r0 = k0 / q;
-  const int nslots = static_cast<int>((k1 - 1) / q - r0 + 1);
-  if (threadIdx.x < nslots) {
-    const long long r = r0 + threadIdx.x;
-    const unsigned int rows = static_cast<unsigned int>(
-        min(k1, (r + 1) * q) - max(k0, r * q));
-    if (atomic_add_acq_rel(arrived + r, rows) + rows
-        == static_cast<unsigned int>(q)) {
-      arrived[r] = 0;
-      s_done[atomicAdd(&s_ndone, 1)] = static_cast<int>(threadIdx.x);
-    }
-  }
-  __syncthreads();
-  const int ndone = s_ndone;
-  if (ndone == 0) return;
-  // the other blocks' partials: acquired by the arrival and this
-  // barrier, read from L2 (the point of coherence) by the fold's __ldcg
   for (int i = warp; i < ndone; i += SPLIT_WARPS) {
     const long long r = r0 + s_done[i];
     const float2 acc = warp_left_fold<SPLIT_FOLD_DEPTH>(part + r * q, q, lane,
@@ -221,68 +242,99 @@ __global__ void expand_split_kernel(const float2* __restrict__ packed,
 // (Zero padding adds nothing to a sum begun at +0, so only the shift of
 // the window bounds by the leading padding is replayed.)
 //
-// One block per node, its blocks of rows in ascending order inside it
-// (GPU blocks run in no order, so the TPU's carry across grid steps has
-// no counterpart): the 8 warps fold the qb rows (fold_row_warp, the roll
-// tree), the partials go to shared memory, thread t < qb/32 folds window
-// t, and thread 0 folds the windows and adds the block to the node's sum.
+// The split design of reduce_split_kernel, in node-major order: the n_c*q
+// rows spread over blocks of SPLIT_ROWS (fold_rows_and_arrive: row folds
+// into the scratch part[node*q + j], one arrival per node), and the last
+// block to finish a node folds its partials. The widest hub class has a
+// handful of nodes (8 slots of 2,048 rows at power_law 1M), so one block
+// per node would leave most of the 132 SMs idle. The fold's dependent
+// chain is short: every window is a left fold of at most 32 values, so
+// one thread per window (its up to 32 partials loaded from L2 at once),
+// then one thread per row block for the window sums, then one thread per
+// node for the ascending block carry. A block that finishes several nodes
+// (small q) folds them all in the same passes.
 //
 // Bound on this card: bytes (each value read once; one add per value).
-// The widest hub class has one or two nodes, so few blocks are busy.
-constexpr int BIG_THREADS = 256;
-constexpr int BIG_WARPS = BIG_THREADS / 32;
 constexpr int BIGQ = 1024;
 constexpr int BIG_WINDOW = 32;
 
-__global__ void __launch_bounds__(BIG_THREADS)
+__global__ void __launch_bounds__(SPLIT_THREADS)
 reduce_big_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  int q) {
-  __shared__ float2 part[BIGQ];
-  __shared__ float2 win[BIGQ / BIG_WINDOW];
-  const long long node = blockIdx.x;
+                  float2* __restrict__ part,
+                  unsigned int* __restrict__ arrived, long long n_c, int q) {
+  __shared__ int s_done[SPLIT_ROWS];  // nodes (offsets from r0) to fold here
+  __shared__ int s_ndone;
+  __shared__ float2 s_win[SPLIT_THREADS];
+  __shared__ float2 s_blk[SPLIT_THREADS];
   const int t = static_cast<int>(threadIdx.x);
-  const int warp = t >> 5;
-  const int lane = t & 31;
+  const long long k0 = blockIdx.x * static_cast<long long>(SPLIT_ROWS);
+  const long long k1 = min(k0 + SPLIT_ROWS, n_c * q);
+  const int ndone = fold_rows_and_arrive(
+      x, [](long long k) { return k; }, part, arrived, k0, k1, q, s_done,
+      &s_ndone);
+  if (ndone == 0) return;  // block-uniform
+  const long long r0 = k0 / q;
   const int qb = min(q, BIGQ);
+  const int nblk = q / qb;
   const int nwin = qb <= BIG_WINDOW ? 1 : (qb + BIG_WINDOW - 1) / BIG_WINDOW;
   const int width = qb <= BIG_WINDOW ? qb : BIG_WINDOW;
   const int lo = (nwin * width - qb) / 2;  // leading padding
-  float2 acc = make_float2(0.f, 0.f);  // meaningful in thread 0 only
-  for (int j = 0; j < q / qb; ++j) {
-    const float* rows = x + (node * q + static_cast<long long>(j) * qb)
-                            * GOSSIP_LANES;
-    for (int r = warp; r < qb; r += BIG_WARPS) {
-      const float2 p = fold_row_warp(__ldg(
-          reinterpret_cast<const float4*>(rows + r * GOSSIP_LANES) + lane));
-      if (lane == 0) part[r] = p;
+  // units (node d, row block b), u = d*nblk + b, nwin windows each; a pass
+  // takes as many whole units as there are threads for their windows
+  const int per_pass = SPLIT_THREADS / nwin;
+  const int units = ndone * nblk;
+  float2 acc = make_float2(0.f, 0.f);  // node t's sum, for t < ndone
+  for (int u0 = 0; u0 < units; u0 += per_pass) {
+    const int nu = min(per_pass, units - u0);
+    if (t < nu * nwin) {  // window w of unit u0 + t/nwin: a left fold from 0
+      const int u = u0 + t / nwin;
+      const int w = t - (t / nwin) * nwin;
+      const long long node = r0 + s_done[u / nblk];
+      const float2* p = part + node * q
+                        + static_cast<long long>(u % nblk) * qb;
+      const int i0 = max(w * width - lo, 0);
+      const int len = min((w + 1) * width - lo, qb) - i0;
+      float2 v[BIG_WINDOW];
+#pragma unroll
+      for (int i = 0; i < BIG_WINDOW; ++i) {
+        v[i] = i < len ? __ldcg(p + i0 + i) : make_float2(0.f, 0.f);
+      }
+      float s = 0.f, sw = 0.f;
+#pragma unroll
+      for (int i = 0; i < BIG_WINDOW; ++i) {
+        if (i < len) {
+          s = s + v[i].x;
+          sw = sw + v[i].y;
+        }
+      }
+      s_win[t] = make_float2(s, sw);
     }
     __syncthreads();
-    if (t < nwin) {
-      float s = 0.f, w = 0.f;
-      const int r1 = min((t + 1) * width - lo, qb);
-      for (int r = max(t * width - lo, 0); r < r1; ++r) {
-        s = s + part[r].x;
-        w = w + part[r].y;
+    if (t < nu) {  // the windows of unit u0 + t: a left fold from 0
+      float s = 0.f, sw = 0.f;
+      for (int w = 0; w < nwin; ++w) {
+        s = s + s_win[t * nwin + w].x;
+        sw = sw + s_win[t * nwin + w].y;
       }
-      win[t] = make_float2(s, w);
+      s_blk[t] = make_float2(s, sw);
     }
     __syncthreads();
-    if (t == 0) {
-      float s = 0.f, w = 0.f;
-      for (int b = 0; b < nwin; ++b) {
-        s = s + win[b].x;
-        w = w + win[b].y;
-      }
-      if (j == 0) {
-        acc = make_float2(s, w);
-      } else {
-        acc.x = acc.x + s;
-        acc.y = acc.y + w;
+    if (t < ndone) {  // node t's units of this pass, in ascending block order
+      const int u1 = min(u0 + nu, (t + 1) * nblk);
+      for (int u = max(u0, t * nblk); u < u1; ++u) {
+        const float2 b = s_blk[u - u0];
+        if (u == t * nblk) {
+          acc = b;
+        } else {
+          acc.x = acc.x + b.x;
+          acc.y = acc.y + b.y;
+        }
       }
     }
-    __syncthreads();
+    __syncthreads();  // s_win and s_blk are refilled by the next pass
   }
-  if (t == 0) {
+  if (t < ndone) {
+    const long long node = r0 + s_done[t];
     out[2 * node] = acc.x;
     out[2 * node + 1] = acc.y;
   }
@@ -402,15 +454,21 @@ GOSSIP_EXPORT int gossip_class_expand_split(const float* packed, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// part: f32 scratch [2 * n_c * q]; arrived: int32 [n_c], all 0 on entry
+// and left all 0 by the launch
 GOSSIP_EXPORT int gossip_class_reduce_big(const float* x, float* out,
+                                          float* part, int* arrived,
                                           long long n_c, int q,
                                           void* stream) {
   if (n_c == 0) return 0;
   if (q < 1 || (q > BIGQ && q % BIGQ)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  reduce_big_kernel<<<static_cast<unsigned int>(n_c), BIG_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(x, out, q);
+  const long long blocks = gossip_blocks(n_c * q, SPLIT_ROWS);
+  reduce_big_kernel<<<static_cast<unsigned int>(blocks), SPLIT_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      x, out, reinterpret_cast<float2*>(part),
+      reinterpret_cast<unsigned int*>(arrived), n_c, q);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -57,7 +57,9 @@ _SIGNATURES = {
                                       _INT, _VOIDP),
         "gossip_class_expand_small": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
         "gossip_class_expand_split": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
-        "gossip_class_reduce_big": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
+        # x, out, part scratch, arrival counters, n_c, q, stream
+        "gossip_class_reduce_big": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _LL,
+                                    _INT, _VOIDP),
         "gossip_class_expand_big": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
     },
     "exchange": {
@@ -99,9 +101,9 @@ _SIGNATURES = {
         # x, idx, out, tiles, o, b, cr, tau_in, tau_slab, unit, stream
         "gossip_route_stage": (_VOIDP, _VOIDP, _VOIDP, _LL, _INT, _INT,
                                _INT, _INT, _INT, _INT, _VOIDP),
-        # x, idx, mask, out, nt_out, k, unit, stream
+        # x, idx, mask, out, nt_out, k, unit, device, stream
         "gossip_route_final": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _LL, _INT,
-                               _INT, _VOIDP),
+                               _INT, _INT, _VOIDP),
     },
 }
 

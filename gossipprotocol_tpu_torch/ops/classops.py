@@ -141,21 +141,30 @@ def class_reduce_split_plain(region: torch.Tensor, c: int) -> torch.Tensor:
     return out.reshape(-1)
 
 
-# the split kernel's scratch per (device, stream, cap, q): the row
-# partials (float2 [cap, q]) and the per-slot arrival counters, zeroed
-# once here; every launch leaves the counters at zero again. Launches on
-# one stream run in order, so they may share it; another stream gets its
-# own.
-_SPLIT_SCRATCH: dict = {}
+# the scratch of the spread folds (class_reduce_split, class_reduce_big)
+# per (device, stream, nodes, q): the row partials (float2 [nodes, q]) and
+# the per-node arrival counters, zeroed once here; every launch leaves the
+# counters at zero again. Launches on one stream run in order, so they
+# may share it, both kernels alike; another stream gets its own. A CUDA
+# graph's launches use the scratch of the stream it was captured on (so
+# it is not replayed while a fold runs there), made by an eager call
+# there first: made during the capture, the zeroing would run only at
+# replay and an eager call before it would read uninitialised counters,
+# so that raises.
+_FOLD_SCRATCH: dict = {}
 
 
-def _split_scratch(device: torch.device, stream: int, cap: int, q: int):
-    key = (device, stream, cap, q)
-    if key not in _SPLIT_SCRATCH:
-        _SPLIT_SCRATCH[key] = (
-            torch.empty(2 * cap * q, dtype=torch.float32, device=device),
-            torch.zeros(cap, dtype=torch.int32, device=device))
-    return _SPLIT_SCRATCH[key]
+def _fold_scratch(device: torch.device, stream: int, nodes: int, q: int):
+    key = (torch.device(device), stream, nodes, q)
+    if key not in _FOLD_SCRATCH:
+        if key[0].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "class fold: no scratch for this stream yet; call the fold "
+                "once on the capture stream before capturing it")
+        _FOLD_SCRATCH[key] = (
+            torch.empty(2 * nodes * q, dtype=torch.float32, device=device),
+            torch.zeros(nodes, dtype=torch.int32, device=device))
+    return _FOLD_SCRATCH[key]
 
 
 def class_reduce_split(region: torch.Tensor, c: int) -> torch.Tensor:
@@ -170,7 +179,7 @@ def class_reduce_split(region: torch.Tensor, c: int) -> torch.Tensor:
     partials written to a ``[cap, q]`` scratch, and each node slot
     left-folded in ascending j by the last block to finish its rows (a
     per-slot arrival counter, which that block resets). The scratch is
-    cached per stream (:func:`_split_scratch`)."""
+    cached per stream (:func:`_fold_scratch`)."""
     q, cap = _split_geometry(region.numel(), c)
     if region.device.type == "cpu":
         return class_reduce_split_plain(region, c)
@@ -178,7 +187,7 @@ def class_reduce_split(region: torch.Tensor, c: int) -> torch.Tensor:
     require_aligned(region, "class_reduce_split")
     out = torch.empty(2 * cap, dtype=torch.float32, device=region.device)
     stream = build.stream_handle(region.device)
-    part, arrived = _split_scratch(region.device, stream, cap, q)
+    part, arrived = _fold_scratch(region.device, stream, cap, q)
     lib = build.library("classops")
     rc = lib.gossip_class_reduce_split(
         region.data_ptr(), out.data_ptr(), part.data_ptr(),
@@ -354,8 +363,12 @@ def class_reduce_big(region: torch.Tensor, c: int) -> torch.Tensor:
 
     On CUDA: ``csrc/classops.cu`` ``reduce_big_kernel``, replacing the
     Pallas kernel at ``gossipprotocol_tpu/ops/classops.py:265``. Bound by
-    bytes; one block per node runs the node's blocks of rows in
-    ascending order (the TPU carries them across grid steps)."""
+    bytes. One launch, the split design of :func:`class_reduce_split` in
+    node-major order: the row folds spread over blocks of 64 rows into a
+    ``[n_c, q]`` scratch, and the last block to finish a node folds its
+    partials in the order above (one thread per window, then per row
+    block, then per node). The scratch is cached per stream
+    (:func:`_fold_scratch`)."""
     q, _ = _big_geometry(c, "class_reduce_big")
     if region.numel() % (q * LANES):
         raise ValueError(f"class_reduce_big: {region.numel()} values is "
@@ -366,10 +379,12 @@ def class_reduce_big(region: torch.Tensor, c: int) -> torch.Tensor:
     require_aligned(region, "class_reduce_big")
     n_c = region.numel() // (q * LANES)
     out = torch.empty(2 * n_c, dtype=torch.float32, device=region.device)
+    stream = build.stream_handle(region.device)
+    part, arrived = _fold_scratch(region.device, stream, n_c, q)
     lib = build.library("classops")
     rc = lib.gossip_class_reduce_big(
-        region.data_ptr(), out.data_ptr(), n_c, q,
-        build.stream_handle(region.device))
+        region.data_ptr(), out.data_ptr(), part.data_ptr(),
+        arrived.data_ptr(), n_c, q, stream)
     build.check(lib, rc, "class_reduce_big")
     LAUNCHES["class_reduce_big"] += 1
     return out

@@ -310,23 +310,27 @@ def final_call(fin: DeviceFinal, nt_out: int, cur: torch.Tensor,
     """The final K-merge: ``cur`` f32 ``[>= nt_out*k, 128, 128]`` -> f32
     ``[nt_out, 128, 128]``.
 
-    On CUDA: ``csrc/route.cu`` ``route_final_kernel``, replacing the
+    On CUDA: ``csrc/route.cu`` ``route_final_pipe_kernel``, replacing the
     Pallas kernel at ``gossipprotocol_tpu/ops/exec.py:193``
-    (``_final_call``). Bound by bytes; one block per output tile keeps
-    its accumulator in registers across the k merges."""
+    (``_final_call``). Bound by bytes; a persistent grid walks the (tile,
+    kk) steps, each step's tile, planes and masks landing by bulk copies
+    in a two-stage shared-memory ring while the step before routes."""
     if cur.device.type == "cpu":
         return final_call_plain(fin, nt_out, cur, unit)
     cur = cur[: nt_out * fin.k]
     _check_pass_args(cur, fin.idx, nt_out * fin.k, nt_out, fin.k, unit,
                      "final_call")
     _check_mask(fin, nt_out)
+    if fin.k < 1 or unit not in (1, 2):
+        raise ValueError(f"final_call: k={fin.k}, unit={unit} (k >= 1, "
+                         "unit 1 or 2)")
     _require_cuda("final_call", cur, fin.idx, fin.mask)
     out = torch.empty((nt_out, LANES, LANES), dtype=torch.float32,
                       device=cur.device)
     lib = build.library("route")
     rc = lib.gossip_route_final(
         cur.data_ptr(), fin.idx.data_ptr(), fin.mask.data_ptr(),
-        out.data_ptr(), nt_out, fin.k, unit,
+        out.data_ptr(), nt_out, fin.k, unit, cur.device.index,
         build.stream_handle(cur.device))
     build.check(lib, rc, "final_call")
     LAUNCHES["final_call"] += 1

@@ -50,7 +50,7 @@ def _graph_seconds(fn, device: torch.device, repeats: int) -> float:
         fn()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # where fn warmed up
         for _ in range(R):
             fn()
     start = torch.cuda.Event(enable_timing=True)

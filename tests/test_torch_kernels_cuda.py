@@ -94,8 +94,8 @@ def test_reduce_split_kernel_calls_in_a_row(cuda):
     torch.cuda.synchronize()
     assert _bits_equal(a, b)
     assert _bits_equal(a, co.class_reduce_split_plain(x, 64 * q))
-    _, arrived = co._split_scratch(x.device, build.stream_handle(x.device),
-                                   cap, q)
+    _, arrived = co._fold_scratch(x.device, build.stream_handle(x.device),
+                                  cap, q)
     assert int(arrived.abs().sum()) == 0
 
 
@@ -310,15 +310,63 @@ def test_route_kernels(cuda, unit, nt, dont_care):
         cur = want
     got = ex.final_call(dp.final, dp.nt_out, cur, unit)
     torch.cuda.synchronize()
-    assert _bits_equal(got, ex.final_call_plain(dp.final, dp.nt_out, cur,
-                                                unit))
+    want = ex.final_call_plain(dp.final, dp.nt_out, cur, unit)
+    assert _bits_equal(got, want)
     assert ex.LAUNCHES["stage_call"] == before["stage_call"] + len(dp.stages)
     assert ex.LAUNCHES["final_call"] == before["final_call"] + 1
+    _check_final_again(dp.final, dp.nt_out, cur, unit, want)
     y = ex.apply_plan(dp, x).view(-1, unit).cpu()
     real = np.flatnonzero(perm >= 0)
     src = x.view(-1, unit).cpu()[torch.from_numpy(perm[real])]
     assert _bits_equal(y[torch.from_numpy(real)], src)
     assert bool((y[torch.from_numpy(np.flatnonzero(perm < 0))] == 0).all())
+
+
+def _check_final_again(fin, nt_out, cur, unit, want):
+    """The final pass twice more in a row (the persistent grid's
+    barriers start afresh), bitwise against ``want``."""
+    from gossipprotocol_tpu_torch.ops import exec as ex
+
+    for _ in range(2):
+        out = ex.final_call(fin, nt_out, cur, unit)
+        torch.cuda.synchronize()
+        assert _bits_equal(out, want)
+
+
+def _random_final(rng, nt_out, k, unit, device):
+    """A final pass with random planes (every decoded index a lane:
+    unit 2's S0 and S2 below 127, since the odd lane adds one) and
+    random masks (an eighth of the slots at k = 3 with no bit set)."""
+    from gossipprotocol_tpu_torch.ops import exec as ex
+
+    iw = 64 if unit == 2 else 128
+    planes = rng.integers(0, 128, (nt_out, k, 3, iw, 128))
+    if unit == 2:
+        planes[:, :, 0::2] = rng.integers(0, 127, (nt_out, k, 2, iw, 128))
+    mask = rng.integers(0, 256, (nt_out, k, 16, 128), dtype=np.uint8)
+    return ex.DeviceFinal(k, torch.from_numpy(planes.astype(np.int8)).to(
+        device), torch.from_numpy(mask).to(device))
+
+
+# k >= 3 merges; nt_out 600 is more tiles than one wave of the persistent
+# grid (one block per SM, 132 on the H100)
+@pytest.mark.parametrize("unit,k,nt_out", [(2, 3, 600), (1, 3, 600),
+                                           (2, 5, 140), (1, 1, 7),
+                                           (2, 2, 1)])
+def test_route_final_kernel_wide(cuda, unit, k, nt_out):
+    from gossipprotocol_tpu_torch.ops import exec as ex
+
+    rng = np.random.default_rng(unit * 100 + k)
+    fin = _random_final(rng, nt_out, k, unit, cuda)
+    cur = torch.from_numpy(_mixed(rng, nt_out * k * 16384)).to(cuda).view(
+        -1, 128, 128)
+    want = ex.final_call_plain(fin, nt_out, cur, unit)
+    before = ex.LAUNCHES["final_call"]
+    got = ex.final_call(fin, nt_out, cur, unit)
+    torch.cuda.synchronize()
+    assert ex.LAUNCHES["final_call"] == before + 1
+    assert _bits_equal(got, want)
+    _check_final_again(fin, nt_out, cur, unit, want)
 
 
 @pytest.mark.parametrize("graph", [("imp3D", 20_000, {"seed": 1}),
@@ -423,9 +471,15 @@ def test_sharded_matvec_card_equals_single_card(cuda):
                     assert _bits_equal(g, r)
 
 
+# q <= 32: one window; 40, 100, 1,000: windows shifted by their leading
+# padding; q < 64 packs several nodes into a block of rows, q > 64 spreads
+# a node over several (the last one folds it); q = 8, n_c = 1,024 is
+# power_law 1M's c = 512 hub class, q = 2,048 its c = 131,072 one
 @pytest.mark.parametrize("subnormal", [False, True])
 @pytest.mark.parametrize("q,n_c", [(2, 300), (16, 40), (48, 5), (300, 4),
-                                   (1024, 3), (2048, 2)])
+                                   (1024, 3), (2048, 2), (40, 7), (100, 5),
+                                   (1000, 3), (2048, 1), (1, 200), (8, 1024),
+                                   (2048, 8), (4096, 2)])
 def test_reduce_big_kernel(cuda, q, n_c, subnormal):
     x = torch.from_numpy(_mixed(np.random.default_rng(q * 7 + n_c),
                                 n_c * q * 128, subnormal)).to(cuda)
@@ -433,6 +487,87 @@ def test_reduce_big_kernel(cuda, q, n_c, subnormal):
     got = co.class_reduce_big(x, 64 * q)
     torch.cuda.synchronize()
     assert co.LAUNCHES["class_reduce_big"] == before + 1
+    assert _bits_equal(got, co.class_reduce_big_plain(x, 64 * q))
+
+
+def test_reduce_big_kernel_calls_in_a_row(cuda):
+    """The arrival counters are reset by each launch: two calls give the
+    same bits, one launch each, and leave every counter at zero."""
+    q, n_c = 1000, 6
+    x = torch.from_numpy(_mixed(np.random.default_rng(8),
+                                n_c * q * 128)).to(cuda)
+    before = co.LAUNCHES["class_reduce_big"]
+    a = co.class_reduce_big(x, 64 * q)
+    b = co.class_reduce_big(x, 64 * q)
+    assert co.LAUNCHES["class_reduce_big"] == before + 2
+    torch.cuda.synchronize()
+    assert _bits_equal(a, b)
+    assert _bits_equal(a, co.class_reduce_big_plain(x, 64 * q))
+    _, arrived = co._fold_scratch(x.device, build.stream_handle(x.device),
+                                  n_c, q)
+    assert int(arrived.abs().sum()) == 0
+
+
+def test_reduce_big_kernel_two_streams(cuda):
+    """Calls on two streams at once use a scratch each: both give the
+    plain version's bits."""
+    q, n_c = 2048, 8
+    rng = np.random.default_rng(9)
+    xs = [torch.from_numpy(_mixed(rng, n_c * q * 128)).to(cuda)
+          for _ in range(2)]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    got = []
+    for _ in range(8):
+        got.append(co.class_reduce_big(xs[0], 64 * q))
+        with torch.cuda.stream(side):
+            got.append(co.class_reduce_big(xs[1], 64 * q))
+    torch.cuda.synchronize()
+    want = [co.class_reduce_big_plain(x, 64 * q) for x in xs]
+    for i, g in enumerate(got):
+        assert _bits_equal(g, want[i % 2])
+
+
+def test_reduce_big_kernel_in_a_graph_then_eager(cuda):
+    """A fresh stream's scratch is made by an eager call, never inside a
+    capture: capturing first raises. Warmed up there, the captured fold,
+    an eager call on that stream before the first replay, and the
+    replays all give the plain version's bits."""
+    q, n_c = 1000, 3
+    x = torch.from_numpy(_mixed(np.random.default_rng(10),
+                                n_c * q * 128)).to(cuda)
+    want = co.class_reduce_big_plain(x, 64 * q)
+    fresh = torch.cuda.Stream(cuda)
+    fresh.wait_stream(torch.cuda.current_stream(cuda))
+    key = (x.device, fresh.cuda_stream, n_c, q)
+    co._FOLD_SCRATCH.pop(key, None)
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            co.class_reduce_big(x, 64 * q)
+    assert key not in co._FOLD_SCRATCH
+    with torch.cuda.stream(fresh):
+        warm = co.class_reduce_big(x, 64 * q)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=fresh):
+        captured = co.class_reduce_big(x, 64 * q)
+    with torch.cuda.stream(fresh):
+        eager = co.class_reduce_big(x, 64 * q)
+    fresh.synchronize()
+    assert _bits_equal(warm, want) and _bits_equal(eager, want)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _bits_equal(captured, want)
+
+
+def test_reduce_big_kernel_negative_zero(cuda):
+    """Windows are left folds from +0, so an all -0.0 node sums to +0.0,
+    as in the plain version."""
+    q, n_c = 1000, 2
+    x = torch.full((n_c * q * 128,), -0.0, device=cuda)
+    got = co.class_reduce_big(x, 64 * q)
+    torch.cuda.synchronize()
     assert _bits_equal(got, co.class_reduce_big_plain(x, 64 * q))
 
 
