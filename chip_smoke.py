@@ -16,7 +16,10 @@ Phases (each prints its lines; any failure exits non-zero):
       version's time and one PyTorch library call's, back to back and by
       graph; every bucket gather also with the other evict-first hint
       choice and as the one-level resident gather over the same source
-      (each bitwise equal, each timed);
+      (each bitwise equal, each timed); at imp3D 262,144's gather_pre the
+      L2 random-read ceiling (``bound_l2``: uniformly random reads of a
+      2 MB source at that output count, by ``x[idx]`` and the kernel, by
+      graph);
   (c) the main path end to end through the CLI entry point, in process:
       1M-node imp3D and power_law (bucket gathers, both folds) and a
       262,144-node imp3D (resident gathers), each to convergence, with
@@ -33,9 +36,12 @@ Phases (each prints its lines; any failure exits non-zero):
       converged and round equal (the plain version summing the mean in
       the kernel's order; the largest gap to torch.sum's mean printed).
       K = 16 against the per-round ``--delivery pallas`` path on the
-      card, bitwise; the kernel's time per launch and per round beside
-      its bytes bound, the plain version's time and the per-round path's;
-      the working set against the 50 MB L2;
+      card, bitwise; the kernel's time per launch (back to back and by
+      CUDA graph) and per round beside its bytes bound, the plain
+      version's time and the per-round path's; the phase split of a
+      K = 16 launch under both predicates (the kernel's probe
+      instantiation: microseconds per round in the fold, the update and
+      each barrier); the working set against the 50 MB L2;
   (f) the megakernel path end to end through the CLI (``--delivery
       megakernel --rounds-per-kernel 16``) on both graphs, to convergence:
       the megakernel launched, the per-round gather and fold kernels not;
@@ -223,6 +229,10 @@ KERNELS = {
 # package; they run at the hub classes of this graph, and their launch
 # count is the phase's own
 HUB_GRAPH = "power_law_1M"
+# phase (b): the L2 random-read ceiling is measured at this call's output
+# count (PERF.md row 10), over a 2 MB source
+L2_CEILING_AT = ("imp3D_262144", "gather_pre")
+L2_CEILING_ROWS = 4096
 HUB_KERNELS = ("class_reduce_big", "class_expand_big")
 NO_CLI_PATH = "phase (i) calls: no CLI path in either package"
 # phase (k): the probes' kernels, likewise without a CLI path
@@ -426,6 +436,8 @@ def check_gather(torch, records, gname, which, plan, x2d):
         f"to back, {g_ms:.4f} ms graph (plain {plain_ms:.4f}, library "
         f"x[idx] {lib_ms:.4f}, graph {lib_g_ms:.4f}; bound {b_ms:.4f} by "
         f"{b_by}, {nbytes / 1e6:.1f} MB)")
+    if (gname, which) == L2_CEILING_AT:
+        rec["bound_l2_ms"] = l2_ceiling(torch, plan.idx.shape)
     if plan.mode == "bucket":
         rec.update(bucket_alternatives(torch, gname, which, plan, x2d, gidx,
                                        out_k))
@@ -434,6 +446,35 @@ def check_gather(torch, records, gname, which, plan, x2d):
             f"{'<=' if g_ms <= lib_g_ms else '>'} x[idx] {lib_g_ms:.4f}")
     records.append(rec)
     return out_k
+
+
+def l2_ceiling(torch, shape):
+    """``bound_l2``: the CUDA-graph time of a gather of uniformly random
+    4-byte values from an L2-resident 2 MB source at this call's output
+    count, by ``x[idx]`` and by the resident gather's kernel (the better
+    of the two). What one random L2 read per output costs the card when
+    the indices have no locality; a plan's own indices can do better."""
+    from gossipprotocol_tpu_torch.ops import pallasdelivery as pdm
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    src = torch.rand(L2_CEILING_ROWS, 128, device="cuda", generator=gen)
+    idx = torch.randint(0, src.numel(), tuple(shape), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    flat, gidx = src.reshape(-1), idx.reshape(-1).long()
+    require(bitwise_equal(torch, pdm.gather_resident(src, idx).reshape(-1),
+                          flat[gidx]),
+            "gather_resident differs on random indices")
+    times = {"x[idx]": seconds_per_call(lambda: flat[gidx], src.device),
+             "kernel": seconds_per_call(lambda: pdm.gather_resident(src, idx),
+                                        src.device)}
+    times = {k: t * 1e3 for k, t in times.items()}
+    best = min(times.values())
+    say(f"(b) L2 random-read ceiling: {idx.numel()} uniformly random "
+        f"4-byte reads of a {src.numel() * 4 / 1e6:.2f} MB source by graph: "
+        + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items())
+        + f"; bound_l2 {best:.4f} ms")
+    return best
 
 
 def bucket_alternatives(torch, gname, which, plan, x2d, gidx, out_k):
@@ -748,44 +789,112 @@ def phase_megakernel(torch):
         state0, core, _, _ = build_protocol(topo, RunConfig(
             **DIFFUSION, device="cuda", max_rounds=MK_ROUNDS))
         per_round_ms = cuda_ms(torch, lambda: core(state0, pd), 20)
-        # the bound: each input read once (state, degree, both index
-        # tables, round), each output written once (state, round,
-        # executed); ops: every fold add and ~12 per node, per round
-        rp = mkm._pad_rows(n)
-        state_bytes = 5 * rp * 128 * 4
-        idx_bytes = (pd.gather_pre.idx.numel()
-                     + pd.gather_out.idx.numel()) * 4
-        in_bytes = state_bytes + n * 4 + idx_bytes + 4
-        out_bytes = state_bytes + 8
+        # the bound, from what a launch must move: each input read once
+        # (the n nodes' state, degree and packed-output rank, the pair
+        # sources the fold reads, the class table, round), each output
+        # written once (state, round); ops: every fold add and ~12 per
+        # node, per round. The re-read figure (``stream``) adds, every
+        # round, the pair-source table read again and the share, fold
+        # output and split-partial buffers written and read once each.
+        cls_rows, n_part, _, split_units, small_units = \
+            mkm._class_table(pd)
+        state_bytes = 5 * n * 4
+        pre_bytes = (split_units + small_units) * 128 * 4
+        once_bytes = (2 * state_bytes + 2 * n * 4 + len(cls_rows)
+                      * mkm._CLASS_COLS * 4 + 8)
+        scratch_bytes = 16 * ((n + 1) + (pd.nu + 1) + n_part)
         pair_adds = 2 * pd.m_pairs - 2 * pd.nu
         for k in MK_KS:
+            kern_ms, g_ms = megakernel_times(
+                torch, k, {gname: (mk, n)})[gname]
             ms = mkm.pad_state(pushsum_init(n, device="cuda"))
-            kern_ms = cuda_ms(torch, lambda: mkm.megakernel_rounds(
-                ms, mk, rounds_per_kernel=k, **opts), 20)
             plain_ms = cuda_ms(torch, lambda: mkm.megakernel_rounds_plain(
                 ms, mk, rounds_per_kernel=k, **opts), 1, warmup=1)
-            nbytes = in_bytes + out_bytes
+            nbytes = once_bytes + pre_bytes
             ops = k * (pair_adds + 12 * n)
             b_ms, b_by = bound(nbytes, ops)
-            stream_ms = k * (idx_bytes + 2 * state_bytes + n * 4) \
+            stream_ms = (once_bytes + k * (pre_bytes + scratch_bytes)) \
                 / HBM_BYTES_PER_S * 1e3
             records.append(dict(
                 name="megakernel", graph=gname, call=f"K={k}",
                 shape=[n, k], max_abs_err=worst_err, ms=kern_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, bytes=nbytes, stream_bound_ms=stream_ms,
-                ms_per_round=kern_ms / k, per_round_path_ms=per_round_ms))
-            say(f"(e) megakernel {gname} K={k}: {kern_ms:.4f} ms per launch, "
-                f"{kern_ms / k:.4f} ms per round (per-round pallas path "
-                f"{per_round_ms:.4f} ms per round by CUDA events; plain "
-                f"{plain_ms:.3f} ms per launch); bound {b_ms:.4f} ms by "
-                f"{b_by} (inputs once, {nbytes / 1e6:.1f} MB), "
-                f"{stream_ms:.4f} ms re-reading the tables and state every "
-                "round; library: none (no single PyTorch call runs K "
-                "rounds)")
+                graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, bytes=nbytes,
+                stream_bound_ms=stream_ms, ms_per_round=kern_ms / k,
+                graph_ms_per_round=g_ms / k,
+                per_round_path_ms=per_round_ms))
+            say(f"(e) megakernel {gname} K={k}: {kern_ms:.4f} ms per launch "
+                f"back to back, {g_ms:.4f} ms by graph ({g_ms / k:.4f} ms "
+                f"per round; per-round pallas path {per_round_ms:.4f} ms "
+                f"per round by CUDA events; plain {plain_ms:.3f} ms per "
+                f"launch); bound {b_ms:.4f} ms by {b_by} (inputs once, "
+                f"{nbytes / 1e6:.1f} MB), {stream_ms:.4f} ms re-reading the "
+                f"pair table and moving the scratch every round "
+                f"({stream_ms / g_ms:.3f} of the graph time); library: none "
+                "(no single PyTorch call runs K rounds)")
+        # 4. the phase split (the kernel's probe instantiation), K = 16
+        k16 = next(r for r in records
+                   if r["graph"] == gname and r["call"] == "K=16")
+        for predicate in ("delta", "global"):
+            ms = mkm.pad_state(pushsum_init(n, device="cuda"))
+            popts = dict(opts, predicate=predicate)
+            mkm.megakernel_rounds(ms, mk, rounds_per_kernel=16, **popts)
+            split = mkm.megakernel_phase_split(ms, mk, rounds_per_kernel=16,
+                                               **popts)
+            require(split["executed"] == 16,
+                    f"megakernel probe {gname}: {split['executed']} rounds")
+            k16.setdefault("phase_split", {})[predicate] = split
+            say(f"(e) megakernel {gname} {predicate} K=16 phase split "
+                f"({mkm.THREADS}-thread blocks x {split['grid']}; us per "
+                f"round, mean over blocks [least; largest]): "
+                + mkm.format_phase_split(split))
         del mk, pd, state0
         torch.cuda.empty_cache()
     return records
+
+
+def megakernel_times(torch, k=16, built=None):
+    """``{graph: (ms back to back, ms by graph)}`` of K-round launches that
+    never converge (every round runs): phase (e) step 3's timing.
+    ``built`` maps a graph of ``MK_GRAPHS`` to its ``(delivery, n)``;
+    without it every graph is built here, with whatever
+    ``gossipprotocol_tpu_torch`` is first on ``sys.path``, so that two
+    trees (a change and its parent) are timed by the same code in one
+    call:
+
+        python3 -c "import sys; sys.path[:0] = ['TREE', '.']; import torch,
+            chip_smoke; print(chip_smoke.megakernel_times(torch))"
+    """
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.ops.pallasdelivery import (
+        build_pallas_delivery,
+    )
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    out = {}
+    for gname, (n, topo_name, kw) in MK_GRAPHS.items():
+        if built is not None and gname not in built:
+            continue
+        if built is None:
+            topo = build_topology(topo_name, n, **kw)
+            mk = mkm.build_megakernel_delivery(
+                build_pallas_delivery(topo, device="cuda"))
+            n = topo.num_nodes
+        else:
+            mk, n = built[gname]
+        ms = mkm.pad_state(pushsum_init(n, device="cuda"))
+        launch = lambda: mkm.megakernel_rounds(  # noqa: E731
+            ms, mk, n=n, rounds_per_kernel=k, eps=1e-7,
+            streak_target=2**30, predicate="delta", tol=1e-4)
+        out[gname] = (cuda_ms(torch, launch, 20),
+                      seconds_per_call(launch, ms.s.device) * 1e3)
+        del ms
+        if built is None:
+            del mk
+            torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- (f)
@@ -1912,7 +2021,7 @@ def summarize(records, totals, stream_rate):
             else {}
         if kname in PROBE_KERNELS:
             extra = {"launches_from": NO_CLI_PATH_PROBES, "row": big["row"]}
-        for key in ("graph_ms", "library_graph_ms"):
+        for key in ("graph_ms", "library_graph_ms", "bound_l2_ms"):
             if key in big:
                 extra[key] = big[key]
         out.append(dict(

@@ -22,7 +22,10 @@ constexpr int TILE = 8 * GOSSIP_LANES;  // outputs per plan tile
 // Bound on this card: bytes (index read + output write dominate; the
 // source is read from DRAM about once). The design keeps every DRAM
 // access 16-byte wide and coalesced; only the source loads scatter, and
-// they hit L2.
+// they hit L2: each is one random 4-byte read of a 32-byte L2 sector,
+// which the bytes bound does not see (chip_smoke.py phase (b) measures
+// that ceiling, `bound_l2`, over uniformly random indices; PERF.md row 10
+// keeps the times of the other designs tried, none faster).
 __global__ void gather_resident_kernel(const float* __restrict__ x,
                                        const int4* __restrict__ idx,
                                        float4* __restrict__ out,

@@ -76,13 +76,13 @@ _SIGNATURES = {
     },
     "megakernel": {
         "gossip_megakernel_max_grid": (_VOIDP,),
-        # state (5), round, deg, idx_pre, idx_out, xp, xp_len, yp,
-        # yp_len, y_len, part, red, cnt, bar, classes, ncls, has_split, n,
-        # k, eps, tol, streak_target, global_pred, quorum, grid, stream
+        # state (5), round, deg, pre_node, out_rank, xp2, yp2, part,
+        # arrived, red, cnt, bar, work, probe stamps (null: the plain
+        # kernel), classes, ncls, split_units, small_units, n, nu, k, eps,
+        # tol, streak_target, global_pred, quorum, grid, stream
         "gossip_megakernel": (
-            *(_VOIDP,) * 9, _VOIDP, _LL, _VOIDP, _LL, _LL,
-            *(_VOIDP,) * 5, _INT, _INT, _LL, _INT, _F32, _F32, _INT, _INT,
-            _LL, _INT, _VOIDP),
+            *(_VOIDP,) * 19, _INT, _LL, _LL, _LL, _LL, _INT, _F32, _F32,
+            _INT, _INT, _LL, _INT, _VOIDP),
     },
     "probes": {
         # x, out, tiles, buckets, cr, bucket_major, stream

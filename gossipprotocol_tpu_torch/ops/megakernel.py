@@ -12,8 +12,14 @@ round count are bitwise the per-round trajectory for every K, and
 The state the kernel reads is the JAX kernel's padded block form: s, w,
 ratio f32 and streak, conv int32, each ``[rp, 128]``
 (:class:`MegakernelState`; ``round`` is the run's int32 scalar). On the
-card the kernel updates it IN PLACE and adds ``executed`` to ``round``;
-a chunk pads once, launches, and unpads once (``engine/driver.py``).
+card the kernel updates it IN PLACE (it holds the state in shared memory
+for the launch where it fits and writes it back at the end; past that,
+about 811,000 nodes on 132 SMs, it works on the state in device memory)
+and adds ``executed`` to
+``round``; a chunk pads once, launches, and unpads once
+(``engine/driver.py``). The kernel gathers through compact tables it
+derives once from the delivery's plans (:func:`_pair_tables`); the plans
+themselves stay the JAX package's.
 For tensors on the CPU the wrapper runs the plain PyTorch version,
 :func:`megakernel_rounds_plain`, which replays the per-round path op for
 op with the freeze rule (and returns new tensors).
@@ -36,8 +42,11 @@ from gossipprotocol_tpu_torch.protocols.state import PushSumState
 # launches the kernel; the CPU path launches nothing)
 LAUNCHES = {"megakernel": 0}
 
-THREADS = 256            # csrc/megakernel.cu MK_THREADS
-_CLASS_COLS = 8          # columns of the kernel's class table
+THREADS = 1024           # csrc/megakernel.cu MK_THREADS
+_CLASS_COLS = 10         # columns of the kernel's class table (K_COLS)
+# the phase probe's stamps per block (csrc/megakernel.cu PROBE_HEAD,
+# PROBE_EVENTS per round)
+_PROBE_HEAD, _PROBE_EVENTS = 6, 6
 
 
 def _pad_rows(n: int) -> int:
@@ -121,43 +130,87 @@ def check_megakernel_eligible(pd: PallasDelivery) -> None:
 
 
 def _class_table(pd: PallasDelivery):
-    """``(table rows, split-partial count, has_split)``: per class
-    ``(c, n_c, start_pair, cap, q, out_at, part_at, 0)`` with q = 0 for
-    small classes, ``out_at`` the class's packed-output prefix and
-    ``part_at`` its offset in the split-partial scratch."""
-    rows, out_at, part_at, has_split = [], 0, 0, False
-    for c, n_c, start, _reg_rows, cap in pd.classes:
-        q = 0 if 2 * c <= LANES else (2 * c) // LANES
-        rows.append([c, n_c, start, cap, q, out_at, part_at, 0])
+    """``(table rows, split-partial count, arrival-counter count,
+    split units, small units)``: per class ``(c, n_c, start_pair, cap, q,
+    out_at, part_at, arr_at, unit_at, units)`` with q = 0 for small
+    classes, ``out_at`` the class's packed-output prefix, ``part_at`` and
+    ``arr_at`` its offsets in the split partials and arrival counters, and
+    ``unit_at`` the prefix of its work units among its kind: a small
+    class's unit is 128 pairs (a warp's 16-byte load of four pairs a
+    lane), a split class's two of its q*n_c rows."""
+    rows, out_at, part_at, arr_at = [], 0, 0, 0
+    units_at = {True: 0, False: 0}           # keyed by "is split"
+    for c, n_c, start, reg_rows, cap in pd.classes:
+        split = 2 * c > LANES
+        q = (2 * c) // LANES if split else 0
+        units = q * n_c // 2 if split else -(-n_c * c // 128)
+        if start % 4 or (not split and units * 128 > reg_rows * 64):
+            raise ValueError("megakernel: class region not aligned to "
+                             "the kernel's 128-pair units")
+        rows.append([c, n_c, start, cap, q, out_at, part_at,
+                     arr_at if split else 0, units_at[split], units])
+        units_at[split] += units
         out_at += 2 * n_c
-        if q:
+        if split:
             part_at += q * n_c
-            has_split = True
-    return rows, part_at, has_split
+            arr_at += n_c
+    return rows, part_at, arr_at, units_at[True], units_at[False]
+
+
+def _pair_tables(pd: PallasDelivery):
+    """The compact tables the kernel reads in place of the plans': the
+    source node of every gather-pre pair (``n`` for the zero slot) and
+    the packed fold output of every node (``nu`` for the zero slot).
+    Exact because the plans gather pairs: pre pair k reads flat slots
+    (u, n + u) or the zero slot 2n twice; node i's out slots are
+    (2r, 2r + 1) or the zero slot 2nu twice. Checked here, once, so the
+    kernel's float2 loads fetch exactly the floats the plans name."""
+    n, nu = pd.n, pd.nu
+    pre = pd.gather_pre.idx.view(-1, 2).long()
+    s_i, w_i = pre[:, 0], pre[:, 1]
+    real = s_i < n
+    ok_pre = torch.where(real, w_i == s_i + n,
+                         (s_i == 2 * n) & (w_i == 2 * n))
+    out = pd.gather_out.idx.view(-1)[: 2 * n].long()
+    o_s, o_w = out[:n], out[n:]
+    ok_out = torch.where(o_s < 2 * nu, (o_s % 2 == 0) & (o_w == o_s + 1),
+                         (o_s == 2 * nu) & (o_w == 2 * nu))
+    if not (bool(ok_pre.all()) and bool(ok_out.all())):
+        raise ValueError("megakernel: the gather plans do not gather "
+                         "(s, w) pairs")
+    pre_node = torch.where(real, s_i, torch.full_like(s_i, n))
+    return (pre_node.to(torch.int32).contiguous(),
+            (o_s // 2).to(torch.int32).contiguous())
 
 
 def build_megakernel_delivery(pd: PallasDelivery) -> MegakernelDelivery:
     """Wrap a resident-mode delivery for the K-round kernel (checked
-    loudly here, before any launch); on the card, allocate the kernel's
-    scratch once."""
+    loudly here, before any launch); on the card, derive the kernel's
+    compact pair tables (:func:`_pair_tables`) and allocate its scratch
+    once."""
     check_megakernel_eligible(pd)
     dev = pd.degree.device
     deg_f = pd.degree.to(torch.float32)
     if dev.type == "cpu":
         return MegakernelDelivery(pd, deg_f, None)
-    rows, n_part, has_split = _class_table(pd)
+    rows, n_part, n_arr, split_units, small_units = _class_table(pd)
+    pre_node, out_rank = _pair_tables(pd)
     max_grid = max_grid_size(dev)
     f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     scratch = dict(
-        classes=torch.tensor(rows, dtype=torch.int32,
-                             device=dev).reshape(-1, _CLASS_COLS),
-        xp=torch.zeros(pd.gather_pre.src_rows * LANES, **f32),
-        yp=torch.zeros(pd.gather_out.src_rows * LANES, **f32),
+        classes=torch.tensor(rows, **i32).reshape(-1, _CLASS_COLS),
+        pre_node=pre_node, out_rank=out_rank,
+        xp2=torch.zeros(2 * (pd.n + 1), **f32),
+        yp2=torch.zeros(2 * (pd.nu + 1), **f32),
         part=torch.zeros(max(1, 2 * n_part), **f32),
+        arrived=torch.zeros(max(1, n_arr), **i32),
         red=torch.zeros(2 * max_grid, **f32),
-        cnt=torch.zeros(max_grid, dtype=torch.int32, device=dev),
-        bar=torch.zeros(2, dtype=torch.int32, device=dev),
-        max_grid=max_grid, has_split=has_split,
+        cnt=torch.zeros(2 * max_grid, **i32),
+        bar=torch.zeros(1, **i32),
+        work=torch.zeros(2, dtype=torch.int64, device=dev),
+        max_grid=max_grid, split_units=split_units,
+        small_units=small_units,
     )
     return MegakernelDelivery(pd, deg_f, scratch)
 
@@ -198,6 +251,18 @@ def max_grid_size(device) -> int:
         rc = lib.gossip_megakernel_max_grid(ctypes.addressof(out))
     build.check(lib, rc, "megakernel (occupancy query)")
     return out.value
+
+
+def format_phase_split(split: dict) -> str:
+    """One line of :func:`megakernel_phase_split`'s result: each phase's
+    mean microseconds per round over the blocks, [least; largest]."""
+    parts = [f"{name} {v['mean_us']:.2f} [{v['min_mean_us']:.2f}; "
+             f"{v['max_us']:.2f}]" for name, v in split["phases"].items()]
+    return (", ".join(parts)
+            + f"; round {split.get('round_us', 0.0):.2f}; prologue "
+            f"{split['prologue_us']:.2f} + barrier "
+            f"{split['prologue_barrier_us']:.2f}; launch "
+            f"{split['launch_us']:.1f}")
 
 
 # ---- the plain version ---------------------------------------------------
@@ -343,6 +408,45 @@ def _require_state(ms: MegakernelState, mk: MegakernelDelivery, n: int):
                          "delivery")
 
 
+def _check_options(predicate: str, rounds_per_kernel: int) -> None:
+    if predicate not in ("delta", "global"):
+        raise ValueError("predicate must be 'delta' or 'global'")
+    if rounds_per_kernel < 1:
+        raise ValueError("rounds_per_kernel must be >= 1")
+
+
+def _launch(ms: MegakernelState, mk: MegakernelDelivery, *, n: int,
+            rounds_per_kernel: int, eps: float, streak_target: int,
+            predicate: str, tol: float, quorum: Optional[int],
+            stamps: Optional[torch.Tensor]) -> None:
+    """One cooperative launch of ``csrc/megakernel.cu`` (the probe
+    instantiation when ``stamps`` is given); raises if refused."""
+    _check_options(predicate, rounds_per_kernel)
+    _require_state(ms, mk, n)
+    sc = mk.scratch
+    pd = mk.pd
+    grid = launch_grid(mk)
+    lib = build.library("megakernel")
+    with torch.cuda.device(ms.s.device):   # the launcher's current device
+        rc = lib.gossip_megakernel(
+            ms.s.data_ptr(), ms.w.data_ptr(), ms.ratio.data_ptr(),
+            ms.streak.data_ptr(), ms.conv.data_ptr(), ms.round.data_ptr(),
+            mk.deg_f.data_ptr(), sc["pre_node"].data_ptr(),
+            sc["out_rank"].data_ptr(), sc["xp2"].data_ptr(),
+            sc["yp2"].data_ptr(), sc["part"].data_ptr(),
+            sc["arrived"].data_ptr(), sc["red"].data_ptr(),
+            sc["cnt"].data_ptr(), sc["bar"].data_ptr(),
+            sc["work"].data_ptr(),
+            None if stamps is None else stamps.data_ptr(),
+            sc["classes"].data_ptr(), sc["classes"].shape[0],
+            sc["split_units"], sc["small_units"], n, pd.nu,
+            int(rounds_per_kernel), float(eps), float(tol),
+            int(streak_target), int(predicate == "global"),
+            -1 if quorum is None else int(quorum), grid,
+            build.stream_handle(ms.s.device))
+    build.check(lib, rc, "megakernel")
+
+
 def megakernel_rounds(ms: MegakernelState, mk: MegakernelDelivery, *,
                       n: int, rounds_per_kernel: int, eps: float,
                       streak_target: int, predicate: str, tol: float,
@@ -355,36 +459,72 @@ def megakernel_rounds(ms: MegakernelState, mk: MegakernelDelivery, *,
     the Pallas kernel at ``gossipprotocol_tpu/ops/megakernel.py:279``; the
     state is updated in place and returned. A refused launch raises. For
     CPU tensors: :func:`megakernel_rounds_plain`."""
-    if predicate not in ("delta", "global"):
-        raise ValueError("predicate must be 'delta' or 'global'")
-    if rounds_per_kernel < 1:
-        raise ValueError("rounds_per_kernel must be >= 1")
     if ms.s.device.type == "cpu":
+        _check_options(predicate, rounds_per_kernel)
         return megakernel_rounds_plain(
             ms, mk, n=n, rounds_per_kernel=rounds_per_kernel, eps=eps,
             streak_target=streak_target, predicate=predicate, tol=tol,
             quorum=quorum)
-    _require_state(ms, mk, n)
-    sc = mk.scratch
-    pd = mk.pd
-    grid = launch_grid(mk)
-    lib = build.library("megakernel")
-    rc = lib.gossip_megakernel(
-        ms.s.data_ptr(), ms.w.data_ptr(), ms.ratio.data_ptr(),
-        ms.streak.data_ptr(), ms.conv.data_ptr(), ms.round.data_ptr(),
-        mk.deg_f.data_ptr(),
-        pd.gather_pre.idx.data_ptr(), pd.gather_out.idx.data_ptr(),
-        sc["xp"].data_ptr(), sc["xp"].numel(),
-        sc["yp"].data_ptr(), sc["yp"].numel(), 2 * pd.nu,
-        sc["part"].data_ptr(), sc["red"].data_ptr(), sc["cnt"].data_ptr(),
-        sc["bar"].data_ptr(), sc["classes"].data_ptr(),
-        sc["classes"].shape[0], int(sc["has_split"]), n,
-        int(rounds_per_kernel), float(eps), float(tol), int(streak_target),
-        int(predicate == "global"), -1 if quorum is None else int(quorum),
-        grid, build.stream_handle(ms.s.device))
-    build.check(lib, rc, "megakernel")
+    _launch(ms, mk, n=n, rounds_per_kernel=rounds_per_kernel, eps=eps,
+            streak_target=streak_target, predicate=predicate, tol=tol,
+            quorum=quorum, stamps=None)
     LAUNCHES["megakernel"] += 1
     return ms
+
+
+# the probe's phases: (name, first event, last event) of a round's stamps
+_PHASES = (("fold", 0, 1), ("fold barrier", 1, 2),
+           ("done test + update", 2, 3), ("update barrier", 3, 4),
+           ("mean + second pass", 4, 5))
+
+
+def megakernel_phase_split(ms: MegakernelState, mk: MegakernelDelivery, *,
+                           n: int, rounds_per_kernel: int, eps: float,
+                           streak_target: int, predicate: str, tol: float,
+                           quorum: Optional[int] = None) -> dict:
+    """One launch of the kernel's probe instantiation (the same rounds,
+    state updated in place like :func:`megakernel_rounds`; not counted in
+    ``LAUNCHES``, which counts the main path's kernel), which stamps
+    ``clock64`` per block at every phase boundary and barrier. Returns
+    microseconds per executed round: each phase's mean and largest time
+    over blocks and rounds (a barrier's time is the block's wait, from its
+    arrival to its release; the least wait over the blocks, the last
+    arrival's, is the barrier's own cost), the round, the prologue, and
+    the launch. Cycles convert to time by the launch's ``%globaltimer``
+    span. Measurement only: ``chip_smoke.py`` and ``utils/profiling.py``
+    call it."""
+    import numpy as np
+
+    if ms.s.device.type != "cuda":
+        raise ValueError("megakernel_phase_split: the probe runs on the card")
+    grid = launch_grid(mk)
+    k = int(rounds_per_kernel)
+    width = _PROBE_HEAD + _PROBE_EVENTS * k
+    stamps = torch.zeros(grid * width, dtype=torch.int64,
+                         device=ms.s.device)
+    before = int(ms.round)
+    _launch(ms, mk, n=n, rounds_per_kernel=k, eps=eps,
+            streak_target=streak_target, predicate=predicate, tol=tol,
+            quorum=quorum, stamps=stamps)
+    st = stamps.view(grid, width).cpu().numpy().astype(np.float64)
+    executed = int(ms.round) - before
+    ns_per_cycle = float(np.mean((st[:, 1] - st[:, 0])
+                                 / (st[:, 3] - st[:, 2])))
+    us = ns_per_cycle / 1e3
+    ev = st[:, _PROBE_HEAD:].reshape(grid, k, _PROBE_EVENTS)[:, :executed]
+    out = dict(grid=grid, executed=executed, ns_per_cycle=ns_per_cycle,
+               launch_us=float(np.mean(st[:, 3] - st[:, 2])) * us,
+               prologue_us=float(np.mean(st[:, 4] - st[:, 2])) * us,
+               prologue_barrier_us=float(np.mean(st[:, 5] - st[:, 4])) * us,
+               phases={})
+    if executed:
+        for name, a, b in _PHASES:
+            d = (ev[:, :, b] - ev[:, :, a]) * us
+            out["phases"][name] = dict(mean_us=float(d.mean()),
+                                       max_us=float(d.max()),
+                                       min_mean_us=float(d.min(0).mean()))
+        out["round_us"] = float(np.mean(ev[:, :, 5] - ev[:, :, 0])) * us
+    return out
 
 
 def make_megakernel_round(*, n: int, rounds_per_kernel: int, eps: float,

@@ -28,7 +28,9 @@ Builds the graph and its delivery on ``cuda``, then:
      round, and the host time
      spent enqueuing a round; times the same rounds with CUDA events, and
      reports the device's idle share of that window (1 - busy / event
-     time);
+     time); for the K-round kernel, also its phase split over the same
+     rounds (the kernel's probe instantiation,
+     ``ops/megakernel.py`` ``megakernel_phase_split``);
   2. runs the protocol to convergence once per setting, in mirrored
      order: per chunk size in CHUNKS (``--delivery pallas``), per K in KS
      against the per-round pallas path (``--delivery megakernel``),
@@ -366,7 +368,9 @@ def main(argv=None) -> int:
         make_chunk_runner, make_megakernel_chunk_runner, resolve_device,
         use_megakernel, warm_start,
     )
-    from gossipprotocol_tpu_torch.ops.megakernel import pad_state
+    from gossipprotocol_tpu_torch.ops.megakernel import (
+        format_phase_split, megakernel_phase_split, pad_state,
+    )
     from gossipprotocol_tpu_torch.topology import build_topology
 
     dev = resolve_device("cuda")
@@ -432,6 +436,14 @@ def main(argv=None) -> int:
                 st = core(st, delivery)
 
     table, busy_ms, event_ms, enqueue_ms, idle = _profile_rounds(rounds, dev)
+    split = None
+    if fused:
+        # where a launch's time goes: the kernel's probe instantiation
+        # over the same rounds (clock64 per block at each phase boundary)
+        split = megakernel_phase_split(
+            pad_state(state0), delivery, n=topo.num_nodes,
+            rounds_per_kernel=k, eps=cfg.eps, streak_target=2**30,
+            predicate=cfg.predicate, tol=cfg.tol)
 
     # 2. convergence time against the chunk size, K, or the delivery
     if fused:
@@ -464,6 +476,10 @@ def main(argv=None) -> int:
           f"ms/round by CUDA events, host enqueue {enqueue_ms:.4f} "
           f"ms/round, idle share {idle:.3f}")
     _print_table(table)
+    if split is not None:
+        print(f"megakernel phase split, us per round, mean over "
+              f"{split['grid']} blocks [least; largest]: "
+              f"{format_phase_split(split)}")
     for r in conv:
         print(f"{r['delivery']:10s} K {r['k']:3d} chunk {r['chunk']:4d}: "
               f"{r['rounds']} rounds ({r['executed']} executed), "
@@ -474,7 +490,7 @@ def main(argv=None) -> int:
                enqueue_ms_per_round=enqueue_ms, idle_share=idle,
                kernels=[dict(name=kk, calls_per_round=c, ms_per_round=m)
                         for kk, c, m in table],
-               convergence=conv)
+               convergence=conv, phase_split=split)
     print(json.dumps(out))
     if args.out:
         with open(args.out, "w") as fh:

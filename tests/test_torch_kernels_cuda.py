@@ -251,6 +251,223 @@ def test_megakernel_kernel(cuda, graph, k, predicate):
     assert 0 < int(ms_k.round) < 48  # converged inside the budget
 
 
+def _mk_setup(cuda, name, n, kw):
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology(name, n, **kw)
+    return topo.num_nodes, mkm.build_megakernel_delivery(
+        pdm.build_pallas_delivery(topo, device=cuda))
+
+
+def _mk_equal(ms_k, ms_p):
+    for a, b in zip(ms_k, ms_p):
+        if a.dtype == torch.float32:
+            assert _bits_equal(a, b)
+        else:
+            assert torch.equal(a, b)
+
+
+# graphs wide enough to spread the fold over every block of the grid, so
+# its handed-out half runs (imp3D 30^3; power_law with split classes)
+_MK_WIDE = {"imp3D": ("imp3D", 27_000, {"seed": 1}),
+            "powerlaw": ("power_law", 20_000, {"seed": 2, "m": 4})}
+
+
+@pytest.mark.parametrize("predicate", ["delta", "global"])
+@pytest.mark.parametrize("k", [1, 16])
+@pytest.mark.parametrize("graph", list(_MK_WIDE))
+def test_megakernel_kernel_wide(cuda, graph, k, predicate):
+    """32 rounds on a graph whose fold spans every block, against the
+    plain version: every field bitwise."""
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+
+    n, mk = _mk_setup(cuda, *_MK_WIDE[graph])
+    opts = dict(n=n, rounds_per_kernel=k, eps=1e-6, streak_target=3,
+                predicate=predicate, tol=1e-3)
+    ms_k = mkm.pad_state(pushsum_init(n, device=cuda))
+    ms_p = mkm.pad_state(pushsum_init(n, device=cuda))
+    for _ in range(32 // k):
+        ms_k = mkm.megakernel_rounds(ms_k, mk, **opts)
+        ms_p = mkm.megakernel_rounds_plain(ms_p, mk, **opts,
+                                           mean_grid=mkm.launch_grid(mk))
+    torch.cuda.synchronize()
+    _mk_equal(ms_k, ms_p)
+
+
+@pytest.mark.parametrize("predicate", ["delta", "global"])
+@pytest.mark.parametrize("k", [1, 16])
+@pytest.mark.parametrize("graph", list(_MK_GRAPHS))
+def test_megakernel_kernel_quorum(cuda, graph, k, predicate):
+    """The quorum supervisor: the run stops once that many rows are
+    converged, bitwise where the plain version stops."""
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+
+    n, mk = _mk_setup(cuda, *_MK_GRAPHS[graph])
+    opts = dict(n=n, rounds_per_kernel=k, eps=1e-5, streak_target=2,
+                predicate=predicate, tol=1e-3, quorum=n // 2)
+    ms_k = mkm.pad_state(pushsum_init(n, device=cuda))
+    ms_p = mkm.pad_state(pushsum_init(n, device=cuda))
+    for _ in range(48 // k):
+        ms_k = mkm.megakernel_rounds(ms_k, mk, **opts)
+        ms_p = mkm.megakernel_rounds_plain(ms_p, mk, **opts,
+                                           mean_grid=mkm.launch_grid(mk))
+    torch.cuda.synchronize()
+    _mk_equal(ms_k, ms_p)
+    assert 0 < int(ms_k.round) < 48
+
+
+@pytest.mark.parametrize("predicate", ["delta", "global"])
+@pytest.mark.parametrize("graph", list(_MK_GRAPHS))
+def test_megakernel_kernel_frozen_exit(cuda, graph, predicate):
+    """From an already-converged state the launch runs no round: the
+    state and the round count come back bitwise unchanged."""
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+
+    n, mk = _mk_setup(cuda, *_MK_GRAPHS[graph])
+    opts = dict(n=n, rounds_per_kernel=16, eps=1e-5, streak_target=2,
+                predicate=predicate, tol=1e-3)
+    ms = mkm.pad_state(pushsum_init(n, device=cuda))
+    for _ in range(2):  # a state some rounds in
+        ms = mkm.megakernel_rounds_plain(ms, mk, **opts,
+                                         mean_grid=mkm.launch_grid(mk))
+    ms = ms._replace(conv=torch.ones_like(ms.conv))
+    before = [t.clone() for t in ms]
+    ms = mkm.megakernel_rounds(ms, mk, **opts)
+    torch.cuda.synchronize()
+    _mk_equal(ms, before)
+
+
+@pytest.mark.parametrize("graph", list(_MK_GRAPHS))
+def test_megakernel_kernel_launches_in_a_row(cuda, graph):
+    """Launches of different K back to back on one delivery (its scratch
+    counters carried across launches): 16, 1, 7, 16 rounds, bitwise equal
+    to the plain version after each."""
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+
+    n, mk = _mk_setup(cuda, *_MK_GRAPHS[graph])
+    ms_k = mkm.pad_state(pushsum_init(n, device=cuda))
+    ms_p = mkm.pad_state(pushsum_init(n, device=cuda))
+    for k in (16, 1, 7, 16):
+        opts = dict(n=n, rounds_per_kernel=k, eps=1e-7, streak_target=2**30,
+                    predicate="delta", tol=1e-3)
+        ms_k = mkm.megakernel_rounds(ms_k, mk, **opts)
+        ms_p = mkm.megakernel_rounds_plain(ms_p, mk, **opts)
+        torch.cuda.synchronize()
+        _mk_equal(ms_k, ms_p)
+    assert int(ms_k.round) == 40
+
+
+@pytest.mark.parametrize("graph", list(_MK_WIDE))
+def test_megakernel_kernel_repeatable(cuda, graph):
+    """Five runs on one input, bitwise equal to each other: the fold's
+    handed-out half, the L1-cached gathers and the barrier leave no trace
+    of the schedule in the result."""
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+
+    n, mk = _mk_setup(cuda, *_MK_WIDE[graph])
+    opts = dict(n=n, rounds_per_kernel=16, eps=1e-6, streak_target=3,
+                predicate="global", tol=1e-3)
+    runs = []
+    for _ in range(5):
+        ms = mkm.pad_state(pushsum_init(n, device=cuda))
+        for _ in range(3):
+            ms = mkm.megakernel_rounds(ms, mk, **opts)
+        torch.cuda.synchronize()
+        runs.append(ms)
+    for other in runs[1:]:
+        _mk_equal(other, runs[0])
+
+
+# the largest power_law the default resident bound admits (2n + 1 share
+# values in 8,192 rows), and imp3D 1M under a raised bound, whose node
+# state (7 words a node, 8 nodes a thread at 132 SMs) overflows the shared
+# memory, so the kernel keeps it in device memory
+_MK_LARGE = {"power_law_bound": ("power_law", 524_287, {"seed": 5, "m": 4},
+                                 None),
+             "imp3D_1M_raised": ("imp3D", 1_000_000, {"seed": 1}, 16384)}
+
+
+@pytest.mark.parametrize("graph", list(_MK_LARGE))
+def test_megakernel_kernel_large(cuda, graph, monkeypatch):
+    """Two K = 16 launches at the largest sizes, under both predicates:
+    every field bitwise the plain version's."""
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+
+    name, n0, kw, rows = _MK_LARGE[graph]
+    if rows is not None:
+        monkeypatch.setenv("GOSSIP_TPU_PALLAS_RESIDENT_ROWS", str(rows))
+    n, mk = _mk_setup(cuda, name, n0, kw)
+    grid = mkm.launch_grid(mk)
+    if rows is not None:   # past the shared memory (s_stage alone: 33 KB)
+        slots = -(-n // (grid * mkm.THREADS))
+        assert slots * mkm.THREADS * 28 + 33 * 1024 > 227 * 1024
+    for predicate in ("delta", "global"):
+        opts = dict(n=n, rounds_per_kernel=16, eps=1e-7, streak_target=3,
+                    predicate=predicate, tol=1e-4)
+        ms_k = mkm.pad_state(pushsum_init(n, device=cuda))
+        ms_p = mkm.pad_state(pushsum_init(n, device=cuda))
+        for _ in range(2):
+            ms_k = mkm.megakernel_rounds(ms_k, mk, **opts)
+            ms_p = mkm.megakernel_rounds_plain(ms_p, mk, **opts,
+                                               mean_grid=grid)
+        torch.cuda.synchronize()
+        _mk_equal(ms_k, ms_p)
+
+
+def test_megakernel_phase_split(cuda):
+    """The probe instantiation runs the same rounds (state bitwise equal
+    to the plain kernel's) and reports every phase."""
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+
+    n, mk = _mk_setup(cuda, *_MK_WIDE["powerlaw"])
+    opts = dict(n=n, rounds_per_kernel=16, eps=1e-7, streak_target=2**30,
+                predicate="global", tol=1e-3)
+    a = mkm.pad_state(pushsum_init(n, device=cuda))
+    b = mkm.pad_state(pushsum_init(n, device=cuda))
+    before = mkm.LAUNCHES["megakernel"]
+    split = mkm.megakernel_phase_split(a, mk, **opts)
+    assert mkm.LAUNCHES["megakernel"] == before  # measurement only
+    mkm.megakernel_rounds(b, mk, **opts)
+    torch.cuda.synchronize()
+    _mk_equal(a, b)
+    assert split["executed"] == 16
+    assert set(split["phases"]) == {name for name, *_ in mkm._PHASES}
+    assert all(v["mean_us"] >= 0 for v in split["phases"].values())
+    assert split["round_us"] > 0 and split["launch_us"] > 0
+
+
+# resident sources of 1 row, 8,192 rows (the resident bound) and a 1M-node
+# share source (2,000,001 values, 15,632 rows), each with one plan tile
+_RESIDENT_ROWS = {"one_row": 1, "bound": 8192, "1M_nodes": 15_632}
+
+
+@pytest.mark.parametrize("rows", list(_RESIDENT_ROWS))
+def test_gather_resident_sources(cuda, rows):
+    """The resident gather on random tables (one tile, indices over the
+    whole source, its last slot included): one launch, bitwise equal to
+    its plain version."""
+    src_rows = _RESIDENT_ROWS[rows]
+    rng = np.random.default_rng(src_rows)
+    x2d = torch.from_numpy(_mixed(rng, src_rows * 128)).to(cuda).view(
+        src_rows, 128)
+    idx_np = rng.integers(0, src_rows * 128, pdm.TILE).astype(np.int32)
+    idx_np[-1] = src_rows * 128 - 1
+    idx = torch.from_numpy(idx_np).to(cuda).view(1, 8, 128)
+    before = pdm.LAUNCHES["gather_resident"]
+    out = pdm.gather_resident(x2d, idx)
+    torch.cuda.synchronize()
+    assert pdm.LAUNCHES["gather_resident"] == before + 1
+    assert _bits_equal(out, pdm.gather_resident_plain(x2d, idx))
+
+
 # ---- the routed slice: expand kernels, Clos stage and final passes -----
 
 @pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32, 64])
