@@ -64,9 +64,10 @@ Phases (each prints its lines; any failure exits non-zero):
       the 4-shard plans built once per graph through the plan cache (build seconds, exchange bytes per
       round, table bytes, peak device memory after placement); the
       exchange kernel at the real slab shapes — f32, bf16, int8 and the
-      int8 wire's [S, 1] scales, both schedules — bitwise against its
-      plain version and ``exchange_plain``, with its time (back to back
-      and by graph), bytes bound, plain time and one PyTorch call's
+      int8 wire's [S, 1] scales, both schedules, each one launch —
+      bitwise against its plain version and ``exchange_plain``, with its
+      time (back to back and by graph), bytes bound, plain time and one
+      PyTorch call's
       (``transpose(0, 1).contiguous()`` of the stacked slabs, both ways);
       the 4-shard matvec on every transport
       bitwise against the single-card routed matvec (phase (g)'s outputs
@@ -75,7 +76,8 @@ Phases (each prints its lines; any failure exits non-zero):
       ``routed``, and ``pallas --exchange-overlap``), each converging in
       the single-card pallas run's round count with its printed estimate
       error (a stop one round apart prints the gap of the global mean,
-      summed in shard order), exchange launches counted;
+      summed in shard order), exchange launches counted (the ring run
+      launching the kernel as often as the one-launch run);
   (i) the node-major hub kernels (``class_reduce_big``,
       ``class_expand_big``), which no CLI path of either package runs:
       at every hub class of power_law 1M (the first round's fold input of
@@ -108,8 +110,12 @@ Phases (each prints its lines; any failure exits non-zero):
       both ways); the measured stream ceiling is the best graph-replay
       rate over 64 MiB of the streamed copy, ``torch.mul`` and ``copy_``,
       and every kernel record gets ``bound_stream_ms`` (its bytes over
-      that rate) beside the nominal ``bound_ms``; then the three probe
-      entry points in process at their default argv, each exiting 0;
+      that rate) beside the nominal ``bound_ms``; the tile permutation's
+      shared-memory wavefronts a tile (host replay of its pick); rows 15,
+      16, 17 and 19 re-timed against their library calls in alternating
+      rounds of graph replays, beside an empty kernel's (the launch
+      floor); then the three probe entry points in process at their
+      default argv, each exiting 0;
   (l) the reference semantics (``--semantics reference``) through the
       CLI: gossip and the push-sum walk at line, full, 3D and imp3D of
       100, 500 and 1,000 nodes (line push-sum not at 1,000:
@@ -117,6 +123,10 @@ Phases (each prints its lines; any failure exits non-zero):
       (the same argv on ``--device cpu``) with equal round or hop counts
       and bitwise final states; reference gossip at imp3D 1M to
       convergence; the walk's and gossip's ms per executed round.
+
+``slice_times`` (not a phase) times rows 12 and 20 through their
+wrappers by graph replay for whichever tree's package is first on
+``sys.path``, to hold a parent tree against this one in one call.
 
 Each end-to-end run reads the launch counts it caused (reset just before,
 read just after). The plan cache lives in a temporary directory for the
@@ -1184,10 +1194,10 @@ def _as_bytes(torch, t):
 
 
 def exchange_kernel_ms(torch, slabs, overlap, iters=50):
-    """Time of one exchange (one launch, or S on the ring), back to back
-    and as CUDA-graph replays: the launcher called straight with prebuilt
-    pointer tables, since the wrapper's checks and allocation take longer
-    on the host than the copy takes on the card."""
+    """Time of one exchange launch (either schedule), back to back and as
+    CUDA-graph replays: the launcher called straight with prebuilt pointer
+    tables, since the wrapper's checks and allocation take longer on the
+    host than the copy takes on the card."""
     import ctypes
 
     from gossipprotocol_tpu_torch.ops import build
@@ -1198,21 +1208,14 @@ def exchange_kernel_ms(torch, slabs, overlap, iters=50):
     src = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in slabs])
     dst = (ctypes.c_void_p * ns)(*[out[d].data_ptr() for d in range(ns)])
     lib = build.library("exchange")
-    stream = build.stream_handle(out.device)
     row = block * slabs[0].element_size()
-    offsets = list(range(ns)) if overlap else [-1]
 
-    def launch():
-        for o in offsets:
-            lib.gossip_exchange(src, dst, ns, row, o, stream)
-
-    def launch_on_current():  # the capture stream, when captured
-        for o in offsets:
-            lib.gossip_exchange(src, dst, ns, row, o,
-                                build.stream_handle(out.device))
+    def launch():  # on the current stream: the capture stream, when captured
+        lib.gossip_exchange(src, dst, ns, row, int(overlap),
+                            build.stream_handle(out.device))
 
     return (cuda_ms(torch, launch, iters),
-            seconds_per_call(launch_on_current, out.device) * 1e3)
+            seconds_per_call(launch, out.device) * 1e3)
 
 
 def check_exchange(torch, records, gname, slabs, wire):
@@ -1253,8 +1256,8 @@ def check_exchange(torch, records, gname, slabs, wire):
                             library_graph_ms=lib_g_ms, bytes=nbytes))
         say(f"(h) pallas_exchange    {gname} {wire} {sched} "
             f"[{ns}, {ns}, {block}] {slabs[0].dtype}: bitwise ok, "
-            f"{ms:.4f} ms ({'%d launches' % ns if overlap else '1 launch'}"
-            f"; through the wrapper {wrapper_ms:.4f}, host-paced), "
+            f"{ms:.4f} ms (1 launch; through the wrapper "
+            f"{wrapper_ms:.4f}, host-paced), "
             f"{g_ms:.4f} graph, plain {plain_ms:.4f}, library "
             f"transpose(0,1).contiguous() {lib_ms:.4f}, graph "
             f"{lib_g_ms:.4f}, bound {b_ms:.4f} by {b_by}, "
@@ -1397,6 +1400,7 @@ def phase_sharded(torch, pallas_runs, matvecs):
                     f"run {gname} failed (rc {rc})")
             pallas_runs[gname] = (int(rounds.group(1)), err.group(1))
         want_rounds, want_err = pallas_runs[gname]
+        exch_runs = {}
         for name, argv in runs.items():
             argv = argv + ["--device", "cuda", "--max-rounds", MAX_ROUNDS]
             rc, text, etext, counts = _run_cli(argv)
@@ -1444,6 +1448,16 @@ def phase_sharded(torch, pallas_runs, matvecs):
                 f"executed round ({n_exec}), estimate_error {err.group(1)}, "
                 f"launches {counts}")
             totals["pallas_exchange"] += exch
+            exch_runs[name] = (n_exec, exch)
+        # one launch per exchange on both schedules: the ring run, bitwise
+        # the pallas run, launches the kernel as often
+        require(exch_runs["pallas_overlap"] == exch_runs["pallas"],
+                f"sharded CLI runs {gname}: (executed rounds, exchange "
+                f"launches) ring {exch_runs['pallas_overlap']}, one-launch "
+                f"{exch_runs['pallas']}")
+        say(f"(h) {gname}: exchange launches, one-launch "
+            f"{exch_runs['pallas'][1]}, ring {exch_runs['pallas_overlap'][1]}"
+            " (one launch per exchange on both schedules)")
     return records, totals
 
 
@@ -1817,6 +1831,69 @@ def probe_cases(torch, dev="cuda"):
     return cases
 
 
+def perm_wavefronts():
+    """Shared-memory wavefronts a tile of row 20's pick on the probe's
+    routed tile (the host replay): the kept layout, idx2 row-major, and
+    the transpose."""
+    import numpy as np
+
+    from gossipprotocol_tpu_torch.probes.tile_perm_probe import (
+        pick_wavefronts, route_tile_perm_cached, transpose_wavefronts,
+    )
+
+    planes, _ = route_tile_perm_cached(
+        np.random.default_rng(0).permutation(128 * 128))
+    return {"picks": pick_wavefronts(*planes)["total"],
+            "picks_row_major": pick_wavefronts(
+                *planes, transposed=False)["total"],
+            "transpose": transpose_wavefronts()}
+
+
+# rows 15, 16, 17, 19 against their library calls: rounds of CUDA-graph
+# replays, kernel and call in turns
+ALTERNATE_ROWS = (15, 16, 17, 19)
+ALTERNATE_ROUNDS = 6
+
+
+def _spread(ms):
+    ms = sorted(ms)
+    return ms[len(ms) // 2], ms[0], ms[-1]
+
+
+def alternate_small_calls(torch):
+    """Rows 15, 16, 17 and 19 re-timed finely enough to decide whether a
+    kernel loses to its library call: ``ALTERNATE_ROUNDS`` rounds of
+    graph replays, kernel then call and call then kernel in turns, ms to
+    5 decimals as median [least; largest]. A kernel loses only where its
+    least time lies above the call's largest. Beside them the launch
+    floor: an empty kernel's graph replay (``torch.cuda._sleep(0)``)."""
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
+
+    dev = torch.device("cuda")
+    g = lambda fn: seconds_per_call(fn, dev) * 1e3  # noqa: E731
+    cases = [c for c in probe_cases(torch) if c[1] in ALTERNATE_ROWS]
+    floor = [g(lambda: torch.cuda._sleep(0))
+             for _ in range(ALTERNATE_ROUNDS)]
+    say("(k) launch floor, an empty kernel by graph replay: "
+        "%.5f [%.5f; %.5f] ms" % _spread(floor))
+    for name, row, call, kern, _, lib, lib_what, *_ in cases:
+        ks, ls = [], []
+        for rnd in range(ALTERNATE_ROUNDS):
+            pair = ((ks, kern), (ls, lib))
+            for out, fn in (pair if rnd % 2 == 0 else pair[::-1]):
+                out.append(g(fn))
+        km, kl, kh = _spread(ks)
+        lm, ll, lh = _spread(ls)
+        verdict = ("kernel slower beyond the spread" if kl > lh else
+                   "call slower beyond the spread" if ll > kh else
+                   "within the spread")
+        say(f"(k) row {row} {name} {call}: kernel {km:.5f} [{kl:.5f}; "
+            f"{kh:.5f}] ms, {lib_what} {lm:.5f} [{ll:.5f}; {lh:.5f}] ms "
+            f"by graph over {ALTERNATE_ROUNDS} rounds: {verdict}")
+    del cases
+    torch.cuda.empty_cache()
+
+
 def phase_probes(torch):
     """Phase (k): the probes' kernels at the JAX probes' default shapes,
     then the three probe entry points in process."""
@@ -1893,6 +1970,15 @@ def phase_probes(torch):
         f"{stream_rate / HBM_BYTES_PER_S:.4f} of the nominal "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     say(f"(k) launches {counts} ({NO_CLI_PATH_PROBES})")
+    wf = perm_wavefronts()
+    say(f"(k) row 20 pick layout: idx2 staged transposed, {wf['picks']} "
+        f"shared-memory wavefronts a tile ({wf['picks_row_major']} with "
+        f"idx2 row-major) + {wf['transpose']} for the transpose "
+        "(host replay, tile_perm_probe.pick_wavefronts)")
+    for r in records:
+        if r["row"] == 20:
+            r["wavefronts"] = wf
+    alternate_small_calls(torch)
     for mod in (slab_probe, route_probe, tile_perm_probe):
         buf = io.StringIO()
         t1 = time.perf_counter()
@@ -1906,6 +1992,72 @@ def phase_probes(torch):
         say(f"(k) {name}: exit 0 in {time.perf_counter() - t1:.1f} s")
     say(f"(k) phase seconds {time.perf_counter() - t0:.1f}")
     return records, counts, stream_rate
+
+
+# ------------------------------------------------- tree against tree
+
+def slice_times(torch, rounds=3):
+    """Rows 12 and 20 through their wrappers, by CUDA-graph replay (the
+    wrapper's host work is not captured): ``pallas_exchange`` on both
+    schedules at phase (h)'s power_law 400,000 slab shape (random slabs:
+    the copy moves bytes) at every wire and the int8 wire's [S, 1] scales,
+    and the tile permutation on phase (k)'s 488 routed tiles, each checked
+    first.
+    Times whatever ``gossipprotocol_tpu_torch`` is first on ``sys.path``,
+    so one call can hold a parent tree against this one, in turns."""
+    import numpy as np
+
+    from gossipprotocol_tpu_torch.ops import pallasdelivery as pdm
+    from gossipprotocol_tpu_torch.ops import probes as pr
+    from gossipprotocol_tpu_torch.probes import seconds_per_call
+    from gossipprotocol_tpu_torch.probes.tile_perm_probe import (
+        route_tile_perm_cached, tile_planes,
+    )
+
+    dev = torch.device("cuda")
+    g = lambda fn: seconds_per_call(fn, dev) * 1e3  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f32 = [torch.randn(SHARDS, 667_008, device=dev, generator=gen)
+           for _ in range(SHARDS)]
+    wires = {"f32": f32, "bf16": [t.to(torch.bfloat16) for t in f32],
+             "int8": [(t * 40).to(torch.int8) for t in f32],
+             "int8-scales": [t[:, :1].contiguous() for t in f32]}
+    for wire, slabs in wires.items():
+        stacked = torch.stack(slabs)
+        for overlap in (False, True):
+            got = pdm.pallas_exchange(slabs, overlap=overlap)
+            want = pdm.exchange_plain(slabs)
+            require(all(torch.equal(a.view(torch.int8), b.view(torch.int8))
+                        for a, b in zip(got, want)),
+                    f"pallas_exchange {wire} overlap {overlap} wrong")
+            ms = [g(lambda: pdm.pallas_exchange(slabs, overlap=overlap))
+                  for _ in range(rounds)]
+            lib = [g(lambda: stacked.transpose(0, 1).contiguous())
+                   for _ in range(rounds)]
+            say(f"(t) pallas_exchange {wire} "
+                f"{'ring' if overlap else 'all'} [{SHARDS}, {SHARDS}, "
+                f"{slabs[0].shape[1]}]: "
+                f"{' '.join('%.5f' % m for m in ms)} ms by graph; "
+                f"library {' '.join('%.5f' % m for m in lib)}")
+        del stacked
+    del f32, wires
+    perm = np.random.default_rng(0).permutation(128 * 128)
+    planes, _ = route_tile_perm_cached(perm)
+    x = torch.randn(PERM_T, 128, 128, device=dev, generator=gen)
+    i1, i2, i3 = tile_planes(planes, PERM_T, dev)
+    flat = x.view(PERM_T, -1)
+    perm_t = torch.from_numpy(perm).to(dev)
+    want = flat[:, perm_t].view(PERM_T, 128, 128)
+    got = pr.probe_tile_perm(x, i1, i2, i3)
+    require(torch.equal(got, want) and bitwise_equal(
+        torch, got, pr.probe_tile_perm_plain(x, i1, i2, i3)),
+        "probe_tile_perm wrong")
+    ms = [g(lambda: pr.probe_tile_perm(x, i1, i2, i3)) for _ in range(rounds)]
+    say(f"(t) probe_tile_perm [{PERM_T}, 128, 128]: "
+        f"{' '.join('%.5f' % m for m in ms)} ms by graph")
+    lib = [g(lambda: flat.index_select(1, perm_t)) for _ in range(rounds)]
+    say(f"(t) x.view(T, -1).index_select(1, perm): "
+        f"{' '.join('%.5f' % m for m in lib)} ms by graph")
 
 
 # ---------------------------------------------------------------- (l)

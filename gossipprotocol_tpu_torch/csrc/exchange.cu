@@ -22,12 +22,17 @@
 // slots of a block arrive as the exact zeros the sender's final routing
 // pass wrote.
 //
-// Two schedules, as on the TPU: offset < 0 copies all S*S rows in one
-// launch (start every copy, then wait for all); offset o >= 0 copies the
-// S rows of ring step o, (s -> (s + o) % S), and the wrapper issues
-// o = 0 .. S-1 as S launches on one stream (the TPU kernel's ring with two
-// copies in flight; on one card the launches simply follow each other).
-// Both move the same bytes.
+// Two schedules, as on the TPU, each one launch: ring = 0 copies the S*S
+// rows in (s, d) order (the TPU kernel started every copy, then waited for
+// all); ring = 1 keeps the JAX ring's order, step o moving row
+// s -> (s + o) % S for every s. The blocks take (step, shard, chunk) units
+// with the step most significant, so the card dispatches step 0's copies
+// first. The TPU ring overlapped one step's remote DMAs with the next; on
+// one card there is nothing to overlap (ShardPushDelivery.receive needs
+// every incoming row before plan_recv), and what one launch gains over
+// one launch per step is a single ramp and tail instead of S. Both
+// schedules run the same copy and move the same bytes; only the map from
+// block to (s, d) differs.
 //
 // Bound on this card: bytes (each row read once and written once; no
 // arithmetic).
@@ -47,15 +52,12 @@ struct PtrTable {
 };
 
 __global__ void exchange_kernel(const __grid_constant__ PtrTable t, int ns,
-                                long long row_bytes, int offset) {
-  int s, d;
-  if (offset < 0) {
-    s = blockIdx.y / ns;
-    d = blockIdx.y % ns;
-  } else {
-    s = blockIdx.y;
-    d = (s + offset) % ns;
-  }
+                                long long row_bytes, int ring) {
+  // blockIdx.y: (s, d) = (y / ns, y % ns), or ring step o = y / ns moving
+  // shard s = y % ns's row to d = (s + o) % ns
+  const int hi = blockIdx.y / ns, lo = blockIdx.y % ns;
+  const int s = ring ? lo : hi;
+  const int d = ring ? (lo + hi) % ns : lo;
   const unsigned char* src = t.src[s] + static_cast<long long>(d) * row_bytes;
   unsigned char* dst = t.dst[d] + static_cast<long long>(s) * row_bytes;
   const unsigned sa = static_cast<unsigned>(reinterpret_cast<uintptr_t>(src) & 15);
@@ -84,12 +86,12 @@ GOSSIP_EXPORT const char* gossip_cuda_error_string(int code) {
 }
 
 // src, dst: ns base pointers each (shard s's slab [ns, row], shard d's
-// output [ns, row]); row_bytes: bytes per row; offset: -1 for every
-// (s, d) pair in one launch, else the ring step o (rows s -> (s+o) % ns).
+// output [ns, row]); row_bytes: bytes per row; ring: 0 for the (s, d)
+// order, 1 for the ring's step order. One launch either way.
 GOSSIP_EXPORT int gossip_exchange(void* const* src, void* const* dst,
-                                  int ns, long long row_bytes, int offset,
+                                  int ns, long long row_bytes, int ring,
                                   void* stream) {
-  if (ns < 1 || ns > MAX_SHARDS || offset >= ns || row_bytes < 0)
+  if (ns < 1 || ns > MAX_SHARDS || (ring != 0 && ring != 1) || row_bytes < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (row_bytes == 0) return 0;
   PtrTable t;
@@ -106,10 +108,9 @@ GOSSIP_EXPORT int gossip_exchange(void* const* src, void* const* dst,
   long long gx = (row_bytes + per_block - 1) / per_block;
   if (gx < 1) gx = 1;
   if (gx > 65535) gx = 65535;
-  const dim3 grid(static_cast<unsigned>(gx),
-                  static_cast<unsigned>(offset < 0 ? ns * ns : ns));
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(ns * ns));
   exchange_kernel<<<grid, EXCHANGE_THREADS, 0,
                     static_cast<cudaStream_t>(stream)>>>(t, ns, row_bytes,
-                                                         offset);
+                                                         ring);
   return static_cast<int>(cudaGetLastError());
 }

@@ -138,22 +138,66 @@ __global__ void gather_lanes_kernel(const float* __restrict__ x,
 //
 // The three gathers and two transposes compose into one read per output,
 // as csrc/route.cu composes the Clos stage: with k = idx3[r, c] and
-// r2 = idx2[k, r], Y[r, c] = X[r2, idx1[r2, k]]. One block per tile
-// stages the tile (64 KB) and the idx1 and idx2 planes (16 KB each, int8)
-// in shared memory with 16-byte loads — 96 KB, above the 48 KB a block
-// gets without the opt-in, so the launcher raises the limit once — then
-// reads idx3 and writes Y in row order, coalesced. Indices are signed
-// bytes whose values lie in 0..127.
+// r2 = idx2[k, r], Y[r, c] = X[r2, idx1[r2, k]]. The tile (64 KB) and the
+// idx1 and idx2 planes (16 KB each, int8) are staged in shared memory;
+// idx3 is read and Y written in row order, coalesced 16-byte accesses.
+// Indices are signed bytes whose values lie in 0..127. Bound on this
+// card: bytes (11 a tile element).
+//
+// What limits it is shared memory. A warp's 32 lanes share the output row
+// r and read idx2[k, r] at 32 distinct k: row-major, those bytes lie 128
+// apart, 32 words of one bank, a 32-way conflict on every read. So idx2
+// is staged transposed, s2T[r * 128 + k] = idx2[k, r]: the warp's bytes
+// then lie in one 128-byte row, 32 banks, and the pick's three reads cost
+// about 3,800 wavefronts a tile instead of about 19,700 (the replay in
+// probes/tile_perm_probe.py pick_wavefronts). The transposing pass moves
+// 4 x 4 byte blocks with a diagonal lane map, conflict-free both ways.
+//
+// One block of 512 threads per tile stages the tile and both planes with
+// 16-byte loads (unrolled, so each thread has all 12 of its loads in
+// flight before it stores any), transposes idx2, and picks. 112 KB of
+// shared memory, two blocks an SM: one block's loads overlap the other's
+// picks. (A persistent grid walking tiles through a two-stage ring of TMA
+// bulk copies, and this kernel with its loads as bulk copies, both ran
+// 1-3 % slower on the H100: PERF.md §6 row 20.)
 constexpr int PERM_THREADS = 512;
 constexpr int TILE_ELEMS = GOSSIP_LANES * GOSSIP_LANES;
-constexpr int PERM_SMEM = TILE_ELEMS * 4 + 2 * TILE_ELEMS;
+constexpr int PERM_SMEM = TILE_ELEMS * 4 + 3 * TILE_ELEMS;
 
 __device__ __forceinline__ float perm_pick(const float* xs,
                                            const signed char* s1,
-                                           const signed char* s2, int k,
+                                           const signed char* s2t, int k,
                                            int r) {
-  const int r2 = s2[k * GOSSIP_LANES + r];
+  const int r2 = s2t[r * GOSSIP_LANES + k];
   return xs[r2 * GOSSIP_LANES + s1[r2 * GOSSIP_LANES + k]];
+}
+
+// s2 [k][r] (row-major, shared) -> s2t[r][k]: block b of the 32 x 32
+// grid of 4 x 4 byte blocks is (kb, q) with q = b % 32 and
+// kb = (q + b / 32) % 32, so a warp's reads (rows 4kb + i, word q) and
+// writes (rows 4q + j, word kb) each land in 32 distinct banks
+__device__ __forceinline__ void transpose_idx2(signed char* s2t,
+                                               const signed char* s2) {
+  const unsigned* src = reinterpret_cast<const unsigned*>(s2);
+  unsigned* dst = reinterpret_cast<unsigned*>(s2t);
+  constexpr int W = GOSSIP_LANES / 4;  // words a row
+  for (int b = threadIdx.x; b < W * W; b += PERM_THREADS) {
+    const int q = b % W;
+    const int kb = (q + b / W) % W;
+    const unsigned a0 = src[(4 * kb + 0) * W + q];
+    const unsigned a1 = src[(4 * kb + 1) * W + q];
+    const unsigned a2 = src[(4 * kb + 2) * W + q];
+    const unsigned a3 = src[(4 * kb + 3) * W + q];
+    // byte j of a_i is s2[4kb + i][4q + j]; byte i of word j is the same
+    const unsigned t0 = __byte_perm(a0, a1, 0x5140);
+    const unsigned t1 = __byte_perm(a0, a1, 0x7362);
+    const unsigned t2 = __byte_perm(a2, a3, 0x5140);
+    const unsigned t3 = __byte_perm(a2, a3, 0x7362);
+    dst[(4 * q + 0) * W + kb] = __byte_perm(t0, t2, 0x5410);
+    dst[(4 * q + 1) * W + kb] = __byte_perm(t0, t2, 0x7632);
+    dst[(4 * q + 2) * W + kb] = __byte_perm(t1, t3, 0x5410);
+    dst[(4 * q + 3) * W + kb] = __byte_perm(t1, t3, 0x7632);
+  }
 }
 
 __global__ void __launch_bounds__(PERM_THREADS)
@@ -164,16 +208,24 @@ tile_perm_kernel(const float* __restrict__ x, const signed char* __restrict__ i1
   float* xs = reinterpret_cast<float*>(smem);
   signed char* s1 = reinterpret_cast<signed char*>(xs + TILE_ELEMS);
   signed char* s2 = s1 + TILE_ELEMS;
+  signed char* s2t = s2 + TILE_ELEMS;
   const long long base = blockIdx.x * static_cast<long long>(TILE_ELEMS);
   const float4* xt = reinterpret_cast<const float4*>(x + base);
-  for (int e = threadIdx.x; e < TILE_ELEMS / 4; e += PERM_THREADS)
+#pragma unroll
+  for (int i = 0; i < TILE_ELEMS / 4 / PERM_THREADS; ++i) {
+    const int e = i * PERM_THREADS + threadIdx.x;
     reinterpret_cast<float4*>(xs)[e] = __ldg(xt + e);
+  }
   const int4* a1 = reinterpret_cast<const int4*>(i1 + base);
   const int4* a2 = reinterpret_cast<const int4*>(i2 + base);
-  for (int e = threadIdx.x; e < TILE_ELEMS / 16; e += PERM_THREADS) {
+#pragma unroll
+  for (int i = 0; i < TILE_ELEMS / 16 / PERM_THREADS; ++i) {
+    const int e = i * PERM_THREADS + threadIdx.x;
     reinterpret_cast<int4*>(s1)[e] = __ldg(a1 + e);
     reinterpret_cast<int4*>(s2)[e] = __ldg(a2 + e);
   }
+  __syncthreads();
+  transpose_idx2(s2t, s2);
   __syncthreads();
   const char4* a3 = reinterpret_cast<const char4*>(i3 + base);
   float4* ot = reinterpret_cast<float4*>(out + base);
@@ -181,10 +233,10 @@ tile_perm_kernel(const float* __restrict__ x, const signed char* __restrict__ i1
     const char4 k = __ldg(a3 + e);
     const int r = e / ROW4;
     float4 v;
-    v.x = perm_pick(xs, s1, s2, k.x, r);
-    v.y = perm_pick(xs, s1, s2, k.y, r);
-    v.z = perm_pick(xs, s1, s2, k.z, r);
-    v.w = perm_pick(xs, s1, s2, k.w, r);
+    v.x = perm_pick(xs, s1, s2t, k.x, r);
+    v.y = perm_pick(xs, s1, s2t, k.y, r);
+    v.z = perm_pick(xs, s1, s2t, k.z, r);
+    v.w = perm_pick(xs, s1, s2t, k.w, r);
     ot[e] = v;
   }
 }

@@ -63,8 +63,8 @@ _SIGNATURES = {
         "gossip_class_expand_big": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
     },
     "exchange": {
-        # src pointers, dst pointers, shards, row bytes, ring offset
-        # (-1: all pairs), stream
+        # src pointers, dst pointers, shards, row bytes, schedule (0:
+        # (s, d) order, 1: the ring's step order; one launch), stream
         "gossip_exchange": (_PTRS, _PTRS, _INT, _LL, _INT, _VOIDP),
     },
     "gather": {

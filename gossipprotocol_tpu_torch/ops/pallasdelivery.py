@@ -28,6 +28,7 @@ and :func:`exchange_plain`, the one-permutation spelling.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 from typing import NamedTuple, Optional, Tuple
@@ -503,9 +504,10 @@ def pallas_exchange(slabs, overlap: bool = False):
     On CUDA: ``csrc/exchange.cu`` ``exchange_kernel``, replacing the
     Pallas kernel at ``gossipprotocol_tpu/ops/pallasdelivery.py:491``
     (``pallas_call`` at :542). The slabs need not be one tensor: the
-    kernel takes their base pointers. ``overlap=False`` copies every
-    ``(s, d)`` row in one launch; ``overlap=True`` (``--exchange-overlap``)
-    issues the JAX ring order as S launches, one per offset. Bound by
+    kernel takes their base pointers. One launch on either schedule:
+    ``overlap=False`` copies the ``(s, d)`` rows in that order,
+    ``overlap=True`` (``--exchange-overlap``) in the JAX ring's step
+    order, step ``o`` moving row ``s`` to shard ``(s + o) % S``. Bound by
     bytes. A CPU tensor takes :func:`pallas_exchange_plain`."""
     slabs, ns, block = _check_slabs(slabs, "pallas_exchange")
     dev = slabs[0].device
@@ -521,15 +523,11 @@ def pallas_exchange(slabs, overlap: bool = False):
             raise ValueError("pallas_exchange: expected contiguous slabs")
     out = torch.empty((ns, ns, block), dtype=slabs[0].dtype, device=dev)
     outs = list(out.unbind(0))
-    import ctypes
-
     src = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in slabs])
     dst = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in outs])
-    row_bytes = block * slabs[0].element_size()
     lib = build.library("exchange")
-    stream = build.stream_handle(dev)
-    for offset in (range(ns) if overlap else (-1,)):
-        rc = lib.gossip_exchange(src, dst, ns, row_bytes, offset, stream)
-        build.check(lib, rc, "pallas_exchange")
-        LAUNCHES["pallas_exchange"] += 1
+    rc = lib.gossip_exchange(src, dst, ns, block * slabs[0].element_size(),
+                             int(overlap), build.stream_handle(dev))
+    build.check(lib, rc, "pallas_exchange")
+    LAUNCHES["pallas_exchange"] += 1
     return outs

@@ -151,6 +151,57 @@ def tile_planes(planes, tiles: int, device) -> list:
         a.astype(np.int8), (tiles, 128, 128)))).to(device) for a in planes]
 
 
+# --------------------------------------------------------------------------
+# shared-memory bank conflicts of the kernel's reads, replayed on the host
+# --------------------------------------------------------------------------
+
+def bank_wavefronts(words: np.ndarray) -> int:
+    """Wavefronts of warp requests to shared memory: ``words`` is
+    ``[requests, 32]``, the 4-byte word each lane touches. A request takes
+    as many wavefronts as the most distinct words any one of the 32 banks
+    holds (lanes on one word share it)."""
+    w = np.sort(np.asarray(words, np.int64), axis=1)
+    new = np.ones_like(w, dtype=bool)
+    new[:, 1:] = w[:, 1:] != w[:, :-1]
+    per_bank = np.zeros((w.shape[0], 32), np.int64)
+    req = np.broadcast_to(np.arange(w.shape[0])[:, None], w.shape)
+    np.add.at(per_bank, (req[new], w[new] % 32), 1)
+    return int(per_bank.max(axis=1).sum())
+
+
+def pick_wavefronts(idx1, idx2, idx3, transposed: bool = True) -> dict:
+    """Wavefronts a tile of ``csrc/probes.cu``'s pick reads, per read and
+    in total, on one tile's planes (``[128, 128]``, values 0..127): each
+    warp holds one output row r, lane l its four outputs 4l..4l+3, one
+    request per output of the four. idx2 row-major (``transposed=False``,
+    the byte ``idx2[k, r]`` at ``k * 128 + r``) or staged transposed
+    (at ``r * 128 + k``); idx1 row-major bytes, the tile f32 words."""
+    i1, i2, i3 = (np.asarray(a, np.int64) for a in (idx1, idx2, idx3))
+    r = np.arange(128)[:, None, None]
+    k = i3.reshape(128, 32, 4).transpose(0, 2, 1)  # [r, output j, lane]
+    r = np.broadcast_to(r, k.shape)
+    r2 = i2[k, r]
+    s2 = (r * 128 + k) if transposed else (k * 128 + r)
+    out = {"s2": bank_wavefronts((s2 // 4).reshape(-1, 32)),
+           "s1": bank_wavefronts(((r2 * 128 + k) // 4).reshape(-1, 32)),
+           "xs": bank_wavefronts((r2 * 128 + i1[r2, k]).reshape(-1, 32))}
+    out["total"] = sum(out.values())
+    return out
+
+
+def transpose_wavefronts() -> int:
+    """Wavefronts a tile of the kernel's idx2 transpose: 4 x 4 byte
+    blocks (kb, q), q = b % 32 and kb = (q + b // 32) % 32 for block b,
+    warps of 32 consecutive b; four word reads (rows 4kb + i, word q) and
+    four word writes (rows 4q + j, word kb) each."""
+    b = np.arange(1024).reshape(32, 32)
+    q = b % 32
+    kb = (q + b // 32) % 32
+    reads = [(4 * kb + i) * 32 + q for i in range(4)]
+    writes = [(4 * q + j) * 32 + kb for j in range(4)]
+    return bank_wavefronts(np.concatenate(reads + writes))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tiles", type=int, default=488)  # ~8M elements

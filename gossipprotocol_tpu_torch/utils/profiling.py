@@ -10,7 +10,8 @@ megakernel's K cost (the port's counterpart of
     python -m gossipprotocol_tpu_torch.utils.profiling \\
         --nodes 1000000 --topology power_law --delivery routed
     python -m gossipprotocol_tpu_torch.utils.profiling \\
-        --nodes 1000000 --topology imp3D --delivery pallas --devices 4
+        --nodes 1000000 --topology imp3D --delivery pallas --devices 4 \\
+        [--exchange-overlap]
     python -m gossipprotocol_tpu_torch.utils.profiling \\
         --nodes 1000000 --topology imp3D --algorithm gossip
     python -m gossipprotocol_tpu_torch.utils.profiling \\
@@ -360,8 +361,13 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds-per-kernel", type=int, default=1)
     ap.add_argument("--devices", type=int, default=1,
                     help="shards of the push design (pallas or routed)")
+    ap.add_argument("--exchange-overlap", action="store_true",
+                    help="with --devices S: profile the round on the ring "
+                         "schedule of the exchange kernel")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.exchange_overlap and args.devices < 2:
+        ap.error("--exchange-overlap takes --devices S > 1")
 
     from gossipprotocol_tpu_torch.engine.driver import (
         RunConfig, _drive, build_protocol, device_arrays, draws,
@@ -381,6 +387,7 @@ def main(argv=None) -> int:
                     eps=args.eps, tol=args.tol, max_rounds=20_000,
                     delivery="scatter" if fanout == "one" else args.delivery,
                     rounds_per_kernel=args.rounds_per_kernel,
+                    exchange_overlap=args.exchange_overlap,
                     plan_cache="none")
     if draws(cfg):
         return _profile_drawing(topo, cfg, dev, args.out)

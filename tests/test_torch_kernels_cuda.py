@@ -637,15 +637,14 @@ def test_exchange_kernel(cuda, shards, dtype, overlap):
     """``pallas_exchange`` against its plain version and the one-permutation
     spelling, bitwise (bytes compared, NaN payloads included): every
     dtype, row lengths that are not multiples of 16 bytes, rows starting
-    off a 16-byte boundary, and both schedules."""
+    off a 16-byte boundary, and both schedules, each one launch."""
     esize = torch.empty(0, dtype=dtype).element_size()
     for block, offset in ((37, 0), (1, 0), (4096 + 3, 0), (64, esize)):
         slabs = _exchange_slabs(shards, block, dtype, offset, cuda)
         before = pdm.LAUNCHES["pallas_exchange"]
         got = pdm.pallas_exchange(slabs, overlap=overlap)
         torch.cuda.synchronize()
-        assert pdm.LAUNCHES["pallas_exchange"] == before + (
-            shards if overlap else 1)
+        assert pdm.LAUNCHES["pallas_exchange"] == before + 1
         plain = pdm.pallas_exchange_plain(slabs, overlap=overlap)
         perm = pdm.exchange_plain(slabs)
         for g, p, q in zip(got, plain, perm):
@@ -929,7 +928,9 @@ def test_probe_gather_lanes_kernel(cuda, shape):
     assert _bits_equal(got, pr.probe_gather_lanes_plain(x, idx))
 
 
-@pytest.mark.parametrize("tiles", [1, 7, 488])
+# 200 and 488 tiles: more blocks than the card holds at once (two an SM,
+# 264 on an H100 SXM), and not a multiple of it
+@pytest.mark.parametrize("tiles", [1, 7, 200, 488])
 def test_probe_tile_perm_kernel(cuda, tiles):
     """Arbitrary int8 planes (any index planes compose), a different set
     per tile, with index 127 held in every plane."""
@@ -946,6 +947,30 @@ def test_probe_tile_perm_kernel(cuda, tiles):
     got = pr.probe_tile_perm(x, *planes)
     torch.cuda.synchronize()
     assert _bits_equal(got, pr.probe_tile_perm_plain(x, *planes))
+
+
+def test_probe_tile_perm_kernel_routed(cuda):
+    """The probe's input: one routed permutation broadcast over 488 tiles
+    (the JAX probe's default), exact against the flattened permutation,
+    bitwise against the plain version, one launch; two calls in a row."""
+    from gossipprotocol_tpu_torch.ops import probes as pr
+    from gossipprotocol_tpu_torch.probes.tile_perm_probe import (
+        route_tile_perm_cached, tile_planes,
+    )
+
+    perm = np.random.default_rng(0).permutation(128 * 128)
+    planes, _ = route_tile_perm_cached(perm)
+    x = _randn(cuda, 488, 128, 128, seed=5)
+    i1, i2, i3 = tile_planes(planes, 488, cuda)
+    want = x.view(488, -1)[:, torch.from_numpy(perm).to(cuda)].view(
+        488, 128, 128)
+    for _ in range(2):
+        before = pr.LAUNCHES["probe_tile_perm"]
+        got = pr.probe_tile_perm(x, i1, i2, i3)
+        torch.cuda.synchronize()
+        assert pr.LAUNCHES["probe_tile_perm"] == before + 1
+        assert torch.equal(got, want)
+        assert _bits_equal(got, pr.probe_tile_perm_plain(x, i1, i2, i3))
 
 
 # ---- the reference semantics: card against CPU ---------------------------

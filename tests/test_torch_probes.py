@@ -65,6 +65,11 @@ def _same(port: torch.Tensor, jax_out) -> bool:
                                                     _bits(j))
 
 
+def _bits_equal_torch(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
 def _randn(seed, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(
         np.float32)
@@ -261,6 +266,76 @@ def test_tile_perm_plain_reads_index_127_as_a_lane():
     got = pr.probe_tile_perm(x, full, full, full)
     # Y[r, c] = X[idx2[k, r], idx1[., k]] with every index 127
     assert torch.equal(got, torch.full_like(x, float(x[0, 127, 127])))
+
+
+def _composed_through_transposed(x, idx1, idx2, idx3):
+    """The CUDA kernel's one read per output, spelled in PyTorch: idx2
+    staged transposed (``idx2T[r, k] = idx2[k, r]``), then with
+    ``k = idx3[r, c]`` and ``r2 = idx2T[r, k]``,
+    ``Y[r, c] = X[r2, idx1[r2, k]]``."""
+    t = x.shape[0]
+    k = idx3.long()
+    r2 = torch.gather(idx2.transpose(1, 2).long(), 2, k)
+    c1 = torch.gather(idx1.reshape(t, -1).long(), 1,
+                      (r2 * 128 + k).reshape(t, -1))
+    src = r2.reshape(t, -1) * 128 + c1
+    return torch.gather(x.reshape(t, -1), 1, src).reshape(x.shape)
+
+
+def _arbitrary_planes(t, seed):
+    """Index planes that need not compose to a permutation, a different
+    set per tile, with 127 (the top lane) in row and column 0 of each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(3):
+        p = rng.integers(0, 128, (t, 128, 128)).astype(np.int8)
+        p[:, 0, :] = 127
+        p[:, :, 0] = 127
+        out.append(p)
+    return out
+
+
+@pytest.mark.parametrize("planes", ["routed", "arbitrary"])
+def test_tile_perm_composed_through_transposed_plane(routed, planes):
+    """The kernel's composed formula through the transposed idx2 equals
+    the plain version and the JAX probe's chain in interpret mode,
+    bitwise: on the routed permutation and on arbitrary planes."""
+    perm, routed_planes, _, jprobe = routed
+    T = 2
+    x_np = _randn(11, T, 128, 128)
+    x_np[0, 0, :3] = [-0.0, np.inf, 1e-40]
+    if planes == "routed":
+        i8 = [np.ascontiguousarray(np.broadcast_to(a.astype(np.int8),
+                                                   (T, 128, 128)))
+              for a in routed_planes]
+    else:
+        i8 = _arbitrary_planes(T, 3)
+    x, it = torch.from_numpy(x_np), [torch.from_numpy(a) for a in i8]
+    got = _composed_through_transposed(x, *it)
+    assert _bits_equal_torch(got, pr.probe_tile_perm_plain(x, *it))
+    y = jprobe.make_kernel(T, True)(jnp.asarray(x_np),
+                                    *[jnp.asarray(a) for a in i8])
+    assert _same(got, y)
+    if planes == "routed":
+        assert torch.equal(got, torch.from_numpy(
+            x_np.reshape(T, -1)[:, perm].reshape(T, 128, 128)))
+
+
+def test_tile_perm_wavefront_replay(routed):
+    """The replay of the pick's shared-memory reads on the probe's routed
+    tile: idx2 row-major puts a warp's 32 reads in one bank (32
+    wavefronts each, 16,384 a tile); staged transposed, one each (512).
+    The idx2 transpose is conflict-free (8 requests of 32 warps)."""
+    _, (i1, i2, i3), _, _ = routed
+    row = tile_perm_probe.pick_wavefronts(i1, i2, i3, transposed=False)
+    tr = tile_perm_probe.pick_wavefronts(i1, i2, i3, transposed=True)
+    assert row == {"s2": 16384, "s1": 1467, "xs": 1839, "total": 19690}
+    assert tr == {"s2": 512, "s1": 1467, "xs": 1839, "total": 3818}
+    assert tile_perm_probe.transpose_wavefronts() == 8 * 32
+    # every lane on one word: one wavefront a request
+    zero = np.zeros((128, 128), np.int8)
+    assert tile_perm_probe.pick_wavefronts(zero, zero, zero)["total"] == \
+        3 * 512
 
 
 # ---- the wrappers on the CPU, and the entry points --------------------------
