@@ -110,12 +110,14 @@ Phases (each prints its lines; any failure exits non-zero):
       both ways); the measured stream ceiling is the best graph-replay
       rate over 64 MiB of the streamed copy, ``torch.mul`` and ``copy_``,
       and every kernel record gets ``bound_stream_ms`` (its bytes over
-      that rate) beside the nominal ``bound_ms``; the tile permutation's
-      shared-memory wavefronts a tile (host replay of its pick); rows 15,
-      16, 17 and 19 re-timed against their library calls in alternating
-      rounds of graph replays, beside an empty kernel's (the launch
-      floor); then the three probe entry points in process at their
-      default argv, each exiting 0;
+      that rate) beside the nominal ``bound_ms``; for rows 15, 16 and 19
+      the launch geometry the wrapper picked by size, and at row 16's
+      4,096 rows the L2 random-read ceiling (``bound_l2``, as in (b));
+      the tile permutation's shared-memory wavefronts a tile (host replay
+      of its pick); rows 15, 16, 17 and 19 re-timed against their library
+      calls in alternating rounds of graph replays, beside an empty
+      kernel's (the launch floor); then the three probe entry points in
+      process at their default argv, each exiting 0;
   (l) the reference semantics (``--semantics reference``) through the
       CLI: gossip and the push-sum walk at line, full, 3D and imp3D of
       100, 500 and 1,000 nodes (line push-sum not at 1,000:
@@ -124,8 +126,8 @@ Phases (each prints its lines; any failure exits non-zero):
       and bitwise final states; reference gossip at imp3D 1M to
       convergence; the walk's and gossip's ms per executed round.
 
-``slice_times`` (not a phase) times rows 12 and 20 through their
-wrappers by graph replay for whichever tree's package is first on
+``slice_times`` (not a phase) times rows 12, 15, 16, 19 and 20 through
+their wrappers by graph replay for whichever tree's package is first on
 ``sys.path``, to hold a parent tree against this one in one call.
 
 Each end-to-end run reads the launch counts it caused (reset just before,
@@ -458,7 +460,7 @@ def check_gather(torch, records, gname, which, plan, x2d):
     return out_k
 
 
-def l2_ceiling(torch, shape):
+def l2_ceiling(torch, shape, phase="b"):
     """``bound_l2``: the CUDA-graph time of a gather of uniformly random
     4-byte values from an L2-resident 2 MB source at this call's output
     count, by ``x[idx]`` and by the resident gather's kernel (the better
@@ -480,7 +482,7 @@ def l2_ceiling(torch, shape):
                                         src.device)}
     times = {k: t * 1e3 for k, t in times.items()}
     best = min(times.values())
-    say(f"(b) L2 random-read ceiling: {idx.numel()} uniformly random "
+    say(f"({phase}) L2 random-read ceiling: {idx.numel()} uniformly random "
         f"4-byte reads of a {src.numel() * 4 / 1e6:.2f} MB source by graph: "
         + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items())
         + f"; bound_l2 {best:.4f} ms")
@@ -1735,19 +1737,18 @@ STREAM_ROWS, STREAM_TILE_ROWS = 64 * 2**20 // 512, 1024
 PERM_T = 488
 
 
-def probe_cases(torch, dev="cuda"):
+def probe_cases(torch, dev="cuda", rows=None):
     """``[(kernel, row, call, kern, plain, lib, lib_what, nbytes,
     exact)]`` at every default shape, inputs on ``dev``; ``exact`` a
     second reference the kernel must equal (row 20: the flattened
-    permutation)."""
+    permutation). ``rows``, if given, limits the cases built (and the
+    inputs made) to those PERF.md rows."""
     import numpy as np
 
     from gossipprotocol_tpu_torch.ops import probes as pr
     from gossipprotocol_tpu_torch.probes.tile_perm_probe import (
         route_tile_perm_cached, tile_planes,
     )
-
-    rng = np.random.default_rng(0)
 
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
@@ -1757,24 +1758,34 @@ def probe_cases(torch, dev="cuda"):
         return torch.from_numpy(rng.integers(0, hi, shape).astype(
             np.int32)).to(dev)
 
+    def wanted(row):
+        """Whether to build ``row``; each row draws from its own seed,
+        so a case's inputs do not depend on which others are built."""
+        nonlocal rng
+        rng = np.random.default_rng(row)
+        return rows is None or row in rows
+
+    rng = None
     cases = []
-    x = randn(SLAB_T, 128, 128)
     # the kernel reads and writes only the first B*CR rows of each tile;
     # slab_probe's GB/s line keeps the JAX count, a read of every row
     slab_bytes = 2 * SLAB_T * SLAB_B * SLAB_CR * 512
-    y = torch.empty(SLAB_T, SLAB_B * SLAB_CR, 128, device=dev)
     for row, bm in ((13, True), (14, False)):
+        if not wanted(row):
+            continue
+        x = randn(SLAB_T, 128, 128)
+        y = torch.empty(SLAB_T, SLAB_B * SLAB_CR, 128, device=dev)
         cases.append((
             "probe_slab", row, "bucket-major" if bm else "tile-major",
-            lambda bm=bm: pr.probe_slab(x, SLAB_B, SLAB_CR, bm),
-            lambda bm=bm: pr.probe_slab_plain(x, SLAB_B, SLAB_CR, bm),
-            (lambda: (x[:, :SLAB_B * SLAB_CR] * 2).view(
+            lambda x=x, bm=bm: pr.probe_slab(x, SLAB_B, SLAB_CR, bm),
+            lambda x=x, bm=bm: pr.probe_slab_plain(x, SLAB_B, SLAB_CR, bm),
+            (lambda x=x: (x[:, :SLAB_B * SLAB_CR] * 2).view(
                 SLAB_T, SLAB_B, SLAB_CR, 128).transpose(0, 1).contiguous())
             if bm else
-            (lambda: torch.mul(x[:, :SLAB_B * SLAB_CR], 2, out=y)),
+            (lambda x=x, y=y: torch.mul(x[:, :SLAB_B * SLAB_CR], 2, out=y)),
             "mul then transpose(0, 1).contiguous()" if bm
             else "torch.mul(x[:, :B*CR], 2, out=y)", slab_bytes, None))
-    for mb in RESIDENT_MB:
+    for mb in RESIDENT_MB if wanted(15) else ():
         xb = randn(mb * 2**20 // 512, 128)
         yb = torch.empty_like(xb)
         cases.append(("probe_scale2", 15, f"{mb} MB one tile",
@@ -1782,15 +1793,15 @@ def probe_cases(torch, dev="cuda"):
                       lambda xb=xb: pr.probe_scale2_plain(xb),
                       lambda xb=xb, yb=yb: torch.mul(xb, 2, out=yb),
                       "torch.mul(x, 2, out=y)", 2 * xb.numel() * 4, None))
-    for rows in GATHER_ROWS:
-        xg, ig = randn(rows, 128), ints(rows, (rows, 128))
+    for n in GATHER_ROWS if wanted(16) else ():
+        xg, ig = randn(n, 128), ints(n, (n, 128))
         ig64 = ig.long()
-        cases.append(("probe_gather_rows", 16, f"rows={rows}",
+        cases.append(("probe_gather_rows", 16, f"rows={n}",
                       lambda xg=xg, ig=ig: pr.probe_gather_rows(xg, ig),
                       lambda xg=xg, ig=ig: pr.probe_gather_rows_plain(xg, ig),
                       lambda xg=xg, ig=ig64: torch.gather(xg, 0, ig),
-                      "torch.gather(x, 0, idx)", rows * 128 * 12, None))
-    for cols in GATHER_COLS:
+                      "torch.gather(x, 0, idx)", n * 128 * 12, None))
+    for cols in GATHER_COLS if wanted(17) else ():
         xg, ig = randn(128, cols), ints(cols, (128, cols))
         ig64 = ig.long()
         cases.append(("probe_gather_lanes", 17, f"[128, {cols}]",
@@ -1799,36 +1810,58 @@ def probe_cases(torch, dev="cuda"):
                                                                        ig),
                       lambda xg=xg, ig=ig64: torch.gather(xg, 1, ig),
                       "torch.gather(x, 1, idx)", 128 * cols * 12, None))
-    xg, ig = randn(GRID_T, 4096, 128), ints(128, (GRID_T, 4096, 128))
-    ig64 = ig.long()
-    cases.append(("probe_gather_lanes", 18, f"[{GRID_T}, 4096, 128] tiled",
-                  lambda: pr.probe_gather_lanes(xg, ig),
-                  lambda: pr.probe_gather_lanes_plain(xg, ig),
-                  lambda: torch.gather(xg, 2, ig64),
-                  "torch.gather(x, 2, idx)", xg.numel() * 12, None))
-    xs = randn(STREAM_ROWS, 128)
-    ys = torch.empty_like(xs)
-    cases.append(("probe_scale2", 19, "64 MiB in 1,024-row tiles",
-                  lambda: pr.probe_scale2(xs, STREAM_TILE_ROWS),
-                  lambda: pr.probe_scale2_plain(xs),
-                  lambda: torch.mul(xs, 2, out=ys),
-                  "torch.mul(x, 2, out=y)", 2 * xs.numel() * 4, None))
-    perm = np.random.default_rng(0).permutation(128 * 128)
-    (planes, route_s) = route_tile_perm_cached(perm)
-    say(f"(k) tile permutation routed on the host in {route_s:.1f} s "
-        "(pure-Python matchings, once per process)")
-    xp = randn(PERM_T, 128, 128)
-    i1, i2, i3 = tile_planes(planes, PERM_T, dev)
-    perm_t = torch.from_numpy(perm).to(dev)
-    flat = xp.view(PERM_T, -1)
-    cases.append(("probe_tile_perm", 20, f"[{PERM_T}, 128, 128]",
-                  lambda: pr.probe_tile_perm(xp, i1, i2, i3),
-                  lambda: pr.probe_tile_perm_plain(xp, i1, i2, i3),
-                  lambda: flat.index_select(1, perm_t),
-                  "x.view(T, -1).index_select(1, perm)",
-                  xp.numel() * 11,
-                  lambda: flat[:, perm_t].view(PERM_T, 128, 128)))
+    if wanted(18):
+        xt, it = randn(GRID_T, 4096, 128), ints(128, (GRID_T, 4096, 128))
+        it64 = it.long()
+        cases.append(("probe_gather_lanes", 18,
+                      f"[{GRID_T}, 4096, 128] tiled",
+                      lambda: pr.probe_gather_lanes(xt, it),
+                      lambda: pr.probe_gather_lanes_plain(xt, it),
+                      lambda: torch.gather(xt, 2, it64),
+                      "torch.gather(x, 2, idx)", xt.numel() * 12, None))
+    if wanted(19):
+        xs = randn(STREAM_ROWS, 128)
+        ys = torch.empty_like(xs)
+        cases.append(("probe_scale2", 19, "64 MiB in 1,024-row tiles",
+                      lambda: pr.probe_scale2(xs, STREAM_TILE_ROWS),
+                      lambda: pr.probe_scale2_plain(xs),
+                      lambda: torch.mul(xs, 2, out=ys),
+                      "torch.mul(x, 2, out=y)", 2 * xs.numel() * 4, None))
+    if wanted(20):
+        perm = np.random.default_rng(0).permutation(128 * 128)
+        (planes, route_s) = route_tile_perm_cached(perm)
+        say(f"(k) tile permutation routed on the host in {route_s:.1f} s "
+            "(pure-Python matchings, once per process)")
+        xp = randn(PERM_T, 128, 128)
+        i1, i2, i3 = tile_planes(planes, PERM_T, dev)
+        perm_t = torch.from_numpy(perm).to(dev)
+        flat = xp.view(PERM_T, -1)
+        cases.append(("probe_tile_perm", 20, f"[{PERM_T}, 128, 128]",
+                      lambda: pr.probe_tile_perm(xp, i1, i2, i3),
+                      lambda: pr.probe_tile_perm_plain(xp, i1, i2, i3),
+                      lambda: flat.index_select(1, perm_t),
+                      "x.view(T, -1).index_select(1, perm)",
+                      xp.numel() * 11,
+                      lambda: flat[:, perm_t].view(PERM_T, 128, 128)))
     return cases
+
+
+def probe_geometry(name, t):
+    """The launch geometry the wrapper picks for the output ``t`` of
+    ``name`` (rows 15, 16, 19): ``ops/probes.py`` ``scale2_geometry`` /
+    ``gather_rows_geometry``."""
+    from gossipprotocol_tpu_torch.ops import probes as pr
+
+    sms, l2 = pr._card(t.device.index)
+    if name == "probe_scale2":
+        blocks, stream = pr.scale2_geometry(t.numel() // 4, sms, l2)
+        return (f"flat, {blocks} blocks of {pr.SCALE2_THREADS} threads, "
+                + ("streamed (evict-first loads)" if stream
+                   else "L2-resident (grid-stride)")
+                + f", on {sms} SMs and {l2 / 2**20:g} MiB of L2")
+    chunk = pr.gather_rows_geometry(t.shape[0], sms)
+    return (f"{pr.GATHER_BANDS} bands of 16 columns x "
+            f"{-(-t.shape[0] // chunk)} chunks of {chunk} rows")
 
 
 def perm_wavefronts():
@@ -1871,7 +1904,7 @@ def alternate_small_calls(torch):
 
     dev = torch.device("cuda")
     g = lambda fn: seconds_per_call(fn, dev) * 1e3  # noqa: E731
-    cases = [c for c in probe_cases(torch) if c[1] in ALTERNATE_ROWS]
+    cases = probe_cases(torch, rows=ALTERNATE_ROWS)
     floor = [g(lambda: torch.cuda._sleep(0))
              for _ in range(ALTERNATE_ROUNDS)]
     say("(k) launch floor, an empty kernel by graph replay: "
@@ -1935,6 +1968,14 @@ def phase_probes(torch):
         # compare without the host's enqueue on either side
         lib_g_ms = seconds_per_call(lib, torch.device("cuda")) * 1e3
         b_ms, b_by = bound(nbytes, 0)
+        extra = {}
+        if name in ("probe_scale2", "probe_gather_rows"):
+            say(f"(k) row {row} {name} {call}: kept design "
+                f"{probe_geometry(name, got)}, {g_ms:.5f} ms by graph")
+        if name == "probe_gather_rows" and got.shape[0] == GATHER_ROWS[-1]:
+            # as many reads, in the resident gather's [tiles, 8, 128] shape
+            extra["bound_l2_ms"] = l2_ceiling(
+                torch, (got.numel() // 1024, 8, 128), "k")
         if row == 19:
             # the ceiling is the best graph-replay rate of the kernel and
             # two library streams over the same 64 MiB, so that row 19 is
@@ -1954,7 +1995,7 @@ def phase_probes(torch):
             name=name, graph=f"row {row}", call=call, shape=list(got.shape),
             max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            library_graph_ms=lib_g_ms, bytes=nbytes, row=row))
+            library_graph_ms=lib_g_ms, bytes=nbytes, row=row, **extra))
         say(f"(k) row {row} {name:18s} {call}: bitwise ok, {ms:.4f} ms "
             f"back to back, {g_ms:.4f} ms graph replay "
             f"({nbytes / g_ms / 1e6:.1f} GB/s), plain {plain_ms:.4f}, "
@@ -1996,13 +2037,18 @@ def phase_probes(torch):
 
 # ------------------------------------------------- tree against tree
 
+# rows that slice_times times at phase (k)'s shapes besides 12 and 20
+SLICE_PROBE_ROWS = (15, 16, 19)
+
+
 def slice_times(torch, rounds=3):
-    """Rows 12 and 20 through their wrappers, by CUDA-graph replay (the
-    wrapper's host work is not captured): ``pallas_exchange`` on both
-    schedules at phase (h)'s power_law 400,000 slab shape (random slabs:
-    the copy moves bytes) at every wire and the int8 wire's [S, 1] scales,
-    and the tile permutation on phase (k)'s 488 routed tiles, each checked
-    first.
+    """Rows 12, 15, 16, 19 and 20 through their wrappers, by CUDA-graph
+    replay (the wrapper's host work is not captured): ``pallas_exchange``
+    on both schedules at phase (h)'s power_law 400,000 slab shape (random
+    slabs: the copy moves bytes) at every wire and the int8 wire's [S, 1]
+    scales, the tile permutation on phase (k)'s 488 routed tiles, and the
+    x2 copy and row gather at every phase (k) shape, each checked first
+    and each beside its library call.
     Times whatever ``gossipprotocol_tpu_torch`` is first on ``sys.path``,
     so one call can hold a parent tree against this one, in turns."""
     import numpy as np
@@ -2015,6 +2061,7 @@ def slice_times(torch, rounds=3):
     )
 
     dev = torch.device("cuda")
+    say(f"(t) timing the package at {os.path.dirname(os.path.dirname(pr.__file__))}")
     g = lambda fn: seconds_per_call(fn, dev) * 1e3  # noqa: E731
     gen = torch.Generator(device=dev).manual_seed(0)
     f32 = [torch.randn(SHARDS, 667_008, device=dev, generator=gen)
@@ -2058,6 +2105,17 @@ def slice_times(torch, rounds=3):
     lib = [g(lambda: flat.index_select(1, perm_t)) for _ in range(rounds)]
     say(f"(t) x.view(T, -1).index_select(1, perm): "
         f"{' '.join('%.5f' % m for m in lib)} ms by graph")
+    del x, i1, i2, i3, flat, want, got
+    for name, row, call, kern, plain, lib_fn, lib_what, *_ in probe_cases(
+            torch, rows=SLICE_PROBE_ROWS):
+        require(bitwise_equal(torch, kern(), plain()),
+                f"{name} (row {row}, {call}) wrong")
+        ms = [g(kern) for _ in range(rounds)]
+        lib = [g(lib_fn) for _ in range(rounds)]
+        say(f"(t) row {row} {name} {call}: "
+            f"{' '.join('%.5f' % m for m in ms)} ms by graph; {lib_what} "
+            f"{' '.join('%.5f' % m for m in lib)}")
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- (l)

@@ -59,55 +59,83 @@ __global__ void slab_kernel(const float4* __restrict__ x,
 // copy_kernel — replaces experiments/route_probe.py:158 (one VMEM-resident
 // block of 2-16 MB) and :240 (the grid stream copy, 1,024-row blocks).
 //
-// y = 2 * x over tiles of `tile4` float4: grid.y walks the tiles (the TPU
-// grid), grid.x the CUDA blocks inside one tile. Each thread loads UNROLL
-// float4 before it stores any, so enough loads are in flight to reach the
-// memory's rate. The card has no block-resident counterpart of VMEM (227 KB
-// of shared memory a block): a 2-16 MB array simply lives in the 50 MB L2
-// after its first touch, and 64 MiB does not, so the two calls give the
-// L2-resident copy rate and the device-memory stream ceiling.
-constexpr int UNROLL = 4;
-
-__global__ void scale2_kernel(const float4* __restrict__ x,
-                              float4* __restrict__ y, long long tile4,
-                              long long n4) {
-  const long long first = blockIdx.y * tile4;
-  const long long end = min(n4, first + tile4);
-  const long long base = first
-                         + static_cast<long long>(blockIdx.x)
-                               * (THREADS * UNROLL)
-                         + threadIdx.x;
-  float4 v[UNROLL];
-#pragma unroll
-  for (int k = 0; k < UNROLL; ++k) {
-    const long long i = base + k * THREADS;
-    if (i < end) v[k] = __ldg(x + i);
-  }
-#pragma unroll
-  for (int k = 0; k < UNROLL; ++k) {
-    const long long i = base + k * THREADS;
-    if (i < end) y[i] = twice(v[k]);
+// y = 2 * x as one flat walk of n4 float4, one float4 a thread a step. The
+// TPU's tile was its VMEM block and means nothing here, so it does not
+// shape the grid (the wrapper still validates it). The card has no
+// block-resident counterpart of VMEM: a 2-16 MB array simply lives in the
+// 50 MB L2 after its first touch, and 64 MiB does not, so the two calls
+// give the L2-resident copy rate and the device-memory stream ceiling.
+// The wrapper picks the geometry by size (ops/probes.py scale2_geometry):
+// - resident (x and y fit in L2 together): a grid of at most one full wave
+//   (eight 256-thread blocks an SM) walking the array grid-stride, plain
+//   loads, so x stays in L2 for the next call;
+// - streamed: one block per 256 float4 (no stride, no tail of long
+//   blocks) and evict-first loads: x is not read again either.
+// Stores are evict-first in both: y is not read again by the copy.
+// (A persistent grid through a four-stage ring of TMA bulk copies, the
+// grid-stride walk at 64 MiB, and 2-8 float4 a thread all ran slower on
+// the H100: PERF.md §6 rows 15 and 19.)
+template <bool STREAM>
+__global__ void __launch_bounds__(THREADS)
+scale2_kernel(const float4* __restrict__ x, float4* __restrict__ y,
+              long long n4) {
+  const long long step = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long i = blockIdx.x * static_cast<long long>(THREADS)
+                     + threadIdx.x;
+       i < n4; i += step) {
+    __stcs(y + i, twice(STREAM ? __ldcs(x + i) : __ldg(x + i)));
   }
 }
 
 // g0 — replaces experiments/route_probe.py:180, take_along_axis on axis 0
 // (the TPU's sublane gather): out[r, c] = x[idx[r, c], c] over [rows, 128].
-// One thread per four outputs of a row: a 16-byte index load, four loads
-// from the (at most 2 MB, L2-resident) source, a 16-byte store.
-__global__ void gather_rows_kernel(const float* __restrict__ x,
-                                   const int4* __restrict__ idx,
-                                   float4* __restrict__ out, long long n4) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  if (i >= n4) return;
-  const int4 k = __ldg(idx + i);
-  const float* col = x + (i % ROW4) * 4;
-  float4 v;
-  v.x = __ldg(col + static_cast<long long>(k.x) * GOSSIP_LANES);
-  v.y = __ldg(col + static_cast<long long>(k.y) * GOSSIP_LANES + 1);
-  v.z = __ldg(col + static_cast<long long>(k.z) * GOSSIP_LANES + 2);
-  v.w = __ldg(col + static_cast<long long>(k.w) * GOSSIP_LANES + 3);
-  out[i] = v;
+// Bound on this card: random L2 reads, one 32-byte sector fetched for each
+// 4-byte output, and the L1's misses in flight.
+//
+// A block owns a band of 16 columns (GATHER_BAND4 float4: 64 bytes of
+// every row) and a chunk of output rows; the wrapper sizes the chunks so
+// that the GATHER_BANDS x chunks blocks fill the SMs in one wave
+// (ops/probes.py gather_rows_geometry). An SM's random reads then stay
+// inside one band, a 256 KB strip of the source, instead of the whole 2 MB,
+// so they touch fewer distinct sectors. A thread keeps two float4 of
+// outputs (eight random loads) in flight. (Staging the band or a piece of the source in shared
+// memory — by TMA boxes, multicast to a cluster, or plain loads — and
+// narrower or wider bands all ran slower: PERF.md §6 row 16.)
+constexpr int GATHER_THREADS = 512;
+constexpr int GATHER_BAND4 = 4;                       // float4 of a band
+constexpr int GATHER_BANDS = ROW4 / GATHER_BAND4;     // 8
+constexpr int GATHER_UNROLL = 2;
+
+__global__ void __launch_bounds__(GATHER_THREADS)
+gather_rows_kernel(const float* __restrict__ x, const int4* __restrict__ idx,
+                   float4* __restrict__ out, int rows, int chunk_rows) {
+  const int band4 = (blockIdx.x % GATHER_BANDS) * GATHER_BAND4;
+  const int r0 = (blockIdx.x / GATHER_BANDS) * chunk_rows;
+  const int n = (min(rows, r0 + chunk_rows) - r0) * GATHER_BAND4;
+  for (int e0 = threadIdx.x; e0 < n;
+       e0 += GATHER_UNROLL * GATHER_THREADS) {
+    long long o[GATHER_UNROLL];
+    int4 k[GATHER_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GATHER_UNROLL; ++u) {
+      const int e = e0 + u * GATHER_THREADS;
+      o[u] = static_cast<long long>(r0 + e / GATHER_BAND4) * ROW4 + band4
+             + e % GATHER_BAND4;
+      if (e < n) k[u] = __ldg(idx + o[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < GATHER_UNROLL; ++u) {
+      if (e0 + u * GATHER_THREADS < n) {
+        const float* col = x + (o[u] % ROW4) * 4;
+        float4 v;
+        v.x = __ldg(col + static_cast<long long>(k[u].x) * GOSSIP_LANES);
+        v.y = __ldg(col + static_cast<long long>(k[u].y) * GOSSIP_LANES + 1);
+        v.z = __ldg(col + static_cast<long long>(k[u].z) * GOSSIP_LANES + 2);
+        v.w = __ldg(col + static_cast<long long>(k[u].w) * GOSSIP_LANES + 3);
+        out[o[u]] = v;
+      }
+    }
+  }
 }
 
 // g1 and grid_call — replace experiments/route_probe.py:202 (the lane
@@ -264,31 +292,40 @@ GOSSIP_EXPORT int gossip_probe_slab(const float* x, float* out, int tiles,
   return static_cast<int>(cudaGetLastError());
 }
 
+// n: a multiple of 4 floats; blocks and stream (0 or 1) from
+// ops/probes.py scale2_geometry
 GOSSIP_EXPORT int gossip_probe_scale2(const float* x, float* y, long long n,
-                                      long long tile_elems, void* stream) {
-  // n and tile_elems: multiples of 4 floats
+                                      long long blocks, int stream_hints,
+                                      void* stream) {
   const long long n4 = n / 4;
-  const long long tile4 = tile_elems / 4;
   if (n4 == 0) return 0;
-  const long long tiles = (n4 + tile4 - 1) / tile4;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid(gossip_blocks(tile4, THREADS * UNROLL),
-                  static_cast<unsigned int>(tiles));
-  scale2_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y),
-      tile4, n4);
+  if (blocks < 1 || blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xv = reinterpret_cast<const float4*>(x);
+  auto* yv = reinterpret_cast<float4*>(y);
+  const auto grid = static_cast<unsigned int>(blocks);
+  if (stream_hints)
+    scale2_kernel<true><<<grid, THREADS, 0, s>>>(xv, yv, n4);
+  else
+    scale2_kernel<false><<<grid, THREADS, 0, s>>>(xv, yv, n4);
   return static_cast<int>(cudaGetLastError());
 }
 
+// chunk_rows from ops/probes.py gather_rows_geometry
 GOSSIP_EXPORT int gossip_probe_gather_rows(const float* x, const int* idx,
-                                           float* out, long long n,
-                                           void* stream) {
-  const long long n4 = n / 4;
-  if (n4 == 0) return 0;
-  gather_rows_kernel<<<gossip_blocks(n4, THREADS), THREADS, 0,
+                                           float* out, int rows,
+                                           int chunk_rows, void* stream) {
+  if (rows == 0) return 0;
+  if (chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks =
+      (static_cast<long long>(rows) + chunk_rows - 1) / chunk_rows
+      * GATHER_BANDS;
+  gather_rows_kernel<<<static_cast<unsigned int>(blocks), GATHER_THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       x, reinterpret_cast<const int4*>(idx), reinterpret_cast<float4*>(out),
-      n4);
+      rows, chunk_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

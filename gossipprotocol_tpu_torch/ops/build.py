@@ -88,9 +88,11 @@ _SIGNATURES = {
         # x, out, tiles, buckets, cr, bucket_major, stream
         "gossip_probe_slab": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT,
                               _VOIDP),
-        # x, y, n, tile_elems, stream
-        "gossip_probe_scale2": (_VOIDP, _VOIDP, _LL, _LL, _VOIDP),
-        "gossip_probe_gather_rows": (_VOIDP, _VOIDP, _VOIDP, _LL, _VOIDP),
+        # x, y, n, blocks, evict-first loads (0 or 1), stream
+        "gossip_probe_scale2": (_VOIDP, _VOIDP, _LL, _LL, _INT, _VOIDP),
+        # x, idx, out, rows, chunk_rows, stream
+        "gossip_probe_gather_rows": (_VOIDP, _VOIDP, _VOIDP, _INT, _INT,
+                                     _VOIDP),
         # x, idx, out, n, cols, stream
         "gossip_probe_gather_lanes": (_VOIDP, _VOIDP, _VOIDP, _LL, _INT,
                                       _VOIDP),

@@ -17,6 +17,8 @@ kernels run in Pallas interpret mode.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gossipprotocol_tpu_torch.ops import build
@@ -27,6 +29,41 @@ LANES = 128
 # launches its kernel; the CPU path launches nothing)
 LAUNCHES = {"probe_slab": 0, "probe_scale2": 0, "probe_gather_rows": 0,
             "probe_gather_lanes": 0, "probe_tile_perm": 0}
+
+
+# launch geometry of scale2_kernel and gather_rows_kernel (csrc/probes.cu),
+# chosen by size: pure functions of the shape and the card, so that the CPU
+# tests hold them at every edge
+SCALE2_THREADS = 256
+SCALE2_BLOCKS_PER_SM = 2048 // SCALE2_THREADS   # one full wave
+GATHER_BANDS = 8                                 # bands of 16 columns
+
+
+def scale2_geometry(n4: int, sms: int, l2_bytes: int) -> tuple[int, bool]:
+    """``(blocks, stream)`` of ``scale2_kernel`` over ``n4`` float4 on a
+    card of ``sms`` SMs and ``l2_bytes`` of L2. ``stream``: x and y do not
+    fit in L2 together, so the copy streams from device memory, one block
+    per 256 float4 with evict-first loads; else at most one full wave of
+    blocks walks the L2-resident array grid-stride."""
+    cover = -(-n4 // SCALE2_THREADS)
+    stream = 2 * 16 * n4 > l2_bytes
+    return (cover if stream else min(cover, SCALE2_BLOCKS_PER_SM * sms),
+            stream)
+
+
+def gather_rows_geometry(rows: int, sms: int) -> int:
+    """Output rows a block of ``gather_rows_kernel`` walks: the
+    ``GATHER_BANDS`` column bands times the chunks fill the ``sms`` SMs in
+    one wave (8 x 16 = 128 blocks on an H100's 132), whatever ``rows``."""
+    chunks = max(1, sms // GATHER_BANDS)
+    return max(1, -(-rows // chunks))
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> tuple[int, int]:
+    """SM count and L2 bytes of CUDA device ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.L2_cache_size
 
 
 def _require(x: torch.Tensor, dtype, what: str) -> None:
@@ -102,8 +139,9 @@ def probe_scale2(x: torch.Tensor, tile_rows: int | None = None
     On CUDA: ``csrc/probes.cu`` ``scale2_kernel``, replacing the Pallas
     kernel at ``experiments/route_probe.py:158`` (one VMEM-resident block;
     ``tile_rows=None``) and its grid form at ``:240`` (1,024-row blocks).
-    Bound by bytes: up to 16 MB the array stays in L2, 64 MiB streams from
-    device memory."""
+    The tile was the TPU's VMEM block: it is validated, and the card walks
+    the array flat (``scale2_geometry``). Bound by bytes: up to 16 MB the
+    array stays in L2, 64 MiB streams from device memory."""
     if x.dim() != 2 or x.shape[1] != LANES:
         raise ValueError("probe_scale2: x must be [rows, 128]")
     rows = x.shape[0]
@@ -114,9 +152,10 @@ def probe_scale2(x: torch.Tensor, tile_rows: int | None = None
         return probe_scale2_plain(x)
     _require(x, torch.float32, "probe_scale2")
     out = torch.empty_like(x)
+    blocks, stream = scale2_geometry(x.numel() // 4, *_card(x.device.index))
     lib = build.library("probes")
     rc = lib.gossip_probe_scale2(x.data_ptr(), out.data_ptr(), x.numel(),
-                                 max(tile_rows, 1) * LANES,
+                                 blocks, int(stream),
                                  build.stream_handle(x.device))
     build.check(lib, rc, "probe_scale2")
     LAUNCHES["probe_scale2"] += 1
@@ -136,8 +175,9 @@ def probe_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     indices in ``[0, rows)`` (``take_along_axis`` on axis 0).
 
     On CUDA: ``csrc/probes.cu`` ``gather_rows_kernel``, replacing the
-    Pallas kernel at ``experiments/route_probe.py:180``. Bound by bytes
-    (indices in, values out; the source stays in L2)."""
+    Pallas kernel at ``experiments/route_probe.py:180``: blocks of a
+    16-column band and ``gather_rows_geometry`` output rows. Bound in
+    practice by random L2 reads (the source stays in L2)."""
     if x.dim() != 2 or x.shape[1] != LANES or idx.shape != x.shape:
         raise ValueError("probe_gather_rows: x and idx must be [rows, 128]")
     _same_device("probe_gather_rows", x, idx)
@@ -147,8 +187,10 @@ def probe_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _require(idx, torch.int32, "probe_gather_rows")
     out = torch.empty_like(x)
     lib = build.library("probes")
+    rows = x.shape[0]
+    chunk_rows = gather_rows_geometry(rows, _card(x.device.index)[0])
     rc = lib.gossip_probe_gather_rows(x.data_ptr(), idx.data_ptr(),
-                                      out.data_ptr(), x.numel(),
+                                      out.data_ptr(), rows, chunk_rows,
                                       build.stream_handle(x.device))
     build.check(lib, rc, "probe_gather_rows")
     LAUNCHES["probe_gather_rows"] += 1

@@ -890,28 +890,39 @@ def test_probe_slab_kernel(cuda, tiles, buckets, cr, bucket_major):
                                                 bucket_major))
 
 
-@pytest.mark.parametrize("rows,tile_rows", [(4096, None), (32768, None),
-                                            (131072, 1024), (3000, 1024),
-                                            (7, 2)])
+# every row 15 size (2-16 MB, L2-resident: one wave grid-stride), row 19
+# (64 MiB, streamed: one block per 256 float4) and one row past it, and the
+# edges: 1 row, a tile that does not divide the rows
+@pytest.mark.parametrize("rows,tile_rows", [
+    (4096, None), (8192, None), (16384, None), (24576, None), (32768, None),
+    (131072, 1024), (131073, 1024), (3000, 1024), (7, 2), (7, 3), (1, None),
+    (1, 1)])
 def test_probe_scale2_kernel(cuda, rows, tile_rows):
     from gossipprotocol_tpu_torch.ops import probes as pr
 
     x = _randn(cuda, rows, 128, seed=rows)
     x[0, :4] = torch.tensor([-0.0, float("inf"), 3e38, 1e-40])
+    before = pr.LAUNCHES["probe_scale2"]
     got = pr.probe_scale2(x, tile_rows)
     torch.cuda.synchronize()
+    assert pr.LAUNCHES["probe_scale2"] == before + 1
     assert _bits_equal(got, pr.probe_scale2_plain(x))
 
 
-@pytest.mark.parametrize("rows", [8, 256, 1024, 4096])
+# row 16's sizes (8-4,096 rows) and the edges: 1 row, row counts that do
+# not divide into the 16 chunks, more rows than the default probe's
+@pytest.mark.parametrize("rows", [1, 7, 8, 100, 256, 1000, 1024, 4096,
+                                  5000, 20000])
 def test_probe_gather_rows_kernel(cuda, rows):
     from gossipprotocol_tpu_torch.ops import probes as pr
 
     x = _randn(cuda, rows, 128, seed=rows)
     idx = torch.from_numpy(np.random.default_rng(rows + 1).integers(
         0, rows, (rows, 128)).astype(np.int32)).to(cuda)
+    before = pr.LAUNCHES["probe_gather_rows"]
     got = pr.probe_gather_rows(x, idx)
     torch.cuda.synchronize()
+    assert pr.LAUNCHES["probe_gather_rows"] == before + 1
     assert _bits_equal(got, pr.probe_gather_rows_plain(x, idx))
 
 

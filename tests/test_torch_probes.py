@@ -175,6 +175,92 @@ def test_dim0_gather_plain_equals_jax_interpret(rows):
                                       torch.from_numpy(i_np)), y)
 
 
+# ---- the launch geometry of rows 15, 16 and 19 (csrc/probes.cu) --------
+#
+# The wrappers pick the kernels' grids by size on the host; the index walks
+# below replay the kernels' own arithmetic, so the CPU can check that every
+# output is written exactly once at the default shapes and at the edges.
+
+H100_SMS, H100_L2 = 132, 50 * 2**20
+MIB = 2**20
+
+
+def _scale2_walk(n4, blocks):
+    """Float4 indices ``scale2_kernel``'s threads visit (grid-stride)."""
+    step = blocks * pr.SCALE2_THREADS
+    first = np.arange(step, dtype=np.int64)
+    walk = np.concatenate([first + k * step
+                           for k in range(max(1, -(-n4 // step)))])
+    return walk[walk < n4]
+
+
+@pytest.mark.parametrize("rows,stream", [
+    (1, False), (7, False), (3000, False),
+    (2 * MIB // 512, False), (4 * MIB // 512, False), (8 * MIB // 512, False),
+    (12 * MIB // 512, False), (16 * MIB // 512, False),
+    (64 * MIB // 512, True), (64 * MIB // 512 + 1, True)])
+def test_scale2_geometry_covers_every_float4_once(rows, stream):
+    n4 = rows * 128 // 4
+    blocks, streamed = pr.scale2_geometry(n4, H100_SMS, H100_L2)
+    assert streamed == stream
+    # streamed: one float4 a thread, no stride; resident: one wave at most
+    cover = -(-n4 // pr.SCALE2_THREADS)
+    assert blocks == (cover if stream else
+                      min(cover, pr.SCALE2_BLOCKS_PER_SM * H100_SMS))
+    walk = _scale2_walk(n4, blocks)
+    assert walk.size == n4
+    assert np.array_equal(np.sort(walk), np.arange(n4))
+
+
+def _gather_rows_walk(rows, chunk_rows):
+    """Output float4 indices ``gather_rows_kernel``'s blocks write."""
+    parts = []
+    for b in range(-(-rows // chunk_rows) * pr.GATHER_BANDS):
+        band4 = (b % pr.GATHER_BANDS) * 4
+        r0 = (b // pr.GATHER_BANDS) * chunk_rows
+        e = np.arange((min(rows, r0 + chunk_rows) - r0) * 4)
+        parts.append((r0 + e // 4) * 32 + band4 + e % 4)
+    return np.concatenate(parts)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 8, 100, 256, 1000, 1024, 4096,
+                                  5000])
+def test_gather_rows_geometry_covers_every_output_once(rows):
+    chunk = pr.gather_rows_geometry(rows, H100_SMS)
+    blocks = -(-rows // chunk) * pr.GATHER_BANDS
+    assert blocks <= H100_SMS          # one wave, one block an SM
+    walk = _gather_rows_walk(rows, chunk)
+    assert walk.size == rows * 32
+    assert np.array_equal(np.sort(walk), np.arange(rows * 32))
+
+
+@pytest.mark.parametrize("rows", [1, 7, 1000, 4096])
+def test_gather_rows_walk_replays_the_plain_version(rows):
+    """The kernel's arithmetic (column ``o % 32 * 4 + j`` of source row
+    ``idx``), replayed over its walk, equals ``torch.gather`` bitwise."""
+    x = _randn(rows, rows, 128)
+    idx = np.random.default_rng(rows + 1).integers(
+        0, rows, (rows, 128)).astype(np.int32)
+    o = _gather_rows_walk(rows, pr.gather_rows_geometry(rows, H100_SMS))
+    out = np.empty(rows * 128, np.float32)
+    for j in range(4):
+        flat = o * 4 + j
+        out[flat] = x.reshape(-1)[(o % 32) * 4 + j
+                                  + idx.reshape(-1)[flat].astype(np.int64)
+                                  * 128]
+    want = pr.probe_gather_rows_plain(torch.from_numpy(x),
+                                      torch.from_numpy(idx))
+    assert _bits_equal_torch(torch.from_numpy(out.reshape(rows, 128)), want)
+
+
+@pytest.mark.parametrize("sms", [1, 8, 16, 132])
+def test_gather_rows_geometry_on_other_cards(sms):
+    for rows in (1, 4096):
+        chunk = pr.gather_rows_geometry(rows, sms)
+        assert chunk >= 1
+        assert -(-rows // chunk) <= max(1, sms // pr.GATHER_BANDS)
+
+
 @pytest.mark.parametrize("cols", [128, 512])
 def test_dim1_gather_plain_equals_jax_interpret(cols):
     rng = np.random.default_rng(cols)
