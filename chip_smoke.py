@@ -86,8 +86,9 @@ Phases (each prints its lines; any failure exits non-zero):
       arrival counters reset), with its time (back to back and by graph),
       bytes bound, plain time and one PyTorch call's, both ways
       (``view(n_c, q*64, 2).sum(1)``,
-      ``view(n_c, 1, 2).expand(n_c, q*64, 2).contiguous()``); launches
-      are the phase's own calls;
+      ``view(n_c, 1, 2).expand(n_c, q*64, 2).contiguous()``), and the
+      expand's launch geometry (``expand_big_geometry``); launches are
+      the phase's own calls;
   (j) the reference surface (gossip and fanout-one push-sum over the
       scatter delivery, the CLI's defaults) through the CLI entry point
       at 1M nodes: gossip at imp3D 1M (dense table; the card runs the
@@ -110,14 +111,17 @@ Phases (each prints its lines; any failure exits non-zero):
       both ways); the measured stream ceiling is the best graph-replay
       rate over 64 MiB of the streamed copy, ``torch.mul`` and ``copy_``,
       and every kernel record gets ``bound_stream_ms`` (its bytes over
-      that rate) beside the nominal ``bound_ms``; for rows 15, 16 and 19
-      the launch geometry the wrapper picked by size, and at row 16's
-      4,096 rows the L2 random-read ceiling (``bound_l2``, as in (b));
-      the tile permutation's shared-memory wavefronts a tile (host replay
-      of its pick); rows 15, 16, 17 and 19 re-timed against their library
-      calls in alternating rounds of graph replays, beside an empty
-      kernel's (the launch floor); then the three probe entry points in
-      process at their default argv, each exiting 0;
+      that rate) beside the nominal ``bound_ms``; for rows 15-19 the
+      launch geometry the wrapper picked by size (rows 17 and 18: rows a
+      block, threads, staged or read in place), and at row 16's 4,096
+      rows the L2 random-read ceiling (``bound_l2``, as in (b)); the
+      shared-memory wavefronts of row 17's staged gathers and of the tile
+      permutation's pick (host replays); rows 15, 16, 17, 19 and
+      row 6 at power_law 1M's two hub classes (seeded random pairs)
+      re-timed against their library calls in alternating rounds of
+      graph replays, beside an empty kernel's (the launch floor); then
+      the three probe entry points in process at their default argv,
+      each exiting 0;
   (l) the reference semantics (``--semantics reference``) through the
       CLI: gossip and the push-sum walk at line, full, 3D and imp3D of
       100, 500 and 1,000 nodes (line push-sum not at 1,000:
@@ -126,7 +130,7 @@ Phases (each prints its lines; any failure exits non-zero):
       and bitwise final states; reference gossip at imp3D 1M to
       convergence; the walk's and gossip's ms per executed round.
 
-``slice_times`` (not a phase) times rows 12, 15, 16, 19 and 20 through
+``slice_times`` (not a phase) times rows 12, 15-20 and 6 through
 their wrappers by graph replay for whichever tree's package is first on
 ``sys.path``, to hold a parent tree against this one in one call.
 
@@ -1485,6 +1489,7 @@ def phase_hub_kernels(torch, hubs):
     counts = {k: launches[k] for k in HUB_KERNELS}
     for (c, n_c, cap, region), (pairs, exp) in zip(hubs, firsts):
         q = 2 * c // co.LANES
+        say(f"(i) class_expand_big c={c}: {expand_geometry(exp)}")
         for name, got, plain, kern, lib, lib_what, nbytes in (
                 ("class_reduce_big", pairs,
                  lambda: co.class_reduce_big_plain(region, c),
@@ -1735,6 +1740,8 @@ GATHER_COLS = (128, 512, 4096)
 GRID_T = 8_000_000 // (4096 * 128)        # route_probe's T at --e 8000000
 STREAM_ROWS, STREAM_TILE_ROWS = 64 * 2**20 // 512, 1024
 PERM_T = 488
+# phase (k)'s lane-gather inputs, kept for the bank-conflict replay
+LANE_INPUTS = []
 
 
 def probe_cases(torch, dev="cuda", rows=None):
@@ -1803,6 +1810,8 @@ def probe_cases(torch, dev="cuda", rows=None):
                       "torch.gather(x, 0, idx)", n * 128 * 12, None))
     for cols in GATHER_COLS if wanted(17) else ():
         xg, ig = randn(128, cols), ints(cols, (128, cols))
+        if rows is None:
+            LANE_INPUTS.append((xg, ig, 17, f"[128, {cols}]"))
         ig64 = ig.long()
         cases.append(("probe_gather_lanes", 17, f"[128, {cols}]",
                       lambda xg=xg, ig=ig: pr.probe_gather_lanes(xg, ig),
@@ -1812,6 +1821,8 @@ def probe_cases(torch, dev="cuda", rows=None):
                       "torch.gather(x, 1, idx)", 128 * cols * 12, None))
     if wanted(18):
         xt, it = randn(GRID_T, 4096, 128), ints(128, (GRID_T, 4096, 128))
+        if rows is None:
+            LANE_INPUTS.append((xt, it, 18, f"[{GRID_T}, 4096, 128]"))
         it64 = it.long()
         cases.append(("probe_gather_lanes", 18,
                       f"[{GRID_T}, 4096, 128] tiled",
@@ -1859,9 +1870,48 @@ def probe_geometry(name, t):
                 + ("streamed (evict-first loads)" if stream
                    else "L2-resident (grid-stride)")
                 + f", on {sms} SMs and {l2 / 2**20:g} MiB of L2")
+    if name == "probe_gather_lanes":
+        cols = t.shape[-1]
+        rows = t.numel() // cols
+        rpb, threads, staged = pr.gather_lanes_geometry(
+            rows, cols, sms, pr._smem_optin(t.device.index))
+        return (f"{-(-rows // rpb)} blocks of {threads} threads, {rpb} "
+                f"row(s) of {cols} lanes a block, "
+                + (f"staged in {rpb * cols * 4} bytes of shared memory"
+                   if staged else "read in place (the direct branch)"))
     chunk = pr.gather_rows_geometry(t.shape[0], sms)
     return (f"{pr.GATHER_BANDS} bands of 16 columns x "
             f"{-(-t.shape[0] // chunk)} chunks of {chunk} rows")
+
+
+def expand_geometry(out):
+    """The launch geometry ``class_expand_big`` picks for its output
+    ``out`` (row 6): ``ops/classops.py`` ``expand_big_geometry``."""
+    from gossipprotocol_tpu_torch.ops import classops as co
+
+    n4 = out.numel() // 4
+    blocks = co.expand_big_geometry(n4, co._sms(out.device.index))
+    steps = -(-n4 // (blocks * co.EXPAND_BIG_THREADS))
+    return (f"{blocks} blocks of {co.EXPAND_BIG_THREADS} threads, "
+            f"{steps} float4 store(s) a thread at most, evict-first")
+
+
+def lane_wavefronts(x, idx):
+    """Shared-memory wavefronts of row 17/18's staged gather on ``idx``
+    at the geometry the wrapper picks (host replay,
+    ``route_probe.lane_gather_wavefronts``); None where the rows are read
+    in place."""
+    from gossipprotocol_tpu_torch.ops import probes as pr
+    from gossipprotocol_tpu_torch.probes.route_probe import (
+        lane_gather_wavefronts,
+    )
+
+    cols = x.shape[-1]
+    rpb, threads, staged = pr.gather_lanes_geometry(
+        x.numel() // cols, cols, pr._card(x.device.index)[0],
+        pr._smem_optin(x.device.index))
+    return (lane_gather_wavefronts(idx.cpu().numpy(), rpb, threads)
+            if staged else None)
 
 
 def perm_wavefronts():
@@ -1882,10 +1932,33 @@ def perm_wavefronts():
             "transpose": transpose_wavefronts()}
 
 
-# rows 15, 16, 17, 19 against their library calls: rounds of CUDA-graph
-# replays, kernel and call in turns
+# rows 15, 16, 17, 19 and 6 against their library calls: rounds of
+# CUDA-graph replays, kernel and call in turns
 ALTERNATE_ROWS = (15, 16, 17, 19)
 ALTERNATE_ROUNDS = 6
+# row 6's two hub classes of power_law 1M: (c, node slots)
+HUB_EXPAND_CLASSES = ((512, 1024), (131_072, 8))
+
+
+def hub_expand_cases(torch):
+    """``[(name, row, call, kern, plain, lib, lib_what)]`` of
+    ``class_expand_big`` at ``HUB_EXPAND_CLASSES``, from seeded random
+    pairs (the copy moves bytes whatever their values)."""
+    from gossipprotocol_tpu_torch.ops import classops as co
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = []
+    for c, cap in HUB_EXPAND_CLASSES:
+        q = 2 * c // co.LANES
+        p = torch.randn(2 * cap, device="cuda", generator=gen)
+        cases.append((
+            "class_expand_big", 6, f"c={c} cap={cap}",
+            lambda p=p, c=c: co.class_expand_big(p, c),
+            lambda p=p, c=c: co.class_expand_big_plain(p, c),
+            lambda p=p, cap=cap, q=q: p.view(cap, 1, 2).expand(
+                cap, q * 64, 2).contiguous(),
+            "view(n_c,1,2).expand(n_c,q*64,2).contiguous()"))
+    return cases
 
 
 def _spread(ms):
@@ -1894,7 +1967,7 @@ def _spread(ms):
 
 
 def alternate_small_calls(torch):
-    """Rows 15, 16, 17 and 19 re-timed finely enough to decide whether a
+    """Rows 15, 16, 17, 19 and 6 re-timed finely enough to decide whether a
     kernel loses to its library call: ``ALTERNATE_ROUNDS`` rounds of
     graph replays, kernel then call and call then kernel in turns, ms to
     5 decimals as median [least; largest]. A kernel loses only where its
@@ -1904,7 +1977,7 @@ def alternate_small_calls(torch):
 
     dev = torch.device("cuda")
     g = lambda fn: seconds_per_call(fn, dev) * 1e3  # noqa: E731
-    cases = probe_cases(torch, rows=ALTERNATE_ROWS)
+    cases = probe_cases(torch, rows=ALTERNATE_ROWS) + hub_expand_cases(torch)
     floor = [g(lambda: torch.cuda._sleep(0))
              for _ in range(ALTERNATE_ROUNDS)]
     say("(k) launch floor, an empty kernel by graph replay: "
@@ -1969,7 +2042,8 @@ def phase_probes(torch):
         lib_g_ms = seconds_per_call(lib, torch.device("cuda")) * 1e3
         b_ms, b_by = bound(nbytes, 0)
         extra = {}
-        if name in ("probe_scale2", "probe_gather_rows"):
+        if name in ("probe_scale2", "probe_gather_rows",
+                    "probe_gather_lanes"):
             say(f"(k) row {row} {name} {call}: kept design "
                 f"{probe_geometry(name, got)}, {g_ms:.5f} ms by graph")
         if name == "probe_gather_rows" and got.shape[0] == GATHER_ROWS[-1]:
@@ -2002,6 +2076,18 @@ def phase_probes(torch):
             f"library {lib_what} {lib_ms:.4f} back to back, {lib_g_ms:.4f} "
             f"graph (same values: {lib_same}), bound {b_ms:.4f} by {b_by}, "
             f"{nbytes / 1e6:.2f} MB)")
+    for xg, ig, row, call in LANE_INPUTS:
+        wf = lane_wavefronts(xg, ig)
+        if wf is None:
+            say(f"(k) row {row} probe_gather_lanes {call}: read in place, "
+                "no shared memory")
+            continue
+        say(f"(k) row {row} probe_gather_lanes {call}: {wf['wavefronts']} "
+            f"shared-memory wavefronts over {wf['requests']} warp "
+            f"requests, {wf['wavefronts'] / wf['requests']:.3f} a request "
+            "(1: conflict-free; host replay, "
+            "route_probe.lane_gather_wavefronts)")
+    LANE_INPUTS.clear()
     del cases, firsts
     torch.cuda.empty_cache()
     require(stream, "row 19 (the stream copy) was not measured")
@@ -2038,17 +2124,19 @@ def phase_probes(torch):
 # ------------------------------------------------- tree against tree
 
 # rows that slice_times times at phase (k)'s shapes besides 12 and 20
-SLICE_PROBE_ROWS = (15, 16, 19)
+# (and row 6 at HUB_EXPAND_CLASSES)
+SLICE_PROBE_ROWS = (15, 16, 17, 18, 19)
 
 
 def slice_times(torch, rounds=3):
-    """Rows 12, 15, 16, 19 and 20 through their wrappers, by CUDA-graph
+    """Rows 12, 15-20 and 6 through their wrappers, by CUDA-graph
     replay (the wrapper's host work is not captured): ``pallas_exchange``
     on both schedules at phase (h)'s power_law 400,000 slab shape (random
     slabs: the copy moves bytes) at every wire and the int8 wire's [S, 1]
-    scales, the tile permutation on phase (k)'s 488 routed tiles, and the
-    x2 copy and row gather at every phase (k) shape, each checked first
-    and each beside its library call.
+    scales, the tile permutation on phase (k)'s 488 routed tiles, the x2
+    copy, the row and lane gathers at every phase (k) shape and the hub
+    expand at ``HUB_EXPAND_CLASSES``, each checked first and each beside
+    its library call.
     Times whatever ``gossipprotocol_tpu_torch`` is first on ``sys.path``,
     so one call can hold a parent tree against this one, in turns."""
     import numpy as np
@@ -2107,7 +2195,7 @@ def slice_times(torch, rounds=3):
         f"{' '.join('%.5f' % m for m in lib)} ms by graph")
     del x, i1, i2, i3, flat, want, got
     for name, row, call, kern, plain, lib_fn, lib_what, *_ in probe_cases(
-            torch, rows=SLICE_PROBE_ROWS):
+            torch, rows=SLICE_PROBE_ROWS) + hub_expand_cases(torch):
         require(bitwise_equal(torch, kern(), plain()),
                 f"{name} (row {row}, {call}) wrong")
         ms = [g(kern) for _ in range(rounds)]

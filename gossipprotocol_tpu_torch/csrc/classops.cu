@@ -344,23 +344,56 @@ reduce_big_kernel(const float* __restrict__ x, float* __restrict__ out,
 // (class_expand_big's pallas_call, :302).
 //
 // Input: f32 [2 * n_c] packed (s, w) per node; output f32 [n_c * q * 128],
-// node i's q rows carrying its s on the even and its w on the odd lanes.
-// A grid-stride loop, one 16-byte store per four output lanes. Bound on
-// this card: bytes (the output is 64*q times the input, which stays in
+// node i's q rows carrying its s on the even and its w on the odd lanes:
+// float4 o of the output is (s, w, s, w) of node o / 32q. Bound on this
+// card: bytes written (the output is 64q times the input, which stays in
 // L1/L2). An exact copy.
-__global__ void expand_big_kernel(const float2* __restrict__ pairs,
-                                  float4* __restrict__ out, long long q,
-                                  long long n4) {
-  for (long long o = blockIdx.x * static_cast<long long>(blockDim.x)
-                     + threadIdx.x;
-       o < n4; o += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const float2 p = __ldg(pairs + (o >> 5) / q);
-    out[o] = make_float4(p.x, p.y, p.x, p.y);
+//
+// At most one full wave of EXPAND_BIG_THREADS-thread blocks walks the
+// output grid-stride, one float4 a thread a step, stored evict-first
+// (__stcs: nothing here reads the output again); the wrapper picks the
+// grid (ops/classops.py expand_big_geometry). What costs is the writes
+// (a memset of the same bytes is the floor) and, before the first of
+// them, the pair's trip from L2, so a thread's prologue is kept to a few
+// instructions: where q is a power of two (every hub class the deliveries
+// form) the node is o >> log2(32q); otherwise it is carried from step to
+// step by increments the launcher computes, after one 32-bit division a
+// thread. No division per store either way. (The old kernel paid a 64-bit
+// division before each store; 2, 4 and 8 stores a thread, with one pair
+// load per node they met, ran slower: PERF.md §6 row 6.)
+constexpr int EXPAND_BIG_THREADS = 128;
+
+template <bool POW2>
+__global__ void __launch_bounds__(EXPAND_BIG_THREADS)
+expand_big_kernel(const float2* __restrict__ pairs, float4* __restrict__ out,
+                  long long n4, int shift, long long span,
+                  long long step_nodes, long long step_rem) {
+  // below 2^31: the grid is at most one wave
+  const unsigned first = blockIdx.x * EXPAND_BIG_THREADS + threadIdx.x;
+  const long long step =
+      static_cast<long long>(gridDim.x) * EXPAND_BIG_THREADS;
+  long long node = 0;
+  long long rem = 0;
+  if (!POW2) {
+    // a span of 2^31 or more holds every first float4 in node 0
+    const unsigned span32 = span < 0x80000000LL
+                                ? static_cast<unsigned>(span) : 0x80000000u;
+    node = first / span32;
+    rem = first % span32;
+  }
+  for (long long o = first; o < n4; o += step) {
+    const float2 p = __ldg(pairs + (POW2 ? o >> shift : node));
+    __stcs(out + o, make_float4(p.x, p.y, p.x, p.y));
+    if (!POW2) {
+      node += step_nodes;
+      rem += step_rem;
+      if (rem >= span) {
+        rem -= span;
+        ++node;
+      }
+    }
   }
 }
-
-// grid of the grid-stride copy: enough blocks to fill the 132 SMs
-constexpr long long EXPAND_BIG_MAX_BLOCKS = 132 * 16;
 
 constexpr int EXPAND_THREADS = 256;
 
@@ -472,18 +505,28 @@ GOSSIP_EXPORT int gossip_class_reduce_big(const float* x, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// blocks from ops/classops.py expand_big_geometry
 GOSSIP_EXPORT int gossip_class_expand_big(const float* pairs, float* out,
                                           long long n_c, int q,
-                                          void* stream) {
+                                          long long blocks, void* stream) {
   if (n_c == 0) return 0;
-  const long long n4 = static_cast<long long>(q) * n_c * (GOSSIP_LANES / 4);
-  const long long blocks = gossip_blocks(n4, EXPAND_THREADS);
-  expand_big_kernel<<<static_cast<unsigned int>(
-                          blocks < EXPAND_BIG_MAX_BLOCKS
-                              ? blocks : EXPAND_BIG_MAX_BLOCKS),
-                      EXPAND_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(pairs),
-      reinterpret_cast<float4*>(out), q, n4);
+  if (q < 1 || blocks < 1 || blocks * EXPAND_BIG_THREADS > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long span = 32LL * q;  // float4 of a node
+  const long long step = blocks * EXPAND_BIG_THREADS;
+  const auto grid = static_cast<unsigned int>(blocks);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* pv = reinterpret_cast<const float2*>(pairs);
+  auto* ov = reinterpret_cast<float4*>(out);
+  if ((q & (q - 1)) == 0) {
+    int shift = 5;
+    while ((1LL << shift) < span) ++shift;
+    expand_big_kernel<true><<<grid, EXPAND_BIG_THREADS, 0, s>>>(
+        pv, ov, n_c * span, shift, span, 0, 0);
+  } else {
+    expand_big_kernel<false><<<grid, EXPAND_BIG_THREADS, 0, s>>>(
+        pv, ov, n_c * span, 0, span, step / span, step % span);
+  }
   return static_cast<int>(cudaGetLastError());
 }

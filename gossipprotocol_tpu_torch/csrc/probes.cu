@@ -141,23 +141,144 @@ gather_rows_kernel(const float* __restrict__ x, const int4* __restrict__ idx,
 // g1 and grid_call — replace experiments/route_probe.py:202 (the lane
 // gather on axis 1 of [128, cols]) and :216 (the same per tile of
 // [T, 4096, 128]): out[..., r, c] = x[..., r, idx[..., r, c]] over rows of
-// `cols` lanes. One thread per four outputs; the row (at most 16 KB) is
-// read by the threads of one block, so its gathered loads hit L1.
+// `cols` lanes. Bound on this card: bytes (x, idx and out each crossed
+// once); at the probe's small shapes, the launch and the memory round
+// trips before the first store.
+//
+// A block owns whole rows, `rows_per_block` of them, with the thread
+// count picked on the host (ops/probes.py gather_lanes_geometry):
+// - a row longer than a warp's 32 float4 (512 lanes, 4,096) is staged:
+//   the block loads its rows with coalesced 16-byte loads issued together
+//   with its coalesced int4 index loads, so one memory round trip serves
+//   both, stores them to shared memory, and gathers there. Each row thus
+//   crosses from L2 once (the old one-thread-per-float4 grid spread a
+//   16 KB row over four SMs, each pulling it through its own L1 by random
+//   4-byte reads, and made every output wait on two dependent trips).
+//   Random lanes conflict about 3.3-3.5 ways a warp request in shared
+//   memory (probes/route_probe.py lane_gather_wavefronts replays them),
+//   below the bytes' time at these sizes;
+// - a row of at most 32 float4 (128 lanes: the tiled call) is one warp's
+//   outputs, and the warp's random reads touch only its four 128-byte
+//   lines, which L1 serves after the first miss: it is read in place
+//   (STAGED false), groups of rows a block, and staging would only add a
+//   barrier;
+// - a row longer than a block's shared memory is read in place too, one
+//   row a block.
+// A thread holds UNROLL float4 in registers: one where a block has a
+// thread for each float4, LANES_UNROLL of a long row. It carries the row
+// of its float4 from step to step: no division per output. (Staging by
+// cp.async or by one TMA bulk copy a block, a row's outputs split over two
+// or four blocks, other rows and threads a block, and staging 128-lane
+// rows all ran slower or no faster on the H100: PERF.md §6 rows 17, 18.)
+constexpr int LANES_UNROLL = 4;
+constexpr int MAX_DEVICES = 64;
+
+template <typename Load>
+__device__ __forceinline__ float4 pick_lanes(int4 k, Load at) {
+  float4 v;
+  v.x = at(k.x);
+  v.y = at(k.y);
+  v.z = at(k.z);
+  v.w = at(k.w);
+  return v;
+}
+
+template <int UNROLL, bool STAGED>
 __global__ void gather_lanes_kernel(const float* __restrict__ x,
                                     const int4* __restrict__ idx,
-                                    float4* __restrict__ out, long long n4,
-                                    int cols) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  if (i >= n4) return;
-  const int4 k = __ldg(idx + i);
-  const float* row = x + (i * 4 / cols) * cols;
-  float4 v;
-  v.x = __ldg(row + k.x);
-  v.y = __ldg(row + k.y);
-  v.z = __ldg(row + k.z);
-  v.w = __ldg(row + k.w);
-  out[i] = v;
+                                    float4* __restrict__ out,
+                                    long long rows, int cols,
+                                    int rows_per_block) {
+  extern __shared__ __align__(16) float xs[];
+  const int c4 = cols / 4;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long base = r0 * c4;
+  const int n = static_cast<int>(
+      min(static_cast<long long>(rows_per_block), rows - r0)) * c4;
+  const int4* ib = idx + base;
+  const float4* xb = reinterpret_cast<const float4*>(x) + base;
+  float4* xs4 = reinterpret_cast<float4*>(xs);
+  float4* ob = out + base;
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  // every load of the thread's first UNROLL float4 is issued before
+  // anything waits on one
+  int4 k[UNROLL];
+  float4 v[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    if (t + u * nt < n) {
+      k[u] = __ldg(ib + t + u * nt);
+      if (STAGED) v[u] = __ldg(xb + t + u * nt);
+    }
+  }
+  if (STAGED) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (t + u * nt < n) xs4[t + u * nt] = v[u];
+    }
+    for (int e = t + UNROLL * nt; e < n; e += nt) xs4[e] = __ldg(xb + e);
+    __syncthreads();
+  }
+  const float* src = STAGED ? xs : x + r0 * cols;
+  // the row of float4 e = t + u*nt, and its float4 within the row, carried
+  // from step to step by the fixed increment nt
+  int r = t / c4;
+  int c = t - r * c4;
+  const int dr = nt / c4;
+  const int dc = nt - dr * c4;
+  auto gather = [&](int4 kk) {
+    const float* row = src + r * cols;
+    const float4 g = pick_lanes(kk, [&](int j) {
+      return STAGED ? row[j] : __ldg(row + j);
+    });
+    r += dr;
+    c += dc;
+    if (c >= c4) {
+      c -= c4;
+      ++r;
+    }
+    return g;
+  };
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    if (t + u * nt < n) ob[t + u * nt] = gather(k[u]);
+  }
+  for (int e = t + UNROLL * nt; e < n; e += nt) ob[e] = gather(__ldg(ib + e));
+}
+
+// the instantiations: one float4 a thread or several, staged or in place
+template <bool STAGED>
+cudaError_t launch_lanes(const float* x, const int4* idx, float4* out,
+                         long long rows, int cols, int rows_per_block,
+                         int threads, long long blocks, size_t smem,
+                         cudaStream_t s) {
+  const auto grid = static_cast<unsigned int>(blocks);
+  if (threads >= static_cast<long long>(rows_per_block) * (cols / 4))
+    gather_lanes_kernel<1, STAGED><<<grid, threads, smem, s>>>(
+        x, idx, out, rows, cols, rows_per_block);
+  else
+    gather_lanes_kernel<LANES_UNROLL, STAGED><<<grid, threads, smem, s>>>(
+        x, idx, out, rows, cols, rows_per_block);
+  return cudaGetLastError();
+}
+
+// the largest dynamic shared memory a block may opt into on `device`,
+// opted into by both staged instantiations
+cudaError_t opt_in_lanes(int device, int* most) {
+  cudaError_t e = cudaDeviceGetAttribute(
+      most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(gather_lanes_kernel<1, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *most);
+  }
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(gather_lanes_kernel<LANES_UNROLL, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *most);
+  }
+  return e;
 }
 
 // kern — replaces experiments/tile_perm_probe.py:141, an arbitrary
@@ -329,16 +450,47 @@ GOSSIP_EXPORT int gossip_probe_gather_rows(const float* x, const int* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows_per_block, threads and staged from ops/probes.py
+// gather_lanes_geometry; device: the CUDA device of the tensors and of
+// stream (its shared-memory opt-in is set once)
 GOSSIP_EXPORT int gossip_probe_gather_lanes(const float* x, const int* idx,
-                                            float* out, long long n, int cols,
-                                            void* stream) {
-  const long long n4 = n / 4;
-  if (n4 == 0) return 0;
-  gather_lanes_kernel<<<gossip_blocks(n4, THREADS), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, reinterpret_cast<const int4*>(idx), reinterpret_cast<float4*>(out),
-      n4, cols);
-  return static_cast<int>(cudaGetLastError());
+                                            float* out, long long rows,
+                                            int cols, int rows_per_block,
+                                            int threads, int staged,
+                                            int device, void* stream) {
+  if (rows == 0) return 0;
+  if (cols < 4 || cols % 4 || rows_per_block < 1 || threads < 32 ||
+      threads > 1024 || threads % 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static int smem_max[MAX_DEVICES] = {};  // 0: not yet opted in
+  if (device < 0 || device >= MAX_DEVICES) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  const long long smem =
+      staged ? static_cast<long long>(rows_per_block) * cols * 4 : 0;
+  if (staged && !smem_max[device]) {
+    int most = 0;
+    const cudaError_t e = opt_in_lanes(device, &most);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_max[device] = most;
+  }
+  if (staged && smem > smem_max[device]) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* iv = reinterpret_cast<const int4*>(idx);
+  auto* ov = reinterpret_cast<float4*>(out);
+  return static_cast<int>(
+      staged ? launch_lanes<true>(x, iv, ov, rows, cols, rows_per_block,
+                                  threads, blocks,
+                                  static_cast<size_t>(smem), s)
+             : launch_lanes<false>(x, iv, ov, rows, cols, rows_per_block,
+                                   threads, blocks, 0, s));
 }
 
 GOSSIP_EXPORT int gossip_probe_tile_perm(const float* x, const signed char* i1,

@@ -60,7 +60,9 @@ _SIGNATURES = {
         # x, out, part scratch, arrival counters, n_c, q, stream
         "gossip_class_reduce_big": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _LL,
                                     _INT, _VOIDP),
-        "gossip_class_expand_big": (_VOIDP, _VOIDP, _LL, _INT, _VOIDP),
+        # pairs, out, n_c, q, blocks, stream
+        "gossip_class_expand_big": (_VOIDP, _VOIDP, _LL, _INT, _LL,
+                                    _VOIDP),
     },
     "exchange": {
         # src pointers, dst pointers, shards, row bytes, schedule (0:
@@ -93,9 +95,10 @@ _SIGNATURES = {
         # x, idx, out, rows, chunk_rows, stream
         "gossip_probe_gather_rows": (_VOIDP, _VOIDP, _VOIDP, _INT, _INT,
                                      _VOIDP),
-        # x, idx, out, n, cols, stream
+        # x, idx, out, rows, cols, rows_per_block, threads, staged (0 or
+        # 1), device, stream
         "gossip_probe_gather_lanes": (_VOIDP, _VOIDP, _VOIDP, _LL, _INT,
-                                      _VOIDP),
+                                      _INT, _INT, _INT, _INT, _VOIDP),
         # x, idx1, idx2, idx3, out, tiles, stream
         "gossip_probe_tile_perm": (*(_VOIDP,) * 5, _LL, _VOIDP),
     },

@@ -23,6 +23,8 @@ Each function has two bodies:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gossipprotocol_tpu_torch.ops import build
@@ -31,6 +33,9 @@ LANES = 128
 BLK = 256          # row alignment of small-class regions (layout contract)
 BIGQ = 1024        # rows per block of the node-major hub reduce
 WINDOW = 32        # XLA CPU's reduction window (see class_reduce_big)
+# expand_big_kernel's launch geometry (csrc/classops.cu)
+EXPAND_BIG_THREADS = 128
+EXPAND_BIG_BLOCKS_PER_SM = 2048 // EXPAND_BIG_THREADS   # one full wave
 
 # kernel launches since the last reset (counted where each wrapper
 # launches its kernel; the CPU path launches nothing)
@@ -390,6 +395,19 @@ def class_reduce_big(region: torch.Tensor, c: int) -> torch.Tensor:
     return out
 
 
+def expand_big_geometry(n4: int, sms: int) -> int:
+    """Blocks of ``expand_big_kernel`` over ``n4`` output float4 on a
+    card of ``sms`` SMs: one float4 a thread where that is at most one
+    full wave, else one full wave walking the output grid-stride."""
+    return max(1, min(-(-n4 // EXPAND_BIG_THREADS),
+                      EXPAND_BIG_BLOCKS_PER_SM * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def class_expand_big_plain(pairs: torch.Tensor, c: int) -> torch.Tensor:
     """Plain PyTorch body: each node's row carries s on even and w on odd
     lanes, repeated over its q rows."""
@@ -407,7 +425,9 @@ def class_expand_big(pairs: torch.Tensor, c: int) -> torch.Tensor:
 
     On CUDA: ``csrc/classops.cu`` ``expand_big_kernel``, replacing the
     Pallas kernel at ``gossipprotocol_tpu/ops/classops.py:302``. Bound by
-    bytes (the output is 64q times the input); a grid-stride copy."""
+    bytes written (the output is 64q times the input): at most one wave
+    of blocks (``expand_big_geometry``) walks the output, one evict-first
+    16-byte store a thread a step, no division per store."""
     q, _ = _big_geometry(c, "class_expand_big")
     if pairs.numel() % 2:
         raise ValueError("class_expand_big: packed (s, w) pairs expected")
@@ -418,9 +438,10 @@ def class_expand_big(pairs: torch.Tensor, c: int) -> torch.Tensor:
     n_c = pairs.numel() // 2
     out = torch.empty(n_c * q * LANES, dtype=torch.float32,
                       device=pairs.device)
+    blocks = expand_big_geometry(out.numel() // 4, _sms(pairs.device.index))
     lib = build.library("classops")
     rc = lib.gossip_class_expand_big(
-        pairs.data_ptr(), out.data_ptr(), n_c, q,
+        pairs.data_ptr(), out.data_ptr(), n_c, q, blocks,
         build.stream_handle(pairs.device))
     build.check(lib, rc, "class_expand_big")
     LAUNCHES["class_expand_big"] += 1

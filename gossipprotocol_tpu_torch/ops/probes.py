@@ -31,12 +31,17 @@ LAUNCHES = {"probe_slab": 0, "probe_scale2": 0, "probe_gather_rows": 0,
             "probe_gather_lanes": 0, "probe_tile_perm": 0}
 
 
-# launch geometry of scale2_kernel and gather_rows_kernel (csrc/probes.cu),
-# chosen by size: pure functions of the shape and the card, so that the CPU
-# tests hold them at every edge
+# launch geometry of scale2_kernel, gather_rows_kernel and
+# gather_lanes_kernel (csrc/probes.cu), chosen by size: pure functions of
+# the shape and the card, so that the CPU tests hold them at every edge
 SCALE2_THREADS = 256
 SCALE2_BLOCKS_PER_SM = 2048 // SCALE2_THREADS   # one full wave
 GATHER_BANDS = 8                                 # bands of 16 columns
+LANES_UNROLL = 4           # float4 a thread holds of a long row (csrc)
+LANES_WARP4 = 32           # float4 of the rows read in place (one warp)
+LANES_BLOCK4 = 128         # float4 of short rows grouped into a block
+LANES_WIDE4 = 256          # float4 of a row from which threads take more
+LANES_MAX_THREADS = 1024
 
 
 def scale2_geometry(n4: int, sms: int, l2_bytes: int) -> tuple[int, bool]:
@@ -59,11 +64,43 @@ def gather_rows_geometry(rows: int, sms: int) -> int:
     return max(1, -(-rows // chunks))
 
 
+def gather_lanes_geometry(rows: int, cols: int, sms: int,
+                          smem_bytes: int) -> tuple[int, int, bool]:
+    """``(rows_per_block, threads, staged)`` of ``gather_lanes_kernel``
+    over ``rows`` rows of ``cols`` lanes on a card of ``sms`` SMs whose
+    blocks may opt into ``smem_bytes`` of shared memory. A block owns
+    whole rows. A row of more than ``LANES_WARP4`` float4 that fits the
+    shared memory is staged there, one row a block or as many as fill
+    ``LANES_BLOCK4`` float4; a row of at most ``LANES_WARP4`` float4 (one
+    warp's outputs) is read in place, rows grouped ``LANES_BLOCK4`` float4
+    a block (twice that where the output fills more than one wave of the
+    card, 2,048 threads an SM), and so is a row longer than the shared
+    memory holds, one a block. A thread takes one float4 of a row under
+    ``LANES_WIDE4`` float4 and ``LANES_UNROLL`` of a longer one (whole
+    warps, at most ``LANES_MAX_THREADS``)."""
+    c4 = cols // 4
+    fits = cols * 4 <= smem_bytes
+    staged = fits and c4 > LANES_WARP4
+    block4 = LANES_BLOCK4 * (2 if not staged and rows * c4 > 2048 * sms
+                             else 1)
+    rpb = max(1, block4 // c4) if fits else 1
+    per = LANES_UNROLL if c4 >= LANES_WIDE4 else 1
+    warps = -(-rpb * c4 // (per * 32))
+    return rpb, min(LANES_MAX_THREADS, 32 * warps), staged
+
+
 @functools.lru_cache(maxsize=None)
 def _card(index: int) -> tuple[int, int]:
     """SM count and L2 bytes of CUDA device ``index``."""
     props = torch.cuda.get_device_properties(index)
     return props.multi_processor_count, props.L2_cache_size
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    """Shared memory a block of CUDA device ``index`` may opt into."""
+    return torch.cuda.get_device_properties(
+        index).shared_memory_per_block_optin
 
 
 def _require(x: torch.Tensor, dtype, what: str) -> None:
@@ -212,8 +249,11 @@ def probe_gather_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     On CUDA: ``csrc/probes.cu`` ``gather_lanes_kernel``, replacing the
     Pallas kernels at ``experiments/route_probe.py:202`` (``[128, cols]``)
-    and ``:216`` (per tile of ``[T, 4096, 128]``). Bound by bytes; the
-    gathered loads stay within one row."""
+    and ``:216`` (per tile of ``[T, 4096, 128]``). Bound by bytes: each
+    block owns whole rows (``gather_lanes_geometry``), staged in shared
+    memory and gathered there where a row is longer than a warp's 32
+    float4, read in place where it is that short or too long for the
+    shared memory."""
     if x.dim() < 2 or idx.shape != x.shape or x.shape[-1] % 4:
         raise ValueError("probe_gather_lanes: x and idx must share a "
                          "shape whose last dim is a multiple of 4")
@@ -223,10 +263,15 @@ def probe_gather_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _require(x, torch.float32, "probe_gather_lanes")
     _require(idx, torch.int32, "probe_gather_lanes")
     out = torch.empty_like(x)
+    cols = x.shape[-1]
+    rows = x.numel() // cols
+    index = x.device.index
+    rpb, threads, staged = gather_lanes_geometry(
+        rows, cols, _card(index)[0], _smem_optin(index))
     lib = build.library("probes")
     rc = lib.gossip_probe_gather_lanes(x.data_ptr(), idx.data_ptr(),
-                                       out.data_ptr(), x.numel(),
-                                       x.shape[-1],
+                                       out.data_ptr(), rows, cols, rpb,
+                                       threads, int(staged), index,
                                        build.stream_handle(x.device))
     build.check(lib, rc, "probe_gather_lanes")
     LAUNCHES["probe_gather_lanes"] += 1

@@ -38,12 +38,49 @@ from gossipprotocol_tpu_torch.ops.probes import (
 from gossipprotocol_tpu_torch.probes import (
     R, check_plain, device_line, report, seconds_per_call,
 )
+from gossipprotocol_tpu_torch.probes.tile_perm_probe import bank_wavefronts
 
 RESIDENT_MB = (2, 4, 8, 12, 16)
 GATHER_ROWS = (8, 256, 1024, 4096)
 GATHER_COLS = (128, 512, 4096)
 STREAM_ROWS = 64 * 1024 * 1024 // (128 * 4)   # 64 MiB of f32 [rows, 128]
 STREAM_TILE_ROWS = 1024
+
+
+def lane_gather_wavefronts(idx, rows_per_block: int, threads: int) -> dict:
+    """Shared-memory wavefronts of ``csrc/probes.cu``'s staged lane
+    gather on the indices ``idx`` (``[..., cols]``, values in
+    ``0..cols-1``) at the geometry ``(rows_per_block, threads)`` of
+    ``ops/probes.py`` ``gather_lanes_geometry``: a block's float4 e sits
+    on its row ``e // (cols / 4)``, staged at word ``row * cols``, and
+    lanes 32w..32w+31 of a step hold 32 consecutive float4, one request
+    for each of their four reads (inactive lanes share the first active
+    lane's word). ``{"requests": ..., "wavefronts": ...}``; one wavefront
+    a request is conflict-free."""
+    cols = idx.shape[-1]
+    c4 = cols // 4
+    idx = np.asarray(idx, np.int64).reshape(-1, cols)
+    rows = idx.shape[0]
+    blocks = -(-rows // rows_per_block)
+    pad = np.zeros((blocks * rows_per_block, cols), np.int64)
+    pad[:rows] = idx
+    pad = pad.reshape(blocks, rows_per_block * c4, 4)
+    n = np.minimum(rows_per_block, rows - np.arange(blocks)
+                   * rows_per_block) * c4                  # float4 a block
+    span = -(-rows_per_block * c4 // threads) * threads
+    e = np.arange(span)
+    row = np.minimum(e // c4, rows_per_block - 1)
+    words = (row * cols)[None, :, None] + pad[:, np.minimum(
+        e, rows_per_block * c4 - 1)]                         # [b, e, 4]
+    live = e[None, :] < n[:, None]                          # [b, e]
+    words = words.reshape(blocks, -1, 32, 4).transpose(0, 1, 3, 2)
+    live = np.broadcast_to(live.reshape(blocks, -1, 1, 32), words.shape)
+    words, live = words.reshape(-1, 32), live.reshape(-1, 32)
+    keep = live.any(axis=1)
+    words, live = words[keep], live[keep]
+    first = words[np.arange(len(words)), live.argmax(axis=1)]
+    words = np.where(live, words, first[:, None])
+    return {"requests": len(words), "wavefronts": bank_wavefronts(words)}
 
 
 def main(argv=None) -> int:

@@ -156,6 +156,81 @@ def test_expand_big_bitwise_vs_jax(c):
     assert _bits_equal(got.numpy(), want)
 
 
+# ---- class_expand_big's launch geometry (expand_big_kernel) ------------
+
+H100_SMS = 132
+
+
+def _expand_big_walk(n_c, q, blocks):
+    """``(output float4, node)`` of every store of ``expand_big_kernel``:
+    thread i of the grid stores float4 i, i + step, ...; its node is
+    ``o >> log2(32q)`` where q is a power of two, else carried by the
+    launcher's increments after one 32-bit division (the kernel's
+    arithmetic, replayed)."""
+    span = 32 * q
+    n4 = n_c * span
+    step = blocks * tco.EXPAND_BIG_THREADS
+    first = np.arange(step, dtype=np.int64)
+    pow2 = q & (q - 1) == 0
+    span32 = min(span, 2**31)
+    node, rem = first // span32, first % span32
+    outs, nodes = [], []
+    o = first
+    while (o < n4).any():
+        live = o < n4
+        outs.append(o[live])
+        nodes.append((o >> (span.bit_length() - 1) if pow2 else node)[live])
+        o = o + step
+        node, rem = node + step // span, rem + step % span
+        node, rem = (np.where(rem >= span, node + 1, node),
+                     np.where(rem >= span, rem - span, rem))
+    return np.concatenate(outs), np.concatenate(nodes)
+
+
+# c = 512 at power_law 1M's cap (1,024 nodes, q 8) and its 776 real nodes,
+# c = 131,072 (cap 8, q 2,048), q 1, q 3 (not a power of two), one node,
+# and more float4 than one wave of blocks covers (q 4,096 over 10 nodes,
+# and q 3 over 3,000: the grid walks on)
+@pytest.mark.parametrize("q,n_c", [(8, 1024), (8, 776), (2048, 8), (1, 200),
+                                   (3, 50), (8, 1), (4096, 10), (3, 3000)])
+def test_expand_big_geometry_covers_every_output_once(q, n_c):
+    n4 = n_c * q * 32
+    blocks = tco.expand_big_geometry(n4, H100_SMS)
+    assert blocks <= tco.EXPAND_BIG_BLOCKS_PER_SM * H100_SMS   # one wave
+    assert blocks * tco.EXPAND_BIG_THREADS >= min(
+        n4, tco.EXPAND_BIG_BLOCKS_PER_SM * H100_SMS * tco.EXPAND_BIG_THREADS)
+    out, node = _expand_big_walk(n_c, q, blocks)
+    assert out.size == n4
+    assert np.array_equal(np.sort(out), np.arange(n4))
+    assert np.array_equal(node, out // (32 * q))
+
+
+@pytest.mark.parametrize("q,n_c", [(8, 40), (3, 7), (1, 9), (16, 1)])
+def test_expand_big_walk_replays_the_plain_version(q, n_c):
+    """The kernel's store, the pair of the walked node as (s, w, s, w),
+    equals the plain version bitwise."""
+    p = _mixed(np.random.default_rng(q * n_c), 2 * n_c)
+    out, node = _expand_big_walk(n_c, q,
+                                 tco.expand_big_geometry(n_c * q * 32,
+                                                         H100_SMS))
+    got = np.empty((n_c * q * 32, 4), np.float32)
+    pairs = p.reshape(-1, 2)
+    got[out] = pairs[node][:, [0, 1, 0, 1]]
+    want = tco.class_expand_big_plain(torch.from_numpy(p), 64 * q)
+    assert _bits_equal(got.reshape(-1), want.numpy())
+
+
+@pytest.mark.parametrize("sms", [1, 8, 16, 132])
+def test_expand_big_geometry_on_other_cards(sms):
+    for q, n_c in ((8, 1024), (2048, 8), (3, 50)):
+        n4 = n_c * q * 32
+        blocks = tco.expand_big_geometry(n4, sms)
+        assert 1 <= blocks <= tco.EXPAND_BIG_BLOCKS_PER_SM * sms
+        out, node = _expand_big_walk(n_c, q, blocks)
+        assert np.array_equal(np.sort(out), np.arange(n4))
+        assert np.array_equal(node, out // (32 * q))
+
+
 @pytest.mark.parametrize("fn,arg", [
     (tco.class_reduce_small, 3),          # 2c does not divide 128
     (tco.class_reduce_split, 32),         # 2c < 128 is not a hub class

@@ -787,12 +787,22 @@ def test_reduce_big_kernel_negative_zero(cuda):
     assert _bits_equal(got, co.class_reduce_big_plain(x, 64 * q))
 
 
-@pytest.mark.parametrize("q,n_c", [(2, 300), (16, 40), (2048, 2)])
+# q 1 (every store of a thread lands on another node), 3 (not a power of
+# two), 8 (power_law 1M's c = 512 hub class at its cap of 1,024 nodes and
+# at its 776 real ones), 1,024 and 2,048 (c = 131,072 at cap 8), a single
+# node, and q 4,096 over 10 nodes: more float4 than one step of a full
+# wave covers, so the grid walks on
+@pytest.mark.parametrize("q,n_c", [(2, 300), (16, 40), (2048, 2), (1, 200),
+                                   (1, 1), (3, 50), (8, 1024), (8, 776),
+                                   (8, 1), (1024, 3), (2048, 8), (2048, 1),
+                                   (4096, 10)])
 def test_expand_big_kernel(cuda, q, n_c):
     p = torch.from_numpy(_mixed(np.random.default_rng(q + n_c),
                                 2 * n_c)).to(cuda)
+    before = co.LAUNCHES["class_expand_big"]
     got = co.class_expand_big(p, 64 * q)
     torch.cuda.synchronize()
+    assert co.LAUNCHES["class_expand_big"] == before + 1
     assert _bits_equal(got, co.class_expand_big_plain(p, 64 * q))
 
 
@@ -926,17 +936,70 @@ def test_probe_gather_rows_kernel(cuda, rows):
     assert _bits_equal(got, pr.probe_gather_rows_plain(x, idx))
 
 
+# row 17's [128, 128 / 512 / 4,096] and row 18's [15, 4096, 128], and every
+# branch of gather_lanes_geometry: rows of at most 128 lanes read in place
+# (4 and 128 lanes) and longer ones staged (132 lanes and up), lanes that
+# are not powers of two (4, 132, 4,100), 1 and 7 rows, row counts that
+# leave the last block's group of rows short (1 and 1,001 rows of 128
+# lanes in groups of 4; 7 rows of 132 in groups of 3), and rows longer
+# than a block's shared memory holds (60,000 lanes, 240,000 bytes: read
+# in place, one a block)
 @pytest.mark.parametrize("shape", [(128, 128), (128, 512), (128, 4096),
-                                   (15, 4096, 128), (2, 3, 4)])
+                                   (15, 4096, 128), (2, 3, 4), (1, 4),
+                                   (7, 4), (7, 132), (1, 4100), (7, 4100),
+                                   (1, 128), (1001, 128), (2, 60000)])
 def test_probe_gather_lanes_kernel(cuda, shape):
     from gossipprotocol_tpu_torch.ops import probes as pr
 
     x = _randn(cuda, *shape, seed=sum(shape))
-    idx = torch.from_numpy(np.random.default_rng(1).integers(
-        0, shape[-1], shape).astype(np.int32)).to(cuda)
+    rng = np.random.default_rng(1)
+    idx = torch.from_numpy(rng.integers(0, shape[-1], shape).astype(
+        np.int32)).to(cuda)
+    idx.view(-1, shape[-1])[0, :2] = torch.tensor([0, shape[-1] - 1])
+    cols = shape[-1]
+    _, _, staged = pr.gather_lanes_geometry(
+        x.numel() // cols, cols, pr._card(x.device.index)[0],
+        pr._smem_optin(x.device.index))
+    assert staged == (128 < cols != 60000)
+    before = pr.LAUNCHES["probe_gather_lanes"]
     got = pr.probe_gather_lanes(x, idx)
     torch.cuda.synchronize()
+    assert pr.LAUNCHES["probe_gather_lanes"] == before + 1
     assert _bits_equal(got, pr.probe_gather_lanes_plain(x, idx))
+
+
+def test_lane_gather_and_expand_big_in_a_graph(cuda):
+    """Both kernels captured in a CUDA graph (after an eager warm-up on
+    the capture stream, as the probes time them): the replays give the
+    plain versions' bits, one launch each at capture."""
+    from gossipprotocol_tpu_torch.ops import probes as pr
+
+    x = _randn(cuda, 128, 4096, seed=3)
+    idx = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 4096, (128, 4096)).astype(np.int32)).to(cuda)
+    p = torch.from_numpy(_mixed(np.random.default_rng(5), 2 * 1024)).to(cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        pr.probe_gather_lanes(x, idx)
+        co.class_expand_big(p, 512)
+    side.synchronize()
+    before = (pr.LAUNCHES["probe_gather_lanes"],
+              co.LAUNCHES["class_expand_big"])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        lanes = pr.probe_gather_lanes(x, idx)
+        hubs = co.class_expand_big(p, 512)
+    assert (pr.LAUNCHES["probe_gather_lanes"],
+            co.LAUNCHES["class_expand_big"]) == (before[0] + 1,
+                                                 before[1] + 1)
+    for _ in range(2):
+        lanes.zero_()
+        hubs.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _bits_equal(lanes, pr.probe_gather_lanes_plain(x, idx))
+        assert _bits_equal(hubs, co.class_expand_big_plain(p, 512))
 
 
 # 200 and 488 tiles: more blocks than the card holds at once (two an SM,

@@ -261,6 +261,129 @@ def test_gather_rows_geometry_on_other_cards(sms):
         assert -(-rows // chunk) <= max(1, sms // pr.GATHER_BANDS)
 
 
+# ---- the launch geometry of rows 17 and 18 (gather_lanes_kernel) -------
+
+H100_SMEM = 232_448       # shared memory an H100 block may opt into
+
+
+def _gather_lanes_walk(rows, cols, rpb, threads):
+    """``(output float4, source row)`` of every float4 that
+    ``gather_lanes_kernel``'s threads write: thread t of block b starts at
+    float4 t of the block's rows, steps by ``threads``, and carries its row
+    by the kernel's increments (no division after the first)."""
+    c4 = cols // 4
+    blocks = -(-rows // rpb)
+    b = np.arange(blocks)[:, None]
+    t = np.arange(threads)[None, :]
+    n = np.minimum(rpb, rows - b * rpb) * c4
+    r, c = t // c4, t % c4
+    dr, dc = threads // c4, threads % c4
+    outs, srcs = [], []
+    for step in range(-(-rpb * c4 // threads)):
+        e = t + step * threads
+        live = np.broadcast_to(e < n, (blocks, threads))
+        outs.append((b * rpb * c4 + e)[live])
+        srcs.append(np.broadcast_to(b * rpb + r, live.shape)[live])
+        r, c = r + dr, c + dc
+        r, c = np.where(c >= c4, r + 1, r), np.where(c >= c4, c - c4, c)
+    return np.concatenate(outs), np.concatenate(srcs)
+
+
+# rows 17 ([128, 128 / 512 / 4,096]) and 18 ([15 * 4,096, 128]), and the
+# edges: 4, 132 and 4,100 lanes, 1 and 7 rows, a last group of rows cut
+# short (1,001 rows in groups of 4, 7 rows of 132 lanes in groups of 3), a
+# row beyond the shared memory
+@pytest.mark.parametrize("rows,cols", [
+    (128, 128), (128, 512), (128, 4096), (61440, 128), (1, 4), (7, 4),
+    (7, 132), (1, 4100), (7, 4100), (1, 128), (1001, 128), (2, 60000)])
+def test_gather_lanes_geometry_covers_every_output_once(rows, cols):
+    rpb, threads, staged = pr.gather_lanes_geometry(rows, cols, H100_SMS,
+                                                    H100_SMEM)
+    fits = cols * 4 <= H100_SMEM
+    assert staged == (fits and cols > 128)
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    if fits:
+        assert rpb * cols * 4 <= H100_SMEM
+    else:
+        assert rpb == 1
+    out, src = _gather_lanes_walk(rows, cols, rpb, threads)
+    assert out.size == rows * cols // 4
+    assert np.array_equal(np.sort(out), np.arange(out.size))
+    # the carried row is the output's own row
+    assert np.array_equal(src, out // (cols // 4))
+
+
+def test_gather_lanes_geometry_at_the_timed_shapes():
+    """What the kernel runs at the probe's shapes: 4 rows of 128 lanes a
+    block read in place, one staged row of 512 (one float4 a thread), one
+    staged row of 4,096 on 256 threads (four float4 each), 8 rows of the
+    tiled call's 128 lanes read in place (more than a wave of outputs)."""
+    g = lambda r, c: pr.gather_lanes_geometry(r, c, H100_SMS, H100_SMEM)  # noqa: E731
+    assert g(128, 128) == (4, 128, False)
+    assert g(128, 512) == (1, 128, True)
+    assert g(128, 4096) == (1, 256, True)
+    assert g(15 * 4096, 128) == (8, 256, False)
+    assert g(2, 60000) == (1, 1024, False)
+
+
+@pytest.mark.parametrize("rows,cols", [(128, 128), (7, 132), (1, 4100),
+                                       (1001, 128), (3, 60000)])
+def test_gather_lanes_walk_replays_the_plain_version(rows, cols):
+    """The kernel's arithmetic (lane ``idx`` of the carried row), replayed
+    over its walk, equals ``torch.gather`` bitwise."""
+    x = _randn(rows + cols, rows, cols)
+    idx = np.random.default_rng(cols).integers(
+        0, cols, (rows, cols)).astype(np.int32)
+    rpb, threads, _ = pr.gather_lanes_geometry(rows, cols, H100_SMS,
+                                               H100_SMEM)
+    o, r = _gather_lanes_walk(rows, cols, rpb, threads)
+    out = np.empty(rows * cols, np.float32)
+    for j in range(4):
+        flat = o * 4 + j
+        out[flat] = x[r, idx.reshape(-1)[flat]]
+    want = pr.probe_gather_lanes_plain(torch.from_numpy(x),
+                                       torch.from_numpy(idx))
+    assert _bits_equal_torch(torch.from_numpy(out.reshape(rows, cols)),
+                             want)
+
+
+@pytest.mark.parametrize("sms", [1, 8, 16, 132])
+def test_gather_lanes_geometry_on_other_cards(sms):
+    """Rows read in place are grouped twice as wide only where the output
+    fills more than a wave of the card; every output is still written
+    once."""
+    for rows, cols in ((128, 128), (61440, 128), (7, 132)):
+        rpb, threads, staged = pr.gather_lanes_geometry(rows, cols, sms,
+                                                        H100_SMEM)
+        wide = not staged and rows * cols // 4 > 2048 * sms
+        assert rpb == max(1, pr.LANES_BLOCK4 * (2 if wide else 1)
+                          // (cols // 4))
+        out, src = _gather_lanes_walk(rows, cols, rpb, threads)
+        assert np.array_equal(np.sort(out), np.arange(rows * cols // 4))
+        assert np.array_equal(src, out // (cols // 4))
+
+
+def test_lane_gather_wavefront_replay():
+    """Pins the replay of the staged gather: every lane of a row on one
+    index is a broadcast (one wavefront a request); the identity reads
+    words 4 apart, 8 banks four deep (four); uniformly random lanes cost
+    about 3.5 at 4,096."""
+    rpb, threads, staged = pr.gather_lanes_geometry(128, 512, H100_SMS,
+                                                    H100_SMEM)
+    assert staged
+    same = np.full((128, 512), 5)
+    ident = np.tile(np.arange(512), (128, 1))
+    for idx, ways in ((same, 1), (ident, 4)):
+        w = route_probe.lane_gather_wavefronts(idx, rpb, threads)
+        assert w == {"requests": 2048, "wavefronts": 2048 * ways}
+    idx = np.random.default_rng(0).integers(0, 4096, (128, 4096))
+    rpb, threads, _ = pr.gather_lanes_geometry(128, 4096, H100_SMS,
+                                               H100_SMEM)
+    w = route_probe.lane_gather_wavefronts(idx, rpb, threads)
+    assert w["requests"] == 128 * 4096 // 32
+    assert 3.3 < w["wavefronts"] / w["requests"] < 3.7
+
+
 @pytest.mark.parametrize("cols", [128, 512])
 def test_dim1_gather_plain_equals_jax_interpret(cols):
     rng = np.random.default_rng(cols)
