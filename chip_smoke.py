@@ -123,12 +123,28 @@ Phases (each prints its lines; any failure exits non-zero):
       the three probe entry points in process at their default argv,
       each exiting 0;
   (l) the reference semantics (``--semantics reference``) through the
-      CLI: gossip and the push-sum walk at line, full, 3D and imp3D of
-      100, 500 and 1,000 nodes (line push-sum not at 1,000:
+      CLI, and the walk kernel (``csrc/walk.cu``): the latency of a
+      dependent load (a pointer chase through 4 and 32 MB, L2-resident),
+      the walk's floor; the kernel against its plain chunk at imp3D,
+      power_law and full 1M (dense, CSR and implicit layouts), one chunk
+      of 4,096 hops from the initial state, bitwise in every field, with
+      both times; gossip and the push-sum walk at line, full, 3D and imp3D
+      of 100, 500 and 1,000 nodes (line push-sum not at 1,000:
       ``REF_SEM_SKIP``), each converging with exit 0, card against CPU
       (the same argv on ``--device cpu``) with equal round or hop counts
-      and bitwise final states; reference gossip at imp3D 1M to
-      convergence; the walk's and gossip's ms per executed round.
+      and bitwise final states, the walk kernel launched on every card
+      walk and no other kernel; the walk at imp3D 262,144 to convergence
+      over the chunk sweep (``--chunk-rounds`` 256-65,536, the same hops
+      and state at each), microseconds per hop; the walk at imp3D 1M, to
+      convergence when the measured rate puts it within a minute, else
+      capped (exit 1); reference gossip at imp3D 1M to convergence;
+  (m) the native remainder and the curve tools: ``--check`` of the seven
+      families at 1M nodes, ``--backend tpu`` (exit 2), ``experiments.
+      curves`` over the Report grid (--repeats 1) with intended and with
+      reference semantics (reference gossip on the full graph left out:
+      it livelocks to the tool's round cap in both packages), ``experiments.
+      oracle_curves`` in process, and power_law and imp3D at 10M built by
+      the native and the numpy paths, byte-equal, with each one's seconds.
 
 ``slice_times`` (not a phase) times rows 12, 15-20 and 6 through
 their wrappers by graph replay for whichever tree's package is first on
@@ -240,6 +256,10 @@ KERNELS = {
                            "experiments/route_probe.py:216"),
     "probe_tile_perm": ("gossipprotocol_tpu_torch/csrc/probes.cu",
                         "experiments/tile_perm_probe.py:141"),
+    "walk_chunk": ("gossipprotocol_tpu_torch/csrc/walk.cu",
+                   "gossipprotocol_tpu/protocols/walk.py:122-177 (no "
+                   "pallas_call: the on-device while_loop over "
+                   "pushsum_walk_round)"),
 }
 # phase (i): the node-major hub kernels have no CLI path in either
 # package; they run at the hub classes of this graph, and their launch
@@ -2215,6 +2235,27 @@ REF_SEM_TOPOLOGIES = ("line", "full", "3D", "imp3D")
 # package either
 REF_SEM_SKIP = {("line", 1000, "push-sum")}
 REF_GOSSIP_1M = ["1000000", "imp3D", "gossip", "--semantics", "reference"]
+# the walk kernel against its plain chunk: one chunk of WALK_CHECK_HOPS
+# hops from the initial state on each neighbour layout at 1M nodes
+WALK_CHECK_GRAPHS = {
+    "imp3D_1M": (1_000_000, "imp3D", {"seed": 0}),           # dense table
+    "power_law_1M": (1_000_000, "power_law", {"seed": 0, "m": 4}),  # CSR
+    "full_1M": (1_000_000, "full", {}),                       # implicit
+}
+WALK_CHECK_HOPS = 4096
+WALK_MAIN_GRAPH = "imp3D_1M"   # the kernels line's shape
+# the walk through the CLI to convergence (the JAX package's oracle, seed
+# 17: ~5.2M hops at imp3D 262,144, ~2.1e7 at 1M), and the chunk sweep
+WALK_CLI_262144 = ["262144", "imp3D", "push-sum", "--semantics",
+                   "reference", "--max-rounds", "50000000"]
+WALK_CHUNKS = (256, 1024, 4096, 16384, 65536)
+WALK_CLI_1M = ["1000000", "imp3D", "push-sum", "--semantics", "reference"]
+WALK_1M_HOPS = 2.1e7
+WALK_1M_BUDGET_S = 60.0
+# the dependent-load chain behind the walk's floor: a pointer chase
+# through uniformly random cycles of these sizes (L2-resident)
+CHASE_BYTES = (4 << 20, 32 << 20)
+CHASE_STEPS = 1_000_000
 
 
 def _capture_results():
@@ -2245,9 +2286,112 @@ def _ref_cli(argv):
     return rc, text, etext, counts, got[0]
 
 
+def _walk_counts_ok(counts, walk):
+    """Only the walk kernel launched (at least once) when ``walk``, and
+    nothing at all otherwise."""
+    others = {k: v for k, v in counts.items() if k != "walk_chunk" and v}
+    return not others and ((counts["walk_chunk"] > 0) == walk)
+
+
+def pointer_chase_ns(torch, nbytes):
+    """ns per dependent load, following one uniformly random cycle
+    through ``nbytes`` of int32 (warmed into L2 by a full pass first)."""
+    from gossipprotocol_tpu_torch.ops import walk as ow
+
+    m = nbytes // 4
+    perm = torch.randperm(m, generator=torch.Generator().manual_seed(0))
+    nxt = torch.empty(m, dtype=torch.int32)
+    nxt[perm] = perm.roll(-1).to(torch.int32)
+    nxt = nxt.cuda()
+    ow.pointer_chase(nxt, m)
+    ms = cuda_ms(torch, lambda: ow.pointer_chase(nxt, CHASE_STEPS), 3,
+                 warmup=1)
+    return ms * 1e6 / CHASE_STEPS
+
+
+def walk_kernel_checks(torch, chase_ns):
+    """The walk kernel against its plain chunk on the card at 1M nodes on
+    each layout: one chunk from the initial state, bitwise in every field
+    and the settled count; the kernel's time per launch (CUDA events, a
+    fresh copy of the state each launch) and the plain chunk's."""
+    from gossipprotocol_tpu_torch.ops import walk as ow
+    from gossipprotocol_tpu_torch.protocols import sampling as ts
+    from gossipprotocol_tpu_torch.protocols import walk as tw
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    records = []
+    for gname, (n, kind, kw) in WALK_CHECK_GRAPHS.items():
+        topo = build_topology(kind, n, **kw)
+        nbrs = ts.device_topology(topo, device="cuda")
+        lay = ow.walk_layout(nbrs, n)
+        key = ts.key_data(0, "cuda")
+        st = tw.pushsum_walk_init(n, 0, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = tw.walk_chunk_plain(tw.WalkDraws(nbrs, n, key.device), st, key,
+                                   WALK_CHECK_HOPS, n, 3)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        copies = [type(st)(*(t.clone() for t in st)) for _ in range(6)]
+        torch.cuda.synchronize()
+        settled = ow.walk_chunk(lay, copies[0], key, WALK_CHECK_HOPS, n, 3)
+        got = copies[0]
+        bad = [f for f in got._fields
+               if not bitwise_equal(torch, getattr(got, f).reshape(-1),
+                                    getattr(want, f).reshape(-1))]
+        require(not bad, f"(l) walk kernel {gname}: fields {bad} differ "
+                f"from the plain chunk")
+        want_settled = int(torch.sum(want.converged | ~want.alive))
+        require(int(settled) == want_settled, f"(l) walk kernel {gname}: "
+                f"settled {int(settled)} against {want_settled}")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(10)]
+        for i, c in enumerate(copies[1:]):
+            ev[2 * i].record()
+            ow.walk_chunk(lay, c, key, WALK_CHECK_HOPS, n, 3)
+            ev[2 * i + 1].record()
+        torch.cuda.synchronize()
+        ms = min(ev[2 * i].elapsed_time(ev[2 * i + 1]) for i in range(5))
+        hops = int(got.round) - int(st.round)
+        # a hop's loads and stores: the holder's degree (and CSR start)
+        # and table entry, the receiver's s, w, streak, converged read and
+        # s, w, ratio, streak written (the non-relay rule); and its five
+        # threefry hashes (~110 integer operations each) and the draw
+        per_hop = {ow.LAYOUT_FULL: 0, ow.LAYOUT_DENSE: 8,
+                   ow.LAYOUT_CSR: 16}[lay.layout] + 13 + 16
+        nbytes, ops = hops * per_hop, hops * (5 * 110 + 80)
+        b_ms, b_by = bound(nbytes, ops)
+        floor_ms = hops * 3 * chase_ns * 1e-6
+        records.append(dict(
+            name="walk_chunk", graph=gname, call=f"{WALK_CHECK_HOPS} hops",
+            shape=[n, hops], max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, bytes=nbytes, latency_floor_ms=floor_ms,
+            ms_per_hop=ms / hops, plain_ms_per_hop=plain_ms / hops))
+        say(f"(l) walk kernel {gname} ({['full', 'dense', 'CSR'][lay.layout]}"
+            f"), one chunk of {WALK_CHECK_HOPS} hops from the start "
+            f"({hops} run, {int(settled)} settled): bitwise the plain "
+            f"chunk in every field; kernel {ms:.4f} ms "
+            f"({ms / hops * 1e3:.4f} us a hop), plain {plain_ms:.1f} ms "
+            f"({plain_ms / hops:.4f} ms a hop), floor {floor_ms:.4f} ms "
+            f"(3 x {chase_ns:.1f} ns a hop), bound {b_ms:.6f} ms "
+            f"({b_by}); library: none (no PyTorch call walks)")
+        del nbrs, lay, copies, want, got
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_reference_semantics(torch):
+    """Phase (l); returns the walk kernel's records and its launches on
+    the phase's CLI runs on the card."""
     t0 = time.perf_counter()
-    per = {"gossip": [0.0, 0], "push-sum": [0.0, 0]}
+    chase = {b: pointer_chase_ns(torch, b) for b in CHASE_BYTES}
+    for b, ns in chase.items():
+        say(f"(l) pointer chase through {b >> 20} MB of int32 (one random "
+            f"cycle, L2-resident): {ns:.1f} ns a dependent load")
+    chase_ns = min(chase.values())
+    records = walk_kernel_checks(torch, chase_ns)
+    walk_launches = 0
+    per = {"gossip": [0.0, 0, 0], "push-sum": [0.0, 0, 0]}
     for topo in REF_SEM_TOPOLOGIES:
         for n in REF_SEM_SIZES:
             for algo in ("gossip", "push-sum"):
@@ -2261,11 +2405,13 @@ def phase_reference_semantics(torch):
                     require(rc == 0 and r.converged,
                             f"(l) {' '.join(argv)} on {dev}: exit {rc}: "
                             f"{etext.strip()}")
-                    require(not any(counts.values()),
+                    walk = dev == "cuda" and algo == "push-sum"
+                    require(_walk_counts_ok(counts, walk),
                             f"(l) {' '.join(argv)} on {dev}: kernels "
                             f"launched {counts}")
-                    res[dev] = (text, r)
-                text, a = res["cuda"]
+                    walk_launches += counts["walk_chunk"] if walk else 0
+                    res[dev] = (text, r, counts["walk_chunk"])
+                text, a, launches = res["cuda"]
                 b = res["cpu"][1]
                 require(a.rounds == b.rounds, f"(l) {' '.join(argv)}: "
                         f"{a.rounds} rounds on the card, {b.rounds} on cpu")
@@ -2276,21 +2422,74 @@ def phase_reference_semantics(torch):
                         f"fields {bad} differ")
                 per[algo][0] += a.wall_ms
                 per[algo][1] += a.rounds_executed
+                per[algo][2] += a.rounds
                 note = text.splitlines()[0] if text.startswith("note") \
                     else ""
                 est = re.search(r"max \|s/w - mean\| = (\S+)", text)
-                say(f"(l) {' '.join(argv)}: rc 0, {a.rounds} "
-                    f"{'hops' if algo == 'push-sum' else 'rounds'} "
+                unit = "hops" if algo == "push-sum" else "rounds"
+                say(f"(l) {' '.join(argv)}: rc 0, {a.rounds} {unit} "
                     f"({a.rounds_executed} executed), card {a.wall_ms:.3f} "
-                    f"ms ({a.wall_ms / max(a.rounds_executed, 1):.4f} ms "
-                    f"each), cpu {b.wall_ms:.3f} ms; card == cpu: counts "
+                    f"ms ({a.wall_ms / max(a.rounds, 1):.5f} ms a "
+                    f"{unit[:-1]}"
+                    + (f", {launches} walk launches" if launches else "")
+                    + f"), cpu {b.wall_ms:.3f} ms; card == cpu: counts "
                     f"equal, state bitwise"
                     + (f"; estimate error {est.group(1)}" if est else "")
                     + (f" [{note}]" if note else ""))
-    for algo, (ms, rounds) in per.items():
-        unit = "hop" if algo == "push-sum" else "executed round"
+    for algo, (ms, executed, rounds) in per.items():
         say(f"(l) {algo} on the card, all runs above: {ms:.1f} ms over "
-            f"{rounds} {unit}s = {ms / max(rounds, 1):.4f} ms per {unit}")
+            f"{rounds} {'hops' if algo == 'push-sum' else 'rounds'} "
+            f"({executed} executed) = {ms / max(rounds, 1):.5f} ms each")
+    # the walk at imp3D 262,144 to convergence, over the chunk sweep
+    sweep = {}
+    for chunk in WALK_CHUNKS:
+        argv = WALK_CLI_262144 + ["--chunk-rounds", str(chunk),
+                                  "--device", "cuda"]
+        rc, text, etext, counts, r = _ref_cli(argv)
+        require(rc == 0 and r.converged and _walk_counts_ok(counts, True),
+                f"(l) {' '.join(argv)}: exit {rc}, launches {counts}: "
+                f"{etext.strip()[-300:]}")
+        walk_launches += counts["walk_chunk"]
+        sweep[chunk] = r
+        say(f"(l) walk imp3D 262,144 --chunk-rounds {chunk}: rc 0, "
+            f"{r.rounds} hops in {r.wall_ms:.1f} ms = "
+            f"{r.wall_ms / r.rounds * 1e3:.4f} us a hop, "
+            f"{counts['walk_chunk']} launches (one a chunk, the warm-up's "
+            f"included)")
+    first = sweep[WALK_CHUNKS[0]]
+    for chunk, r in sweep.items():
+        require(r.rounds == first.rounds and all(
+            bitwise_equal(torch, x, y) for x, y in zip(
+                r.final_state, first.final_state)),
+            f"(l) walk imp3D 262,144: chunk {chunk} ends elsewhere than "
+            f"chunk {WALK_CHUNKS[0]}")
+    from gossipprotocol_tpu_torch.engine.driver import WALK_CHUNK_HOPS
+
+    us_hop = sweep[WALK_CHUNK_HOPS].wall_ms / first.rounds * 1e3
+    say(f"(l) walk imp3D 262,144: every chunk size ends in the same "
+        f"{first.rounds} hops and state; the default chunk "
+        f"({WALK_CHUNK_HOPS}) {us_hop:.4f} us a hop")
+    # imp3D 1M: to convergence if that fits the budget at this rate
+    predicted = us_hop * 1e-6 * WALK_1M_HOPS
+    if predicted <= WALK_1M_BUDGET_S:
+        argv, want_rc = WALK_CLI_1M + ["--max-rounds", "200000000"], 0
+        say(f"(l) walk imp3D 1M: {us_hop:.4f} us x {WALK_1M_HOPS:.2g} hops "
+            f"= {predicted:.1f} s <= {WALK_1M_BUDGET_S:.0f} s: to "
+            f"convergence")
+    else:
+        cap = int(WALK_1M_BUDGET_S / (us_hop * 1e-6))
+        argv, want_rc = WALK_CLI_1M + ["--max-rounds", str(cap)], 1
+        say(f"(l) walk imp3D 1M: {us_hop:.4f} us x {WALK_1M_HOPS:.2g} hops "
+            f"= {predicted:.1f} s > {WALK_1M_BUDGET_S:.0f} s: capped at "
+            f"{cap} hops (exit 1 expected)")
+    rc, text, etext, counts, r = _ref_cli(argv + ["--device", "cuda"])
+    require(rc == want_rc and _walk_counts_ok(counts, True),
+            f"(l) {' '.join(argv)}: exit {rc} (expected {want_rc}), "
+            f"launches {counts}")
+    walk_launches += counts["walk_chunk"]
+    say(f"(l) walk imp3D 1M: rc {rc}, {r.rounds} hops in {r.wall_ms:.1f} "
+        f"ms = {r.wall_ms / max(r.rounds, 1) * 1e3:.4f} us a hop, "
+        f"{counts['walk_chunk']} launches, converged {r.converged}")
     rc, text, etext, counts, r = _ref_cli(REF_GOSSIP_1M + ["--device",
                                                            "cuda"])
     for line in (etext + text).splitlines():
@@ -2301,7 +2500,149 @@ def phase_reference_semantics(torch):
         f"({r.rounds_executed} executed), {r.wall_ms:.3f} ms, "
         f"{r.wall_ms / max(r.rounds_executed, 1):.4f} ms per executed "
         f"round, {r.num_nodes} rows (the isolated extra actor included)")
+    say(f"(l) walk kernel launches on the phase's card runs: "
+        f"{walk_launches}")
     say(f"(l) phase seconds {time.perf_counter() - t0:.1f}")
+    return records, walk_launches
+
+
+# ---------------------------------------------------------------- (m)
+
+# --check at 1M nodes for the seven families (the CLI's default builder
+# arguments)
+CHECK_FAMILIES = ("line", "full", "3D", "imp3D", "erdos_renyi", "power_law",
+                  "small_world")
+# the curve tools over the Report grid (100-1,000 nodes x line, full, 3D,
+# imp3D x gossip, push-sum), --repeats 1: (label, argv, rows). Reference
+# gossip on the full graph (keep-alive off, every node to converge)
+# livelocks to the tool's 500,000-round cap in both packages (the last
+# spreader never hears again; the JAX tool on the CPU prints 500000 rounds
+# at every size), which at ~3 ms a drawing round is ~25 minutes a point:
+# those five points are left out
+CURVE_RUNS = (
+    ("intended", [], 40),
+    ("reference walk", ["--semantics", "reference", "--algorithms",
+                        "push-sum"], 20),
+    ("reference gossip", ["--semantics", "reference", "--algorithms",
+                          "gossip", "--topologies", "line,3D,imp3D"], 15),
+)
+# the 10M builds, native against numpy. The numpy builds take minutes, so
+# each runs in a process of its own, started when the phase starts, while
+# the phase's other work runs (the native builds too: their seconds are
+# taken beside the two numpy builds)
+BUILD_10M = (("power_law", {"seed": 0, "m": 4}), ("imp3D", {"seed": 0}))
+BUILD_10M_NODES = 10_000_000
+
+
+def timed_build(kind, kw, nodes, use_native):
+    """``(seconds, digest of offsets and indices, nodes, directed edges)``
+    of one topology build in this process, by the native library or the
+    numpy path (a spawned worker runs this for the numpy builds)."""
+    import hashlib
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if not use_native:
+        os.environ["GOSSIP_TPU_NATIVE"] = "0"
+    from gossipprotocol_tpu_torch import native
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    if native.backend() != ("native" if use_native else "numpy"):
+        raise RuntimeError(f"(m) {kind}: the {native.backend()} path ran")
+    t0 = time.perf_counter()
+    topo = build_topology(kind, nodes, **kw)
+    seconds = time.perf_counter() - t0
+    h = hashlib.blake2b(digest_size=16)
+    for a in (topo.offsets, topo.indices):
+        h.update(str(a.dtype).encode())
+        h.update(memoryview(a))
+    return seconds, h.hexdigest(), topo.num_nodes, topo.num_directed_edges
+
+
+def phase_native_and_curves(torch):
+    """Phase (m): --check, --backend, the curve tools, the 10M builds."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(
+        max_workers=len(BUILD_10M),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        plain = {kind: pool.submit(timed_build, kind, kw, BUILD_10M_NODES,
+                                   False) for kind, kw in BUILD_10M}
+        _checks_and_curves()
+        for kind, kw in BUILD_10M:
+            t_native, digest, nodes, edges = timed_build(
+                kind, kw, BUILD_10M_NODES, True)
+            t_numpy, want, *_ = plain[kind].result(timeout=1200)
+            require(digest == want, f"(m) {kind} 10M: the native and numpy "
+                    f"builds differ")
+            say(f"(m) {kind} 10M ({nodes} nodes, {edges} directed edges): "
+                f"native {t_native:.2f} s, numpy {t_numpy:.2f} s (in a "
+                f"process of its own, beside the phase's other work), "
+                f"byte-equal")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    say(f"(m) phase seconds {time.perf_counter() - t0:.1f}")
+
+
+def _checks_and_curves():
+    """Phase (m)'s --check, --backend and curve-tool runs."""
+    import csv
+
+    from gossipprotocol_tpu_torch.experiments import curves, oracle_curves
+
+    for name in CHECK_FAMILIES:
+        t1 = time.perf_counter()
+        rc, text, etext, counts = _run_cli(["1000000", name, "gossip",
+                                            "--check"])
+        last = (text.strip().splitlines() or [""])[-1]
+        require(rc == 0 and last.startswith("topology ok: kind=")
+                and not any(counts.values()),
+                f"(m) --check {name} 1M: exit {rc}: {etext.strip()}")
+        say(f"(m) --check {name} 1M: rc 0, {last} "
+            f"({time.perf_counter() - t1:.1f} s)")
+    rc, text, etext, _ = _run_cli(["1000", "imp3D", "gossip", "--backend",
+                                   "tpu"])
+    require(rc == 2 and etext.startswith("backend 'tpu' unavailable: "),
+            f"(m) --backend tpu: exit {rc}: {etext.strip()}")
+    say(f"(m) --backend tpu: rc 2, {etext.strip()}")
+    rc, text, etext, _ = _run_cli(["1000", "imp3D", "gossip", "--backend",
+                                   "gpu", "--check"])
+    require(rc == 0, f"(m) --backend gpu --check: exit {rc}")
+    say("(m) --backend gpu --check: rc 0 (the card)")
+    with tempfile.TemporaryDirectory(prefix="curves_") as out_dir:
+        for label, extra, want_rows in CURVE_RUNS:
+            out = os.path.join(out_dir, f"{label.replace(' ', '_')}.csv")
+            t1 = time.perf_counter()
+            ebuf = io.StringIO()
+            with contextlib.redirect_stderr(ebuf):
+                rc = curves.main(["--repeats", "1", "--out", out] + extra)
+            with open(out, newline="") as fh:
+                rows = list(csv.DictReader(fh))
+            require(rc == 0 and len(rows) == want_rows,
+                    f"(m) curves {label}: exit {rc}, {len(rows)} rows of "
+                    f"{want_rows}: {ebuf.getvalue()[-300:]}")
+            conv = sum(r["converged"] == "True" for r in rows)
+            say(f"(m) curves {label}: rc 0, {len(rows)} rows ({conv} "
+                f"converged; {sum(int(r['rounds']) for r in rows)} rounds "
+                f"in all), {time.perf_counter() - t1:.1f} s")
+            for r in rows:
+                if r["converged"] != "True":
+                    say(f"(m)   not converged: {r['algorithm']} "
+                        f"{r['topology']} {r['nodes_requested']}: "
+                        f"{r['rounds']} rounds")
+        say("(m) curves reference gossip on full: left out (livelocks to the "
+            "500,000-round cap in both packages)")
+        t1 = time.perf_counter()
+        ebuf = io.StringIO()
+        with contextlib.redirect_stderr(ebuf):
+            rc = oracle_curves.main(["--out", os.path.join(
+                out_dir, "oracle_curves.csv")])
+        require(rc == 0, f"(m) oracle_curves: exit {rc}: "
+                f"{ebuf.getvalue()[-300:]}")
+        say(f"(m) oracle_curves: rc 0, {time.perf_counter() - t1:.1f} s; "
+            f"{ebuf.getvalue().strip().splitlines()[-1]}")
 
 
 def summarize(records, totals, stream_rate):
@@ -2312,14 +2653,18 @@ def summarize(records, totals, stream_rate):
     for kname, (source, replaces) in KERNELS.items():
         mine = [r for r in records if r["name"] == kname]
         require(mine, f"kernel {kname} was not measured")
-        # the megakernel's main path runs K = 16
+        # the megakernel's main path runs K = 16; the walk's, the CLI's
+        # imp3D graph
+        if kname == "walk_chunk":
+            mine = [r for r in mine if r["graph"] == WALK_MAIN_GRAPH]
         big = max((r for r in mine if r["call"] != "K=1"),
                   key=lambda r: r["bytes"])
         extra = {"launches_from": NO_CLI_PATH} if kname in HUB_KERNELS \
             else {}
         if kname in PROBE_KERNELS:
             extra = {"launches_from": NO_CLI_PATH_PROBES, "row": big["row"]}
-        for key in ("graph_ms", "library_graph_ms", "bound_l2_ms"):
+        for key in ("graph_ms", "library_graph_ms", "bound_l2_ms",
+                    "latency_floor_ms", "ms_per_hop", "plain_ms_per_hop"):
             if key in big:
                 extra[key] = big[key]
         out.append(dict(
@@ -2379,7 +2724,10 @@ def main(argv=None) -> int:
             probe_records, probe_totals, stream_rate = phase_probes(torch)
             records += probe_records
             totals.update(probe_totals)
-            phase_reference_semantics(torch)
+            walk_records, totals["walk_chunk"] = phase_reference_semantics(
+                torch)
+            records += walk_records
+            phase_native_and_curves(torch)
             kernels = summarize(records, totals, stream_rate)
         except SmokeFailure as e:
             print(f"FAIL: {e}", flush=True)

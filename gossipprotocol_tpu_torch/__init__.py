@@ -10,7 +10,11 @@ all --delivery pallas``), the Clos-routed delivery (``--delivery
 routed``), the K-round megakernel (``--delivery megakernel
 --rounds-per-kernel K``) and sharded over S shards with the push design
 (``--devices S``), with twelve TPU kernels rewritten as CUDA for Hopper
-(``csrc/``), and the plan cache.
+(``csrc/``), and the plan cache; the reference semantics
+(``--semantics reference``), whose push-sum walk runs a chunk of hops as
+one kernel on the card (``csrc/walk.cu``); the probes; the host libraries
+(``native.py``: routing, graph building, the actor-semantics oracle),
+``--check``, ``--backend`` and the curve tools (``experiments``).
 Entry points run on ``cuda`` unless asked for ``cpu``, where each
 kernel's plain PyTorch version runs instead.
 """

@@ -4,7 +4,7 @@
         [--threshold H] [--no-keep-alive] [--seed-node I]
         [--predicate delta|global] [--eps E] [--tol T] [--streak S]
         [--value-mode scaled|index] [--semantics intended|reference]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--backend auto|cpu|gpu|cuda] [--check]
     python -m gossipprotocol_tpu_torch N TOPOLOGY push-sum \\
         --fanout all --delivery pallas|routed|megakernel
         [--rounds-per-kernel K]
@@ -22,9 +22,12 @@ push-sum as the single-token walk.
 The positional surface and the output follow the JAX package's CLI (the
 reference's ``N topology algorithm`` → ``Convergence Time: %f ms``). Exit
 codes: 0 converged, 1 not converged (``--max-rounds`` reached, or a
-gossip run whose rumor died out), 2 bad input. Every flag and
-combination the port does not have yet exits 2 and names itself;
-nothing falls back quietly to another path.
+gossip run whose rumor died out), 2 bad input. ``--check`` builds and
+validates the topology, prints its shape and exits 0 (2 if invalid)
+without simulating. ``--backend`` is the JAX CLI's platform flag mapped
+onto ``--device`` (:func:`resolve_backend`). Every flag and combination
+the port does not have yet exits 2 and names itself; nothing falls back
+quietly to another path.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ _ALGO_ALIASES = {
 
 # flags of the JAX package's CLI that this port does not have yet
 UNPORTED_FLAGS = (
-    "--backend", "--build",
+    "--build",
     "--build-memory-budget", "--payload-dim", "--workload", "--clock",
     "--activation-rate", "--groups", "--accel", "--accel-lambda", "--lr",
     "--local-steps", "--sgp-samples", "--loss-tol", "--x64",
@@ -53,8 +56,10 @@ UNPORTED_FLAGS = (
     "--churn", "--value-faults", "--sentinel", "--profile-dir",
     "--telemetry-dir", "--sweep", "--sweep-seeds", "--round-budget",
     "--trace-cap", "--compile-cache", "--request-id", "--admission-json",
-    "--check",
 )
+
+# --backend names and the --device each selects ("auto": --device's own)
+BACKEND_DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 # subcommands of the JAX package's CLI that this port does not have yet
 UNPORTED_SUBCOMMANDS = ("report", "watch", "history", "plan", "serve",
@@ -80,10 +85,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("num_nodes", type=int)
     p.add_argument("topology", type=str)
     p.add_argument("algorithm", type=str)
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the run executes: cuda (the hand-written "
-                        "kernels; fails without a card) or cpu (their "
-                        "plain PyTorch versions)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="where the run executes: cuda (the default: the "
+                        "hand-written kernels; fails without a card) or "
+                        "cpu (their plain PyTorch versions)")
+    p.add_argument("--backend", default="auto",
+                   help="the JAX CLI's platform flag: auto (whatever "
+                        "--device says), cpu (--device cpu), gpu or cuda "
+                        "(--device cuda); any other, or one that "
+                        "contradicts --device, exits 2")
     p.add_argument("--devices", type=int, default=1,
                    help="shard the node state over this many shards (the "
                         "push design; every shard lives on the --device "
@@ -191,9 +201,39 @@ def build_parser() -> argparse.ArgumentParser:
                    help="small_world ring-lattice degree (even)")
     p.add_argument("--ws-beta", type=float, default=0.1,
                    help="small_world rewiring probability in [0, 1]")
+    p.add_argument("--check", action="store_true",
+                   help="build and validate the topology, print its shape "
+                        "summary, and exit without simulating")
     p.add_argument("--quiet", action="store_true",
                    help="suppress everything except the convergence metric")
     return p
+
+
+def resolve_backend(backend: str, device) -> str:
+    """The run's device from ``--backend`` and ``--device`` (None when not
+    given): ``auto`` takes ``--device`` (default cuda), ``cpu`` and
+    ``gpu``/``cuda`` select that device. Raises ValueError (exit 2) for a
+    backend this port or this machine lacks, in the JAX CLI's words, and
+    for a pair that contradicts itself."""
+    if backend == "auto":
+        return device or "cuda"
+    want = BACKEND_DEVICES.get(backend)
+    if want is None:
+        raise ValueError(
+            f"backend {backend!r} unavailable: the PyTorch port runs on "
+            "cpu or cuda (--backend cpu, gpu or cuda)")
+    if device is not None and device != want:
+        raise ValueError(
+            f"--backend {backend} contradicts --device {device} (--backend "
+            f"{backend} runs on {want}; give one of the two)")
+    if want == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise ValueError(
+                f"backend {backend!r} unavailable: "
+                "torch.cuda.is_available() is False")
+    return want
 
 
 def _unported(argv) -> str | None:
@@ -296,10 +336,11 @@ def main(argv=None) -> int:
     bad = _unported(argv)
     if bad is not None:
         print(f"option not yet ported: {bad} (the PyTorch port runs "
-              "gossip and push-sum --fanout one --delivery scatter, and "
-              "push-sum --fanout all --delivery pallas|routed|megakernel; "
-              "use python -m gossipprotocol_tpu for the rest)",
-              file=sys.stderr)
+              "gossip and push-sum --fanout one --delivery scatter, "
+              "--semantics reference, push-sum --fanout all --delivery "
+              "pallas|routed|megakernel (with --devices S on one card), "
+              "--check and --backend; use python -m gossipprotocol_tpu for "
+              "the rest)", file=sys.stderr)
         return 2
     try:
         args = build_parser().parse_args(argv)
@@ -328,6 +369,7 @@ def main(argv=None) -> int:
                 "sharded push design is ported)")
         if args.devices < 1:
             raise ValueError(f"--devices must be >= 1, got {args.devices}")
+        args.device = resolve_backend(args.backend, args.device)
         device = resolve_device(args.device)
         topo, alert_quorum = _build_run_topology(args)
     except (ValueError, RuntimeError, NotImplementedError) as e:
@@ -343,6 +385,18 @@ def main(argv=None) -> int:
         else:
             print(f"note: {args.topology} rounds {args.num_nodes} up to "
                   f"{topo.num_nodes} nodes (Program.fs:239-240 semantics)")
+    if args.check:
+        try:
+            topo.validate()
+        except AssertionError as e:
+            print(f"topology invalid: {e}", file=sys.stderr)
+            return 2
+        deg = topo.degree
+        print(f"topology ok: kind={topo.kind} nodes={topo.num_nodes} "
+              f"directed_edges={topo.num_directed_edges} "
+              f"degree min/mean/max = {int(deg.min())}/"
+              f"{float(deg.mean()):.2f}/{int(deg.max())}")
+        return 0
     try:
         if args.repair != "off" and args.semantics == "reference":
             raise ValueError(

@@ -75,12 +75,16 @@ ALGORITHMS = ("gossip", "push-sum")
 # the card's smoke graphs (PERF.md, utils/profiling.py). Rounded up to a
 # multiple of the megakernel's K.
 DEFAULT_CHUNK_ROUNDS = 16
-# Hops per chunk of the reference walk: a chunk hashes its hops' draws in
-# one pass (~500 small operations) and a hop costs ~30. Timed on an H100
-# through the CLI's --chunk-rounds at imp3D 100 and 1,000 (PERF.md §6):
-# 16 hops take 1.8-2.1x the time of 256, and 64-512 lie within the
-# runs' spread; the price is up to 255 frozen hops after convergence.
-WALK_CHUNK_HOPS = 256
+# Hops per chunk of the reference walk (one host fetch each). On the card
+# a chunk is one launch of csrc/walk.cu, which stops at the quorum, so a
+# large chunk costs no frozen hops and spreads the fetch over more hops:
+# through the CLI's --chunk-rounds at imp3D 262,144 on an H100 (PERF.md
+# §5, chip_smoke.py (l)) 256 hops a chunk took about twice the time a hop
+# of 16,384 did, and 65,536 gained a few per cent more. On the CPU the
+# plain chunk stops at the quorum too, but hashes the draws of the whole
+# chunk ([hops, spans] on a table graph) first, which bounds the chunk.
+# One default for both devices, so that card and CPU print the same lines.
+WALK_CHUNK_HOPS = 16384
 
 # the fanout-all deliveries the port runs, and those of them whose fused
 # kernel can loop rounds (--rounds-per-kernel > 1); routed dispatches one

@@ -4,9 +4,10 @@
 reduce and expand), ``pallasdelivery``
 (the two tile gathers, the fused delivery and the sharded edge-share
 exchange), ``exec`` (the Clos routing passes of the routed delivery,
-``delivery``), ``megakernel`` (K whole rounds per launch) and ``probes``
-(the measurement probes' copies and gathers) each keep a plain PyTorch
-version beside the kernel; ``plan`` and ``clos`` compile
+``delivery``), ``megakernel`` (K whole rounds per launch), ``probes``
+(the measurement probes' copies and gathers) and ``walk`` (a chunk of the
+reference walk's hops) each keep a plain PyTorch version beside the
+kernel; ``plan`` and ``clos`` compile
 the routing plans on the host, ``sharddelivery`` the sharded push
 design's per-shard plans; ``plancache`` caches the deliveries' plans on
 disk; ``build`` compiles ``csrc/*.cu`` at first use.
@@ -18,12 +19,12 @@ from gossipprotocol_tpu_torch.ops import (
 
 
 def _tables():
-    # imported here: ops.megakernel imports protocols.state, which
-    # imports this package
-    from gossipprotocol_tpu_torch.ops import megakernel
+    # imported here: ops.megakernel and ops.walk import protocols
+    # modules, which import this package
+    from gossipprotocol_tpu_torch.ops import megakernel, walk
 
     return (classops.LAUNCHES, exec.LAUNCHES, pallasdelivery.LAUNCHES,
-            megakernel.LAUNCHES, probes.LAUNCHES)
+            megakernel.LAUNCHES, probes.LAUNCHES, walk.LAUNCHES)
 
 
 def kernel_launches() -> dict:

@@ -30,11 +30,12 @@ BUILD_ROOT = PKG_DIR / "_build"
 
 # one shared library per source; the launchers each library exports
 SOURCES = ("classops", "exchange", "gather", "megakernel", "probes",
-           "route")
+           "route", "walk")
 
-# sm_90a (Hopper). No --use_fast_math: the folds must keep denormals and
-# IEEE rounding; --fmad=false forbids contraction, so the one fused
-# multiply-add (the megakernel's s - share*deg) is the explicit __fmaf_rn.
+# sm_90a (Hopper). No --use_fast_math: the folds and the walk must keep
+# denormals and IEEE rounding (and division); --fmad=false forbids
+# contraction, so the one fused multiply-add (the megakernel's s -
+# share*deg) is the explicit __fmaf_rn.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -109,6 +110,15 @@ _SIGNATURES = {
         # x, idx, mask, out, nt_out, k, unit, device, stream
         "gossip_route_final": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _LL, _INT,
                                _INT, _INT, _VOIDP),
+    },
+    "walk": {
+        # s, w, ratio, streak, converged, degree, starts, flat, round,
+        # cur, msg_s, msg_w, settled, key, n, flat_len, row_width,
+        # layout, hops, quorum, streak_target, partitionable, stream
+        "gossip_walk_chunk": (*(_VOIDP,) * 14, _LL, _LL, _INT, _INT, _LL,
+                              _INT, _INT, _INT, _VOIDP),
+        # next, steps, out, stream
+        "gossip_pointer_chase": (_VOIDP, _LL, _VOIDP, _VOIDP),
     },
 }
 

@@ -8,17 +8,22 @@ time; with the commit-before-compare bug (the delta is identically zero,
 a node converges on receiving its second message. One engine round is
 one token hop, so a run's ``rounds`` is a hop count.
 
-Two bodies of the same hop:
+Three bodies of the same hop:
 
 * :func:`pushsum_walk_round` — the JAX function's counterpart, one hop
   of any :class:`WalkState` (the parity tests step it hop by hop);
-* :func:`make_walk_chunk_runner` — the engine's: a chunk of hops between
-  two host fetches. Each hop depends on where the token stands, so the
-  hops run one after another, about 30 small PyTorch operations each on
-  one-element tensors (no host sync inside the chunk); the chunk hashes
-  its hops' draws in one pass first (for every span the graph's degrees
-  can give), so a hop only picks its draw. A loop of hops on the device
-  would remove the per-operation cost; it is not built.
+* :func:`walk_chunk_plain` — a chunk of hops between two host fetches as
+  PyTorch operations: the chunk hashes its hops' draws in one pass first
+  (for every span the graph's degrees can give), then each hop, about 30
+  small operations on one-element tensors, picks its draw. It is the
+  plain version of the kernel below and the CPU path;
+* ``ops/walk.py`` :func:`~gossipprotocol_tpu_torch.ops.walk.walk_chunk` —
+  the same chunk as ONE launch of ``csrc/walk.cu`` (one thread walks,
+  the block hashes the next tile of hops' words meanwhile), the JAX
+  package's on-device ``while_loop`` over hops.
+
+:func:`make_walk_chunk_runner` is the engine's: the kernel for CUDA
+tensors, the plain version for CPU ones.
 """
 
 from __future__ import annotations
@@ -146,7 +151,7 @@ def pushsum_walk_round(state: WalkState, nbrs, base_key: torch.Tensor, *,
     )
 
 
-class _Draws:
+class WalkDraws:
     """The walk's neighbour pick as a few index operations per hop.
 
     For a table, every degree class shares one span ``max(degree, 1)``:
@@ -199,6 +204,72 @@ class _Draws:
         return self.flat.index_select(0, p), self.movable.index_select(0, cur)
 
 
+def walk_chunk_plain(draws: WalkDraws, state: WalkState,
+                     base_key: torch.Tensor, hops: int, quorum: int,
+                     streak_target: int) -> WalkState:
+    """``hops`` hops of the walk from ``state`` as PyTorch operations,
+    each frozen once ``quorum`` rows are settled (converged or not
+    alive); the input state is not changed. The plain version of
+    ``csrc/walk.cu``.
+
+    Inside the chunk the node state carries one scratch row (index ``n``,
+    converged): a hop that must change nothing but the hop count — the
+    holder has no neighbour — is sent there, and the relay rule then
+    writes back what it read and leaves the token's message as it was.
+    The settled count is carried as a device scalar and advanced by the
+    hop that converges a node, so no hop reduces over the nodes. Once the
+    quorum is met every further hop would be frozen, so the loop stops
+    there (one host read of the flag a hop)."""
+    dev = base_key.device
+    n = state.s.shape[0]
+    if hops <= 0:
+        return state
+    scratch = torch.full((1,), n, dtype=torch.int64, device=dev)
+    hi, lo = randint_words(round_keys(base_key, state.round, hops))
+    offs = draws.offsets(hi, lo)
+    pad = torch.zeros(1, dtype=torch.float32, device=dev)
+    sw = torch.stack([torch.cat([state.s, pad]),
+                      torch.cat([state.w, pad])], dim=1)
+    ratio = torch.cat([state.ratio, pad])
+    streak = torch.cat([state.streak,
+                        torch.zeros(1, dtype=torch.int32, device=dev)])
+    conv = torch.cat([state.converged,
+                      torch.ones(1, dtype=torch.bool, device=dev)])
+    settled = torch.sum((state.converged | ~state.alive).to(torch.int32))
+    active = settled < quorum
+    cur = state.cur.reshape(1).long()
+    msg = torch.stack([state.msg_s, state.msg_w]).reshape(1, 2)
+    rnd = state.round
+    for i in range(hops):
+        if not bool(active):
+            break
+        tgt, movable = draws.target(offs[i], cur)
+        gate = active if movable is None else movable & active
+        tgt = torch.where(gate, tgt, scratch)
+        sw_t = sw.index_select(0, tgt)
+        k_t = streak.index_select(0, tgt)
+        c_t = conv.index_select(0, tgt)
+        half = (sw_t + msg) * 0.5
+        new_sw = torch.where(c_t[:, None], sw_t, half)
+        count = k_t + 1
+        newly = count >= streak_target
+        sw.index_copy_(0, tgt, new_sw)
+        ratio.index_copy_(0, tgt, _ratio(new_sw[:, 0], new_sw[:, 1]))
+        streak.index_copy_(0, tgt, torch.where(c_t, k_t, count))
+        conv.index_copy_(0, tgt, c_t | newly)
+        msg = torch.where(c_t[:, None], msg, half)
+        cur = torch.where(gate, tgt, cur)
+        rnd = rnd + active
+        settled = settled + (newly & ~c_t)
+        active = settled < quorum
+    return WalkState(
+        s=sw[:n, 0].contiguous(), w=sw[:n, 1].contiguous(),
+        ratio=ratio[:n], streak=streak[:n], converged=conv[:n],
+        alive=state.alive, round=rnd.reshape(()).to(torch.int32),
+        cur=cur.reshape(()).to(torch.int32), msg_s=msg[0, 0],
+        msg_w=msg[0, 1])
+
+
 def make_walk_chunk_runner(nbrs, n: int, *, streak_target: int, quorum: int,
                            base_key: torch.Tensor, done_fn):
     """``chunk(state, nbrs, start_round, round_limit) -> (state, stats)``
@@ -206,63 +277,42 @@ def make_walk_chunk_runner(nbrs, n: int, *, streak_target: int, quorum: int,
     the run is done (``quorum`` settled rows, settled meaning converged or
     not alive), with the engine's ``[round, done]`` stats after.
 
-    Inside the chunk the node state carries one scratch row (index ``n``,
-    converged): a hop that must change nothing — the run is done, or the
-    holder has no neighbour — is sent there, and the relay rule then
-    writes back what it read and leaves the token's message as it was.
-    The settled count is carried as a device scalar and advanced by the
-    hop that converges a node, so no hop reduces over the nodes."""
-    dev = base_key.device
-    draws = _Draws(nbrs, n, dev)
-    scratch = torch.full((1,), n, dtype=torch.int64, device=dev)
+    On a CUDA device the chunk is one launch of ``csrc/walk.cu``
+    (:func:`~gossipprotocol_tpu_torch.ops.walk.walk_chunk`), which
+    updates the state in place: a state the runner did not hand out
+    itself (the engine's initial state, which the warm-up chunk must not
+    change) is copied once first. On the CPU it is
+    :func:`walk_chunk_plain`."""
+    from gossipprotocol_tpu_torch.engine.driver import chunk_stats
+
+    if base_key.is_cuda:
+        from gossipprotocol_tpu_torch.ops.walk import walk_chunk, walk_layout
+
+        lay = walk_layout(nbrs, n)
+        handed_out = [None]   # the node array of the state last returned
+
+        def chunk(state: WalkState, _nbrs, start_round: int,
+                  round_limit: int):
+            if state.s is not handed_out[0]:
+                state = WalkState(*(t if f == "alive" else
+                                    t.clone(memory_format=torch.
+                                            contiguous_format)
+                                    for f, t in zip(WalkState._fields,
+                                                    state)))
+            hops = max(0, round_limit - start_round)
+            if hops:
+                walk_chunk(lay, state, base_key, hops, quorum, streak_target)
+            handed_out[0] = state.s
+            return state, chunk_stats(state, done_fn)
+
+        return chunk
+
+    draws = WalkDraws(nbrs, n, base_key.device)
 
     def chunk(state: WalkState, _nbrs, start_round: int, round_limit: int):
-        from gossipprotocol_tpu_torch.engine.driver import chunk_stats
-
         hops = max(0, round_limit - start_round)
-        if hops == 0:
-            return state, chunk_stats(state, done_fn)
-        hi, lo = randint_words(round_keys(base_key, state.round, hops))
-        offs = draws.offsets(hi, lo)
-        pad = torch.zeros(1, dtype=torch.float32, device=dev)
-        sw = torch.stack([torch.cat([state.s, pad]),
-                          torch.cat([state.w, pad])], dim=1)
-        ratio = torch.cat([state.ratio, pad])
-        streak = torch.cat([state.streak,
-                            torch.zeros(1, dtype=torch.int32, device=dev)])
-        conv = torch.cat([state.converged,
-                          torch.ones(1, dtype=torch.bool, device=dev)])
-        settled = torch.sum((state.converged | ~state.alive).to(torch.int32))
-        active = settled < quorum
-        cur = state.cur.reshape(1).long()
-        msg = torch.stack([state.msg_s, state.msg_w]).reshape(1, 2)
-        rnd = state.round
-        for i in range(hops):
-            tgt, movable = draws.target(offs[i], cur)
-            gate = active if movable is None else movable & active
-            tgt = torch.where(gate, tgt, scratch)
-            sw_t = sw.index_select(0, tgt)
-            k_t = streak.index_select(0, tgt)
-            c_t = conv.index_select(0, tgt)
-            half = (sw_t + msg) * 0.5
-            new_sw = torch.where(c_t[:, None], sw_t, half)
-            count = k_t + 1
-            newly = count >= streak_target
-            sw.index_copy_(0, tgt, new_sw)
-            ratio.index_copy_(0, tgt, _ratio(new_sw[:, 0], new_sw[:, 1]))
-            streak.index_copy_(0, tgt, torch.where(c_t, k_t, count))
-            conv.index_copy_(0, tgt, c_t | newly)
-            msg = torch.where(c_t[:, None], msg, half)
-            cur = torch.where(gate, tgt, cur)
-            rnd = rnd + active
-            settled = settled + (newly & ~c_t)
-            active = settled < quorum
-        state = WalkState(
-            s=sw[:n, 0].contiguous(), w=sw[:n, 1].contiguous(),
-            ratio=ratio[:n], streak=streak[:n], converged=conv[:n],
-            alive=state.alive, round=rnd.reshape(()).to(torch.int32),
-            cur=cur.reshape(()).to(torch.int32), msg_s=msg[0, 0],
-            msg_w=msg[0, 1])
+        state = walk_chunk_plain(draws, state, base_key, hops, quorum,
+                                 streak_target)
         return state, chunk_stats(state, done_fn)
 
     return chunk

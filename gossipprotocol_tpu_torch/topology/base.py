@@ -4,10 +4,11 @@ A copy of ``gossipprotocol_tpu/topology/base.py`` for the port: a
 topology is a pure value, a compressed-sparse-row adjacency over node
 indices. The *full* topology is implicit (never materialized).
 
-Differences from the JAX package's module, all on paths this port does
-not run yet: :func:`csr_from_edges` always takes the numpy branch (the
-JAX package's native C++ builder yields the identical canonical CSR),
-and the streamed out-of-core build (``csr_from_edge_chunks``) is not
+:func:`csr_from_edges` builds through the native library
+(``native.csr_build``, a byte copy of the JAX package's ``graphgen.cpp``)
+unless ``GOSSIP_TPU_NATIVE=0`` asks for the numpy branch; both give the
+same canonical CSR. The difference from the JAX package's module is on a
+path this port does not run yet: the streamed out-of-core build is not
 ported — :func:`csr_from_edge_chunks` raises.
 """
 
@@ -95,6 +96,30 @@ class Topology:
         object.__setattr__(self, "_birth_alive_cache", result)
         return result
 
+    def validate(self) -> None:
+        """Structural sanity checks (the CLI's ``--check``): raises
+        AssertionError, as the JAX package's ``assert`` statements do, and
+        under ``python -O`` too."""
+        def need(cond, msg):
+            if not cond:
+                raise AssertionError(msg)
+
+        if self.implicit_full:
+            need(self.num_nodes >= 2, "full topology needs >= 2 nodes")
+            return
+        n = self.num_nodes
+        need((np.diff(self.offsets) >= 0).all(), "offsets must be monotone")
+        if len(self.indices):
+            need(self.indices.min() >= 0 and self.indices.max() < n,
+                 "neighbor index out of range")
+        # no self-loops — except for asymmetric (reference-quirk) builds,
+        # whose extra-neighbor draw can land on self (Program.fs:260):
+        # --check stays usable on a topology the same CLI builds and runs
+        if not self.asymmetric:
+            row = np.repeat(np.arange(n, dtype=np.int64),
+                            np.diff(self.offsets))
+            need(not (row == self.indices).any(), "self-loop present")
+
 
 def kill_disconnected(topo: Topology, alive: np.ndarray) -> np.ndarray:
     """Keep only the largest alive connected component; everything else
@@ -126,26 +151,38 @@ def csr_from_edges(num_nodes: int, edges: np.ndarray, kind: str) -> Topology:
 
     Deduplicates repeated edges and drops self-loops so every builder
     yields a simple graph. The CSR is *canonical* — each row's neighbors
-    sorted ascending — which is what makes it byte-equal to the JAX
-    package's build of the same edge multiset.
+    sorted ascending — so the native and numpy paths, and the JAX
+    package's build of the same edge multiset, give the same bytes. An
+    edge outside ``[0, num_nodes)`` raises on the native path.
     """
     if num_nodes > 2**31 - 1:
         raise ValueError(
             f"num_nodes={num_nodes} exceeds int32 CSR index range"
         )
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-    edges = edges[edges[:, 0] != edges[:, 1]]
-    # symmetrize: each undirected edge contributes both directions
-    src = np.concatenate([edges[:, 0], edges[:, 1]])
-    dst = np.concatenate([edges[:, 1], edges[:, 0]])
-    # canonical order (src, dst) ascending, dedup directed pairs
-    key = np.unique(src * np.int64(num_nodes) + dst)
-    src = key // num_nodes
-    dst = key % num_nodes
-    counts = np.bincount(src, minlength=num_nodes)
-    offsets = np.zeros(num_nodes + 1, dtype=np.int64)
-    np.cumsum(counts, out=offsets[1:])
-    indices = dst.astype(np.int32)
+    # past int32 range of the symmetrized count the native library's
+    # buffers are not trusted (C int arithmetic): the numpy path, int64
+    # throughout, builds it (the JAX package's rule)
+    built = None
+    if len(edges) * 2 < 2**31:
+        from gossipprotocol_tpu_torch import native
+
+        built = native.csr_build(num_nodes, edges[:, 0], edges[:, 1])
+    if built is not None:
+        offsets, indices = built
+    else:
+        edges = edges[edges[:, 0] != edges[:, 1]]
+        # symmetrize: each undirected edge contributes both directions
+        src = np.concatenate([edges[:, 0], edges[:, 1]])
+        dst = np.concatenate([edges[:, 1], edges[:, 0]])
+        # canonical order (src, dst) ascending, dedup directed pairs
+        key = np.unique(src * np.int64(num_nodes) + dst)
+        src = key // num_nodes
+        dst = key % num_nodes
+        counts = np.bincount(src, minlength=num_nodes)
+        offsets = np.zeros(num_nodes + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        indices = dst.astype(np.int32)
     # offsets compact to int32 when the directed-edge count allows it
     otype = np.int32 if len(indices) < 2**31 else np.int64
     return Topology(

@@ -1,4 +1,4 @@
-"""Topology builders (numpy; a copy of ``gossipprotocol_tpu/topology/builders.py``).
+"""Topology builders (a copy of ``gossipprotocol_tpu/topology/builders.py``).
 
 Pure functions replacing the reference's actor-wiring match block
 (``Program.fs:178-279``): each returns a :class:`Topology` (CSR neighbor
@@ -214,8 +214,14 @@ def build_power_law(num_nodes: int, m: int = 4, seed: int = 0) -> Topology:
     if num_nodes < m + 1:
         raise ValueError("power_law needs num_nodes > m")
 
-    # the JAX package's native C++ builder draws the identical
-    # splitmix64 stream; the port keeps only this numpy path
+    from gossipprotocol_tpu_torch import native
+
+    # csrc/host/graphgen.cpp draws the identical splitmix64 stream, so
+    # both paths give the same graph; GOSSIP_TPU_NATIVE=0 takes numpy
+    native_edges = native.ba_edges(num_nodes, m, seed)
+    if native_edges is not None:
+        return csr_from_edges(num_nodes, native_edges, kind="power_law")
+
     # seed clique on m+1 nodes
     seed_nodes = np.arange(m + 1, dtype=np.int64)
     si, sj = np.triu_indices(m + 1, k=1)
@@ -225,7 +231,7 @@ def build_power_law(num_nodes: int, m: int = 4, seed: int = 0) -> Topology:
 
     start = m + 1
     chunk = max(1024, (num_nodes - start) // 64 or 1)
-    draw_counter = 0  # global splitmix counter
+    draw_counter = 0  # global splitmix counter — in lockstep with C++
     while start < num_nodes:
         stop = min(start + chunk, num_nodes)
         new = np.arange(start, stop, dtype=np.int64)

@@ -1084,3 +1084,93 @@ def test_reference_cli_card_equals_cpu(cuda, argv, algo, capsys):
                    + [ln.split("compile")[0] for ln in text.splitlines()
                       if ln.startswith("rounds")])
     assert out[0] == out[1]
+
+
+# ---- the reference walk's chunk kernel (csrc/walk.cu) ----------------------
+
+def _walk_graph(name):
+    from gossipprotocol_tpu_torch.topology import build_topology
+    from gossipprotocol_tpu_torch.topology import builders as tb
+
+    return {
+        "imp3D": lambda: build_topology("imp3D", 343, seed=1),
+        "power_law": lambda: build_topology("power_law", 2000, seed=2),
+        "full": lambda: build_topology("full", 300),
+        "full301": lambda: build_topology("full", 301),
+        "line": lambda: build_topology("line", 40),
+        "quirk": lambda: tb.add_isolated_rows(
+            tb.build_imp3d_reference_quirks(1000, seed=0)),
+        "line+isolated": lambda: tb.add_isolated_rows(
+            build_topology("line", 20)),
+    }[name]()
+
+
+# (graph, layout, hops, seed, start, quorum or None)
+_WALK_CASES = {
+    "dense converges": ("imp3D", "dense", 8000, 3, 0, None),
+    "csr converges": ("imp3D", "csr", 8000, 3, 0, None),
+    "csr power_law": ("power_law", "csr", 6000, 5, 0, None),
+    "full converges": ("full", "full", 5000, 4, 0, None),
+    "dense quorum": ("line", "dense", 9000, 5, 0, 39),
+    "full quorum": ("full301", "full", 5000, 1, 0, 300),
+    "quirk graph": ("quirk", "dense", 9000, 2, 0, None),
+    "trapped dense": ("line+isolated", "dense", 3000, 2, 20, None),
+    "trapped csr": ("line+isolated", "csr", 300, 2, 20, None),
+}
+
+
+@pytest.mark.parametrize("case", list(_WALK_CASES))
+def test_walk_kernel(cuda, case):
+    """One launch of the walk kernel against the plain chunk on the card,
+    bitwise in every field (the node arrays, round, cur, the message) and
+    in the settled count: chunks that converge, stop at a quorum and start
+    trapped, on the dense, CSR and complete-graph layouts."""
+    from gossipprotocol_tpu_torch.ops import walk as ow
+    from gossipprotocol_tpu_torch.protocols import sampling as ts
+    from gossipprotocol_tpu_torch.protocols import walk as tw
+
+    graph, layout, hops, seed, start, quorum = _WALK_CASES[case]
+    topo = _walk_graph(graph)
+    n = topo.num_nodes
+    q = n if quorum is None else quorum
+    nbrs = (None if layout == "full" else
+            ts.device_topology(topo, dense=(layout == "dense"), device=cuda))
+    key = ts.key_data(seed, cuda)
+    st = tw.pushsum_walk_init(n, start, device=cuda)
+    want = tw.walk_chunk_plain(tw.WalkDraws(nbrs, n, cuda), st, key, hops, q,
+                               3)
+    got = type(st)(*(t.clone() for t in st))
+    before = ow.LAUNCHES["walk_chunk"]
+    settled = ow.walk_chunk(ow.walk_layout(nbrs, n), got, key, hops, q, 3)
+    torch.cuda.synchronize()
+    assert ow.LAUNCHES["walk_chunk"] == before + 1
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype, f
+        assert (_bits_equal(a.reshape(-1), b.reshape(-1))
+                if a.dtype == torch.float32 else torch.equal(a, b)), f
+    assert int(settled) == int(torch.sum(want.converged | ~want.alive))
+    if graph == "line+isolated":
+        assert int(got.round) == hops and int(got.cur) == start
+
+
+def test_walk_kernel_chunks_in_a_row(cuda):
+    """Chunks of 100 hops, launch after launch on the state the kernel
+    updates in place, end where the CPU's plain chunks end; the engine's
+    runner launches the kernel once a chunk."""
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.ops import walk as ow
+
+    topo = _walk_graph("imp3D")
+    cfg = dict(algorithm="push-sum", semantics="reference", seed=4)
+    before = ow.LAUNCHES["walk_chunk"]
+    card = run_simulation(topo, RunConfig(**cfg, device="cuda",
+                                          chunk_rounds=100))
+    launches = ow.LAUNCHES["walk_chunk"] - before
+    cpu = run_simulation(topo, RunConfig(**cfg, device="cpu"))
+    assert card.converged and card.rounds == cpu.rounds
+    for a, b in zip(card.final_state, cpu.final_state):
+        assert (_bits_equal(a.reshape(-1), b.reshape(-1))
+                if a.dtype == torch.float32 else torch.equal(a, b))
+    # the warm-up chunk and one launch per chunk of the run
+    assert launches == 1 + -(-card.rounds // 100)
