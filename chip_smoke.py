@@ -144,7 +144,26 @@ Phases (each prints its lines; any failure exits non-zero):
       reference semantics (reference gossip on the full graph left out:
       it livelocks to the tool's round cap in both packages), ``experiments.
       oracle_curves`` in process, and power_law and imp3D at 10M built by
-      the native and the numpy paths, byte-equal, with each one's seconds.
+      the native path, each byte-equal to the numpy path's build (imp3D at
+      10M, power_law at 2M), with each one's seconds;
+  (n) faults, loss windows, repair, checkpoints, the sentinel and churn
+      through the CLI on the card: (n1) imp3D 1M fanout-all push-sum with a
+      10 % kill strike at round 5 and ``--repair rewire`` on ``--delivery
+      pallas`` and ``routed`` (the kernels under a dead set, across a
+      mid-run plan rebuild; both converging, in the same round with the
+      same printed estimate error and bitwise final states; rebuild
+      seconds); (n2) imp3D 1M gossip and fanout-one push-sum with
+      ``--drop-prob 0.2 --drop-window 0 24`` and a kill strike at round 8,
+      32 rounds on the card against 32 on the CPU (gossip bitwise,
+      push-sum within ``SCATTER_TOL``); (n3) the (n1) run checkpointed
+      every 2 chunks, resumed from a checkpoint in the middle: the same
+      rounds and final state bitwise, and the seconds to save and load a
+      1M-node state; (n4) the sentinel on 0.1 % of the nodes poisoned
+      with NaN at round 6, ``quarantine`` and ``rollback``: the trip at
+      the injection round, the quarantined ids ``value_fault_ids``, the
+      run converging; (n5) imp3D 262,144 with ``--churn 0.001,swap,10``:
+      a plan rebuild every 10 rounds, rebuild seconds, ms per round
+      between rebuilds. Each run's launch counts are read around it.
 
 ``slice_times`` (not a phase) times rows 12, 15-20 and 6 through
 their wrappers by graph replay for whichever tree's package is first on
@@ -2030,7 +2049,6 @@ def phase_probes(torch):
         route_probe, seconds_per_call, slab_probe, tile_perm_probe,
     )
 
-    t0 = time.perf_counter()
     cases = probe_cases(torch)
     reset_kernel_launches()
     firsts = [case[3]() for case in cases]
@@ -2137,7 +2155,6 @@ def phase_probes(torch):
         require(rc == 0, f"python -m gossipprotocol_tpu_torch.probes."
                 f"{name} exited {rc}")
         say(f"(k) {name}: exit 0 in {time.perf_counter() - t1:.1f} s")
-    say(f"(k) phase seconds {time.perf_counter() - t0:.1f}")
     return records, counts, stream_rate
 
 
@@ -2383,7 +2400,6 @@ def walk_kernel_checks(torch, chase_ns):
 def phase_reference_semantics(torch):
     """Phase (l); returns the walk kernel's records and its launches on
     the phase's CLI runs on the card."""
-    t0 = time.perf_counter()
     chase = {b: pointer_chase_ns(torch, b) for b in CHASE_BYTES}
     for b, ns in chase.items():
         say(f"(l) pointer chase through {b >> 20} MB of int32 (one random "
@@ -2502,7 +2518,6 @@ def phase_reference_semantics(torch):
         f"round, {r.num_nodes} rows (the isolated extra actor included)")
     say(f"(l) walk kernel launches on the phase's card runs: "
         f"{walk_launches}")
-    say(f"(l) phase seconds {time.perf_counter() - t0:.1f}")
     return records, walk_launches
 
 
@@ -2529,9 +2544,13 @@ CURVE_RUNS = (
 # the 10M builds, native against numpy. The numpy builds take minutes, so
 # each runs in a process of its own, started when the phase starts, while
 # the phase's other work runs (the native builds too: their seconds are
-# taken beside the two numpy builds)
+# taken beside the two numpy builds). The numpy power_law build is held
+# at 2M (its 10M build took 153-232 s, PERF.md PR 13), where the native
+# build is compared with it too, so the phase keeps inside the time the
+# other phases leave it; the native builds stay timed at 10M
 BUILD_10M = (("power_law", {"seed": 0, "m": 4}), ("imp3D", {"seed": 0}))
 BUILD_10M_NODES = 10_000_000
+BUILD_NUMPY_NODES = {"power_law": 2_000_000, "imp3D": BUILD_10M_NODES}
 
 
 def timed_build(kind, kw, nodes, use_native):
@@ -2563,27 +2582,30 @@ def phase_native_and_curves(torch):
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    t0 = time.perf_counter()
     pool = ProcessPoolExecutor(
         max_workers=len(BUILD_10M),
         mp_context=multiprocessing.get_context("spawn"))
     try:
-        plain = {kind: pool.submit(timed_build, kind, kw, BUILD_10M_NODES,
-                                   False) for kind, kw in BUILD_10M}
+        plain = {kind: pool.submit(timed_build, kind, kw,
+                                   BUILD_NUMPY_NODES[kind], False)
+                 for kind, kw in BUILD_10M}
         _checks_and_curves()
         for kind, kw in BUILD_10M:
             t_native, digest, nodes, edges = timed_build(
                 kind, kw, BUILD_10M_NODES, True)
+            at = BUILD_NUMPY_NODES[kind]
+            if at != BUILD_10M_NODES:
+                _, digest, *_ = timed_build(kind, kw, at, True)
             t_numpy, want, *_ = plain[kind].result(timeout=1200)
-            require(digest == want, f"(m) {kind} 10M: the native and numpy "
-                    f"builds differ")
+            require(digest == want, f"(m) {kind} {at}: the native and "
+                    "numpy builds differ")
             say(f"(m) {kind} 10M ({nodes} nodes, {edges} directed edges): "
-                f"native {t_native:.2f} s, numpy {t_numpy:.2f} s (in a "
-                f"process of its own, beside the phase's other work), "
-                f"byte-equal")
+                f"native {t_native:.2f} s; numpy at {at:,} nodes "
+                f"{t_numpy:.2f} s (in a process of its own, beside the "
+                f"phase's other work), byte-equal to the native build "
+                "there")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-    say(f"(m) phase seconds {time.perf_counter() - t0:.1f}")
 
 
 def _checks_and_curves():
@@ -2645,6 +2667,247 @@ def _checks_and_curves():
             f"{ebuf.getvalue().strip().splitlines()[-1]}")
 
 
+# ---------------------------------------------------------------- (n)
+
+# phase (n): faults, loss windows, repair, checkpoints, the sentinel and
+# churn on the card, at the full width of the 1M graphs (churn at 262,144)
+FAULT_N = 1_000_000
+FAULT_ARGV = ["1000000", "imp3D", "push-sum", "--fanout", "all",
+              "--delivery", "pallas", "--predicate", "global", "--tol",
+              "1e-4", "--fail-fraction", "0.1", "--fail-round", "5",
+              "--repair", "rewire", "--device", "cuda",
+              "--max-rounds", MAX_ROUNDS]
+# (n2): loss windows and a kill strike on the drawing rounds, card vs CPU
+LOSS_ROUNDS = 32
+LOSS_FLAGS = ["--drop-prob", "0.2", "--drop-window", "0", "24",
+              "--fail-fraction", "0.1", "--fail-round", "8",
+              "--max-rounds", str(LOSS_ROUNDS), "--chunk-rounds", "8"]
+LOSS_RUNS = {
+    "gossip": ["1000000", "imp3D", "gossip"],
+    "push-sum": ["1000000", "imp3D", "push-sum", "--predicate", "global",
+                 "--tol", "1e-4"],
+}
+# (n4): 0.1 % of the nodes poisoned with NaN at round 6
+VALUE_FAULT = ("0.001", "nan", "6")
+SENTINEL_ARGV = FAULT_ARGV[:FAULT_ARGV.index("--fail-fraction")] + [
+    "--repair", "rewire", "--device", "cuda", "--max-rounds", MAX_ROUNDS,
+    "--value-faults", ",".join(VALUE_FAULT)]
+CHURN_ARGV = ["262144", "imp3D", "push-sum", "--fanout", "all",
+              "--delivery", "pallas", "--predicate", "global", "--tol",
+              "1e-4", "--churn", "0.001,swap,10", "--max-rounds", "60",
+              "--device", "cuda"]
+PALLAS_IMP3D_KERNELS = ("gather_bucket", "class_reduce_small")
+ROUTED_IMP3D_KERNELS = ("class_expand_small", "stage_call", "final_call",
+                        "class_reduce_small")
+
+
+def _fault_cli(tag, argv, rcs=(0,)):
+    """One in-process CLI run of phase (n), its lines printed: ``(text,
+    launch counts, RunResult, (rounds, executed, wall ms, printed
+    estimate error or None))``."""
+    rc, text, etext, counts, res = _ref_cli(argv)
+    for line in (etext + text).splitlines():
+        say(f"(n) {tag} | {line}")
+    require(rc in rcs, f"(n) {tag}: exit {rc}, want {rcs}: {' '.join(argv)}")
+    conv = re.search(r"Convergence Time: ([0-9.]+) ms", text)
+    rounds = re.search(r"rounds: (\d+) \((\d+) executed\)", text)
+    err = re.search(r"max \|s/w - mean\| = (\S+)", text)
+    require(conv and rounds, f"(n) {tag}: output lines missing")
+    return text, counts, res, (int(rounds.group(1)), int(rounds.group(2)),
+                               float(conv.group(1)),
+                               err.group(1) if err else None)
+
+
+def _events(res, kind):
+    return [m for m in res.metrics if m.get("event") == kind]
+
+
+def _states_bitwise(torch, a, b):
+    return [f for f in a._fields
+            if not bitwise_equal(torch, getattr(a, f), getattr(b, f))]
+
+
+def _need_launches(tag, counts, kernels):
+    missing = [k for k in kernels if not counts[k]]
+    require(not missing, f"(n) {tag}: kernels {missing} never launched")
+
+
+def phase_faults(torch, totals):
+    """Phase (n); adds the launches of its pallas and routed runs to
+    ``totals``."""
+    from gossipprotocol_tpu_torch.engine import RunConfig
+    from gossipprotocol_tpu_torch.events import plan as events_plan
+    from gossipprotocol_tpu_torch.utils import checkpoint as ckpt
+
+
+    def count(counts):
+        for k, v in counts.items():
+            if k in totals:
+                totals[k] += v
+
+    # (n1) a 10 % kill strike at round 5, rewired, on the kernels
+    runs = {}
+    for delivery in ("pallas", "routed"):
+        argv = [("routed" if a == "pallas" else a) for a in FAULT_ARGV] \
+            if delivery == "routed" else FAULT_ARGV
+        _, counts, res, nums = _fault_cli(f"n1 {delivery}", argv)
+        rounds, executed, wall_ms, err = nums
+        require(float(err) < 2e-4, f"(n1) {delivery}: estimate error {err}")
+        dead = int((~res.final_state.alive).sum())
+        rep = _events(res, "repair")
+        require(len(rep) == 1 and rep[0]["changed"] and dead > 0,
+                f"(n1) {delivery}: no repair rebuild, or no dead rows")
+        _need_launches(f"n1 {delivery}", counts,
+                       PALLAS_IMP3D_KERNELS if delivery == "pallas"
+                       else ROUTED_IMP3D_KERNELS)
+        count(counts)
+        runs[delivery] = (res, nums)
+        between = wall_ms - 1e3 * (rep[0]["event_s"]
+                                   - rep[0].get("warm_s", 0.0))
+        say(f"(n1) {delivery}: rc 0, {rounds} rounds ({executed} executed), "
+            f"{wall_ms:.3f} ms with the strike's host events "
+            f"({rep[0]['event_s']:.2f} s: kill, repair, partition rule, "
+            f"plan rebuild; its warm-up chunk "
+            f"{rep[0].get('warm_s', 0.0):.2f} s not in the time), "
+            f"{between / max(executed, 1):.4f} ms per executed round "
+            "without them, "
+            f"estimate_error {err}; {dead} rows dead, repair: "
+            f"{rep[0]['edges_dropped']} edges dropped, "
+            f"{rep[0]['edges_spliced']} spliced, plan rebuilt in "
+            f"{rep[0]['plan_patch_s']:.2f} s; launches {counts}")
+    (rp, np_), (rr, nr) = runs["pallas"], runs["routed"]
+    require(np_[0] == nr[0] and np_[3] == nr[3],
+            f"(n1) routed ended at round {nr[0]} with error {nr[3]}, pallas "
+            f"at {np_[0]} with {np_[3]}")
+    diff = _states_bitwise(torch, rp.final_state, rr.final_state)
+    require(not diff, f"(n1) routed vs pallas final state: {diff} differ")
+    say(f"(n1) routed == pallas: round {nr[0]}, error {nr[3]}, final state "
+        "bitwise")
+
+    # (n2) loss windows + a kill strike on the drawing rounds, card vs cpu
+    for algo, head in LOSS_RUNS.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t1 = time.perf_counter()
+            _, counts, res[dev], nums = _fault_cli(
+                f"n2 {algo} {dev}", head + LOSS_FLAGS + ["--device", dev],
+                rcs=(0, 1))
+            res[dev + "_s"] = time.perf_counter() - t1
+        a, b = res["cuda"].final_state, res["cpu"].final_state
+        require(res["cuda"].rounds == res["cpu"].rounds,
+                f"(n2) {algo}: rounds {res['cuda'].rounds} on the card, "
+                f"{res['cpu'].rounds} on the cpu")
+        if algo == "gossip":
+            diff = _states_bitwise(torch, a, b)
+            require(not diff, f"(n2) gossip card vs cpu: {diff} differ")
+            what = "bitwise (counts, converged, alive, round)"
+        else:
+            require(torch.equal(a.alive, b.alive), "(n2) alive differs")
+            errs = {f: max_abs_err(torch, getattr(a, f), getattr(b, f))
+                    for f in ("s", "w", "ratio")}
+            require(errs["s"] <= SCATTER_TOL and errs["w"] <= SCATTER_TOL,
+                    f"(n2) push-sum card vs cpu: {errs} above {SCATTER_TOL}")
+            what = (f"within {SCATTER_TOL} (max |diff| s {errs['s']:.3e}, "
+                    f"w {errs['w']:.3e}, ratio {errs['ratio']:.3e})")
+        say(f"(n2) {algo} imp3D 1M, drop 0.2 over rounds [0, 24), 10 % "
+            f"killed at round 8, {res['cuda'].rounds} rounds: card vs cpu "
+            f"{what}; {int((~a.alive).sum())} rows dead; card "
+            f"{res['cuda'].wall_ms:.3f} ms, cpu {res['cpu'].wall_ms:.3f} ms "
+            f"(host {res['cuda_s']:.1f} s / {res['cpu_s']:.1f} s with the "
+            "build)")
+
+    with tempfile.TemporaryDirectory(prefix="ckpt_") as ck:
+        # (n3) the (n1) run checkpointed every 2 chunks, then resumed from
+        # a checkpoint in the middle
+        full_dir = os.path.join(ck, "full")
+        _, counts, full, nums = _fault_cli(
+            "n3 checkpointed", FAULT_ARGV + ["--checkpoint-every", "2",
+                                             "--checkpoint-dir", full_dir])
+        count(counts)
+        diff = _states_bitwise(torch, full.final_state, rp.final_state)
+        require(not diff and full.rounds == rp.rounds,
+                f"(n3) the checkpointed run differs from (n1): {diff}")
+        before = [c for c in full.checkpoints
+                  if int(ckpt.peek_meta(c)["round"]) < full.rounds]
+        require(before, "(n3) no checkpoint before the last round")
+        mid = before[len(before) // 2]
+        _, counts, resumed, rnums = _fault_cli(
+            "n3 resumed", FAULT_ARGV + ["--resume", mid])
+        count(counts)
+        diff = _states_bitwise(torch, resumed.final_state, full.final_state)
+        require(not diff and resumed.rounds == full.rounds,
+                f"(n3) resumed from {mid}: rounds {resumed.rounds} vs "
+                f"{full.rounds}, fields {diff} differ")
+        t1 = time.perf_counter()
+        path = ckpt.save(os.path.join(ck, "timed"), full.final_state,
+                         RunConfig(**DIFFUSION, device="cuda"), "imp3D")
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        st, _meta = ckpt.load(path)
+        load_s = time.perf_counter() - t1
+        require(not _states_bitwise(torch, st, full.final_state),
+                "(n3) a saved and loaded state differs")
+        mid_round = int(ckpt.peek_meta(mid)["round"])
+        say(f"(n3) {len(full.checkpoints)} checkpoints; resumed from "
+            f"{os.path.basename(mid)} at round {mid_round} to round "
+            f"{resumed.rounds}: final state bitwise the "
+            f"uninterrupted run's; save {save_s:.2f} s, load {load_s:.2f} s "
+            f"for a 1M-node state ({os.path.getsize(path) / 2**20:.1f} MiB)")
+
+        # (n4) the sentinel: NaN at round 6 on 0.1 % of the nodes
+        spec = events_plan.ValueFaultSpec(rate=float(VALUE_FAULT[0]),
+                                          model=VALUE_FAULT[1],
+                                          round=int(VALUE_FAULT[2]))
+        want = events_plan.value_fault_ids(FAULT_N, spec, run_seed=0)
+        for mode, extra in (
+                ("quarantine", []),
+                ("rollback", ["--checkpoint-every", "1", "--checkpoint-dir",
+                              os.path.join(ck, "rollback"),
+                              "--chunk-rounds", "4"])):
+            _, counts, res, nums = _fault_cli(
+                f"n4 {mode}", SENTINEL_ARGV + ["--sentinel", mode] + extra)
+            count(counts)
+            trips, quars = _events(res, "sentinel_trip"), _events(
+                res, "quarantine")
+            require(len(trips) == 1 and trips[0]["round"] == spec.round
+                    and trips[0]["cause"] == "nonfinite",
+                    f"(n4) {mode}: trips {trips}")
+            require(quars and quars[0]["nodes"] == want.size
+                    and quars[0]["ids"] == want[:64].tolist(),
+                    f"(n4) {mode}: quarantined {quars} != value_fault_ids")
+            require(float(nums[3]) < 2e-4, f"(n4) {mode}: error {nums[3]}")
+            rb = _events(res, "rollback")
+            if mode == "rollback":
+                require(len(rb) == 1 and rb[0]["round"] < spec.round,
+                        f"(n4) rollback: {rb}")
+            say(f"(n4) {mode}: tripped at round {trips[0]['round']} (the "
+                f"injection round), {quars[0]['nodes']} rows quarantined == "
+                f"value_fault_ids"
+                + (f", rolled back to round {rb[0]['round']}" if rb else "")
+                + f"; converged in {nums[0]} rounds, {nums[2]:.3f} ms, "
+                f"estimate_error {nums[3]}")
+
+    # (n5) churn: swap 0.1 % of the edges every 10 rounds at 262,144
+    _, counts, res, nums = _fault_cli("n5 churn", CHURN_ARGV, rcs=(0, 1))
+    count(counts)
+    churn = _events(res, "churn")
+    require(len(churn) >= 2 and all(c["changed"] for c in churn)
+            and all(c["round"] % 10 == 0 for c in churn),
+            f"(n5) churn rebuilds: {churn}")
+    rebuild_s = [c["rebuild_s"] for c in churn]
+    in_rounds_ms = nums[2] - 1e3 * sum(c["event_s"] - c.get("warm_s", 0.0)
+                                       for c in churn)
+    say(f"(n5) churn imp3D 262,144: {len(churn)} rebuilds at rounds "
+        f"{[c['round'] for c in churn]}, "
+        f"{[c['edges_swapped'] for c in churn]} edges swapped, event s "
+        f"{[round(c['event_s'], 2) for c in churn]}, rebuild s "
+        f"{[round(x, 2) for x in rebuild_s]} (plan "
+        f"{[round(c['plan_patch_s'], 2) for c in churn]}); {nums[0]} rounds "
+        f"({nums[1]} executed), {nums[2]:.3f} ms, "
+        f"{in_rounds_ms / max(nums[1], 1):.4f} ms per executed round "
+        f"between rebuilds")
+
+
 def summarize(records, totals, stream_rate):
     """One record per kernel: its largest main-path call, with its bytes
     over the measured stream rate (``bound_stream_ms``) beside the
@@ -2700,34 +2963,55 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="plan_cache_") as cache:
         os.environ["GOSSIP_TPU_PLAN_CACHE"] = cache
+        laps = [time.perf_counter()]
+
+        def lap(phases):
+            laps.append(time.perf_counter())
+            say(f"({phases}) seconds {laps[-1] - laps[-2]:.1f}")
+
         try:
             card = phase_card(torch)
+            lap("a")
             records, expected, hubs = phase_kernels(torch)
+            lap("b")
             totals, pallas_runs = phase_cli(torch, expected)
+            lap("c")
             phase_card_vs_cpu(torch)
+            lap("d")
             records += phase_megakernel(torch)
+            lap("e")
             totals["megakernel"] = phase_megakernel_cli(torch)
+            lap("f")
             routed_records, routed_totals, matvecs = phase_routed(
                 torch, pallas_runs)
             records += routed_records
             totals.update(routed_totals)
+            lap("g")
             sharded_records, sharded_totals = phase_sharded(
                 torch, pallas_runs, matvecs)
             del matvecs
             records += sharded_records
             totals.update(sharded_totals)
+            lap("h")
             hub_records, hub_totals = phase_hub_kernels(torch, hubs)
             del hubs
             records += hub_records
             totals.update(hub_totals)
+            lap("i")
             phase_reference(torch)
+            lap("j")
             probe_records, probe_totals, stream_rate = phase_probes(torch)
             records += probe_records
             totals.update(probe_totals)
+            lap("k")
             walk_records, totals["walk_chunk"] = phase_reference_semantics(
                 torch)
             records += walk_records
+            lap("l")
             phase_native_and_curves(torch)
+            lap("m")
+            phase_faults(torch, totals)
+            lap("n")
             kernels = summarize(records, totals, stream_rate)
         except SmokeFailure as e:
             print(f"FAIL: {e}", flush=True)

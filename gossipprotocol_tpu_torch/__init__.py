@@ -14,7 +14,11 @@ routed``), the K-round megakernel (``--delivery megakernel
 (``--semantics reference``), whose push-sum walk runs a chunk of hops as
 one kernel on the card (``csrc/walk.cu``); the probes; the host libraries
 (``native.py``: routing, graph building, the actor-semantics oracle),
-``--check``, ``--backend`` and the curve tools (``experiments``).
+``--check``, ``--backend`` and the curve tools (``experiments``); fault
+schedules and loss windows (``utils/faults.py``), topology events and
+churn (``events/``), overlay repair (``topology/repair.py``), checkpoints
+and resume (``utils/checkpoint.py``) and the health sentinel, on one
+card.
 Entry points run on ``cuda`` unless asked for ``cpu``, where each
 kernel's plain PyTorch version runs instead.
 """

@@ -11,6 +11,13 @@
         [--devices S [--exchange-overlap] [--payload-wire f32|bf16|int8]
          [--build-workers W] [--routed-design push]]
         [--plan-cache DIR|none] [--device cuda|cpu]
+    ... [--fail-fraction F --fail-round R [--revive-round R2]]
+        [--drop-prob P [--drop-window A B]] [--fault-plan FILE]
+        [--event-plan FILE] [--churn RATE,MODEL[,PERIOD]]
+        [--value-faults RATE,MODEL[,ROUND]] [--repair off|prune|rewire]
+        [--sentinel [on|quarantine|rollback]]
+        [--checkpoint-dir DIR --checkpoint-every C] [--resume PATH]
+        [--auto-resume N]
 
 With no flags it runs what the JAX package's CLI runs by default (the
 reference's own surface): gossip, or push-sum with one random target per
@@ -25,7 +32,12 @@ codes: 0 converged, 1 not converged (``--max-rounds`` reached, or a
 gossip run whose rumor died out), 2 bad input. ``--check`` builds and
 validates the topology, prints its shape and exits 0 (2 if invalid)
 without simulating. ``--backend`` is the JAX CLI's platform flag mapped
-onto ``--device`` (:func:`resolve_backend`). Every flag and combination
+onto ``--device`` (:func:`resolve_backend`). The faults, events,
+repair, checkpoint and sentinel flags print the JAX CLI's lines and exit
+codes; a resume refuses a checkpoint of another run ("checkpoint
+mismatch: ...") or of the JAX package, with exit 2, and ``--auto-resume
+N`` re-executes the CLI from the newest resumable checkpoint when the
+CUDA context dies (:func:`_is_runtime_death`). Every flag and combination
 the port does not have yet exits 2 and names itself; nothing falls back
 quietly to another path.
 """
@@ -33,6 +45,7 @@ quietly to another path.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 _ALGO_ALIASES = {
@@ -49,11 +62,7 @@ UNPORTED_FLAGS = (
     "--build-memory-budget", "--payload-dim", "--workload", "--clock",
     "--activation-rate", "--groups", "--accel", "--accel-lambda", "--lr",
     "--local-steps", "--sgp-samples", "--loss-tol", "--x64",
-    "--edge-chunks", "--metrics-out",
-    "--checkpoint-dir", "--checkpoint-every", "--resume", "--auto-resume",
-    "--restarted", "--fail-fraction", "--fail-round", "--revive-round",
-    "--drop-prob", "--drop-window", "--fault-plan", "--event-plan",
-    "--churn", "--value-faults", "--sentinel", "--profile-dir",
+    "--edge-chunks", "--metrics-out", "--profile-dir",
     "--telemetry-dir", "--sweep", "--sweep-seeds", "--round-budget",
     "--trace-cap", "--compile-cache", "--request-id", "--admission-json",
 )
@@ -66,11 +75,85 @@ UNPORTED_SUBCOMMANDS = ("report", "watch", "history", "plan", "serve",
                         "submit", "status")
 
 
+# CUDA errors after which the context is unusable (sticky): every later
+# call on it fails, so recovery is a fresh process (cudaGetErrorString's
+# words, as torch and the kernel launchers report them)
+STICKY_CUDA_ERRORS = (
+    "an illegal memory access was encountered",
+    "unspecified launch failure",
+    "the launch timed out and was terminated",
+    "an illegal instruction was encountered",
+    "misaligned address",
+    "invalid program counter",
+    "hardware stack error",
+    "device-side assert triggered",
+    "uncorrectable ECC error encountered",
+    "operation not supported on global/shared address space",
+)
+
+
 def _positive_int(text: str) -> int:
     v = int(text)
     if v < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
     return v
+
+
+def _unit_fraction(s: str) -> float:
+    """argparse type for probabilities/fractions in [0, 1) (the JAX
+    CLI's): range errors are argparse usage errors, exit 2."""
+    try:
+        v = float(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{s!r} is not a number")
+    if not 0.0 <= v < 1.0:
+        raise argparse.ArgumentTypeError(
+            f"{v!r} is out of range — must be in [0.0, 1.0) "
+            "(1.0 would kill/drop everything, which nothing survives)"
+        )
+    return v
+
+
+def resume_argv(argv, checkpoint_dir, attempts_left):
+    """argv rewritten for a recovery exec (the JAX CLI's rule): any prior
+    --resume/--auto-resume removed, --resume pinned to the run's own
+    checkpoint dir (omitted when no checkpoint landed before the crash —
+    restart from scratch), and --auto-resume set to the remaining attempt
+    budget. Pure, for tests."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("--resume", "--auto-resume"):
+            skip = True
+            continue
+        if a.startswith(("--resume=", "--auto-resume=")) or a == "--restarted":
+            continue
+        out.append(a)
+    if checkpoint_dir is not None:
+        out += ["--resume", checkpoint_dir]
+    return out + ["--auto-resume", str(attempts_left), "--restarted"]
+
+
+def _is_runtime_death(e: BaseException) -> bool:
+    """The CUDA context is gone (not a program error): a sticky CUDA
+    error (:data:`STICKY_CUDA_ERRORS`), after which every call on this
+    context fails the same way. Anything else is a program error and is
+    raised, never retried."""
+    text = str(e)
+    return isinstance(e, RuntimeError) and any(
+        m in text for m in STICKY_CUDA_ERRORS)
+
+
+def _reexec(new_argv) -> int:
+    """Replace this process with a fresh CLI invocation (a new process
+    gets a new CUDA context). Never returns in production (os.execv);
+    the return type exists so tests can monkeypatch it and assert on
+    ``new_argv``."""
+    os.execv(sys.executable,
+             [sys.executable, "-m", "gossipprotocol_tpu_torch", *new_argv])
+    return 1  # pragma: no cover — execv does not return
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,7 +163,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "(gossip and fanout-one push-sum over the scatter "
                     "delivery; fanout-all push-sum over the fused gather "
                     "delivery, the Clos-routed delivery and the K-round "
-                    "megakernel)",
+                    "megakernel; faults, loss windows, topology events, "
+                    "repair, checkpoints and the health sentinel)",
     )
     p.add_argument("num_nodes", type=int)
     p.add_argument("topology", type=str)
@@ -109,8 +193,101 @@ def build_parser() -> argparse.ArgumentParser:
                         "walk whose rounds are hops)")
     p.add_argument("--repair", choices=["off", "prune", "rewire"],
                    default="off",
-                   help="topology repair at fault events ('prune' and "
-                        "'rewire' are not yet ported: faults are not)")
+                   help="self-healing topology repair at fault events. "
+                        "'prune' drops dead endpoints from the adjacency "
+                        "(the majority-partition rule still applies, with "
+                        "identical victims); 'rewire' additionally splices "
+                        "the orphaned endpoints of dead nodes to each "
+                        "other deterministically from --seed (degree-"
+                        "preserving; leftovers draw a random live peer), "
+                        "so previously-stranded survivors stay in the "
+                        "computation. Repair never touches protocol state "
+                        "— push-sum mass is conserved across every rewire")
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="chunks between checkpoints (0 = off)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="checkpoint file (or dir) to resume from (a "
+                        "checkpoint of this package; the JAX package's "
+                        "are refused)")
+    p.add_argument("--auto-resume", type=int, default=0, metavar="N",
+                   help="elastic recovery: if the CUDA context dies mid-run "
+                        "(a sticky CUDA error) re-exec this CLI from the "
+                        "latest checkpoint, at most N times. With "
+                        "--checkpoint-dir/--checkpoint-every the run "
+                        "resumes from the latest checkpoint; without, it "
+                        "restarts from scratch. A program error is raised, "
+                        "never retried")
+    p.add_argument("--restarted", action="store_true",
+                   help=argparse.SUPPRESS)  # set by recovery re-execs only
+    p.add_argument("--fail-fraction", type=_unit_fraction, default=0.0,
+                   help="fault injection: kill this fraction of nodes "
+                        "(in [0, 1))")
+    p.add_argument("--fail-round", type=int, default=0,
+                   help="round at which the failures strike")
+    p.add_argument("--revive-round", type=int, default=None, metavar="R",
+                   help="churn: the --fail-fraction victims rejoin at round "
+                        "R with fresh-born state (requires --fail-fraction; "
+                        "R must be after --fail-round). Rejoiners count "
+                        "toward convergence only once reattached to the "
+                        "majority component")
+    p.add_argument("--drop-prob", type=_unit_fraction, default=0.0,
+                   help="message loss: per-send Bernoulli drop probability "
+                        "in [0, 1). Mass-conserving for push-sum (a dropped "
+                        "send keeps its (s,w) share at the sender), so "
+                        "sum(s)/sum(w) == mean survives any loss rate")
+    p.add_argument("--drop-window", type=int, nargs=2, default=None,
+                   metavar=("START", "STOP"),
+                   help="restrict --drop-prob to rounds [START, STOP) "
+                        "(default: the whole run)")
+    p.add_argument("--fault-plan", type=str, default=None, metavar="FILE",
+                   help="declarative fault schedule (JSON): "
+                        '{"kill": [{"round": R, "ids": [...]} | '
+                        '{"round": R, "fraction": F, "seed": S}], '
+                        '"revive": [{"round": R, "ids": [...]}], '
+                        '"loss": [{"start": A, "stop": B, "prob": P}]}. '
+                        "Merged with the --fail-*/--revive-*/--drop-* sugar")
+    p.add_argument("--event-plan", type=str, default=None, metavar="FILE",
+                   help="declarative topology schedule (JSON): "
+                        '{"add_edges": [{"round": R, "edges": [[u, v], '
+                        '...]}], "remove_edges": [...], "swap_neighbors": '
+                        '[{"round": R, "pairs": [[[u1,v1],[u2,v2]], ...]}], '
+                        '"churn": {"rate": F, "model": "edge"|"swap", '
+                        '"period": P}} — may also carry the kill/revive/'
+                        "loss keys of --fault-plan (one document for the "
+                        "whole schedule). Events fire at chunk boundaries, "
+                        "conserve push-sum mass across every rebuild, and "
+                        "replay bitwise across checkpoint resume")
+    p.add_argument("--churn", type=str, default=None,
+                   metavar="RATE,MODEL[,PERIOD]",
+                   help="seeded synthetic churn sugar: every PERIOD rounds "
+                        "(default 10) touch RATE of the current edges — "
+                        "model 'edge' removes/adds that many edges "
+                        "(membership churn), 'swap' crosses edge pairs "
+                        "degree-preservingly (mobility). Deterministic from "
+                        "--seed; combines with --event-plan")
+    p.add_argument("--value-faults", type=str, default=None,
+                   metavar="RATE,MODEL[,ROUND]",
+                   help="seeded data-fault sugar: at round ROUND (default "
+                        "10) corrupt the push-sum s of RATE of the nodes — "
+                        "model 'nan'/'inf' poisons them outright, 'stuck' "
+                        "resets them to their initial value, 'scale:K' "
+                        "multiplies by K. Victims draw deterministically "
+                        "from --seed; combines with --event-plan (the "
+                        "'value_faults' JSON key). Push-sum only. Pair with "
+                        "--sentinel to detect/contain")
+    p.add_argument("--sentinel", nargs="?", const="on", default="off",
+                   choices=("off", "on", "quarantine", "rollback"),
+                   help="health sentinel folded through the chunk loop: an "
+                        "all-finite check on (s, w), w-positivity, and a "
+                        "host mass-drift tripwire. 'on' detects and stops; "
+                        "'quarantine' additionally kills the offending rows "
+                        "through the host events (--repair rewire reknits "
+                        "survivors) and continues; 'rollback' restores the "
+                        "newest checkpoint predating the trip (needs "
+                        "--checkpoint-dir/-every) and replays with the "
+                        "quarantine inserted. Off: the chunk launches what "
+                        "it launches without the sentinel")
     p.add_argument("--no-keep-alive", action="store_true",
                    help="gossip: a node stops spreading at its threshold "
                         "(the reference's per-node stop rule; a run can "
@@ -289,6 +466,29 @@ def _build_run_topology(args):
         beta=args.ws_beta), None
 
 
+def _slice_flag(args):
+    """The first flag of faults, events, repair, checkpoints or the
+    sentinel that ``args`` sets, or None."""
+    for flag, given in (
+            ("--fail-fraction", args.fail_fraction > 0),
+            ("--revive-round", args.revive_round is not None),
+            ("--drop-prob", args.drop_prob > 0),
+            ("--drop-window", args.drop_window is not None),
+            ("--fault-plan", args.fault_plan is not None),
+            ("--event-plan", args.event_plan is not None),
+            ("--churn", args.churn is not None),
+            ("--value-faults", args.value_faults is not None),
+            ("--repair", args.repair != "off"),
+            ("--sentinel", args.sentinel != "off"),
+            ("--checkpoint-dir", args.checkpoint_dir is not None),
+            ("--checkpoint-every", bool(args.checkpoint_every)),
+            ("--resume", args.resume is not None),
+            ("--auto-resume", args.auto_resume > 0)):
+        if given:
+            return flag
+    return None
+
+
 def _check_sharding(args, cfg) -> None:
     """The JAX CLI's rejections of the sharding flags (its messages),
     raised as ValueError (exit 2), and the sharded runs not yet ported."""
@@ -296,6 +496,13 @@ def _check_sharding(args, cfg) -> None:
         NotPortedError, is_walk,
     )
 
+    if args.devices > 1:
+        flag = _slice_flag(args)
+        if flag is not None:
+            raise NotPortedError(
+                f"option not yet ported with --devices: {flag} (faults, "
+                "events, repair, checkpoints and the sentinel run on one "
+                "shard: drop --devices)")
     if args.devices > 1 and is_walk(cfg):
         raise ValueError(
             "semantics='reference' push-sum is the single-token walk "
@@ -339,6 +546,7 @@ def main(argv=None) -> int:
               "gossip and push-sum --fanout one --delivery scatter, "
               "--semantics reference, push-sum --fanout all --delivery "
               "pallas|routed|megakernel (with --devices S on one card), "
+              "faults, loss, events, repair, checkpoints and the sentinel, "
               "--check and --backend; use python -m gossipprotocol_tpu for "
               "the rest)", file=sys.stderr)
         return 2
@@ -355,7 +563,7 @@ def main(argv=None) -> int:
 
     from gossipprotocol_tpu_torch.engine.driver import (
         DELIVERIES, NotPortedError, RunConfig, resolve_device,
-        run_simulation,
+        resume_simulation, run_simulation,
     )
     from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
     from gossipprotocol_tpu_torch.utils.metrics import (
@@ -397,16 +605,32 @@ def main(argv=None) -> int:
               f"degree min/mean/max = {int(deg.min())}/"
               f"{float(deg.mean()):.2f}/{int(deg.max())}")
         return 0
+
+    from gossipprotocol_tpu_torch.utils import checkpoint as ckpt
+    from gossipprotocol_tpu_torch.utils import faults
+
     try:
-        if args.repair != "off" and args.semantics == "reference":
-            raise ValueError(
-                "repair applies to faulted runs; semantics='reference' "
-                "rejects fault schedules entirely, so there is nothing "
-                "to repair")
-        if args.repair != "off":
-            raise NotPortedError(
-                "option not yet ported: --repair (faults and topology "
-                "repair are not ported; only --repair off runs)")
+        schedule = faults.build_schedule(
+            topo.num_nodes,
+            plan_file=args.fault_plan,
+            fail_fraction=args.fail_fraction,
+            fail_round=args.fail_round,
+            revive_round=args.revive_round,
+            drop_prob=args.drop_prob,
+            drop_window=tuple(args.drop_window) if args.drop_window else None,
+            seed=args.seed,
+            max_rounds=args.max_rounds,
+        )
+    except (ValueError, OSError) as e:
+        print(f"fault schedule invalid: {e}", file=sys.stderr)
+        return 2
+    try:
+        event_plan, schedule = _event_plan(args, topo, schedule, faults)
+    except (ValueError, OSError, KeyError) as e:
+        print(f"event plan invalid: {e}", file=sys.stderr)
+        return 2
+
+    try:
         cfg = RunConfig(
             algorithm=algo, seed=args.seed, threshold=args.threshold,
             keep_alive=not args.no_keep_alive, seed_node=args.seed_node,
@@ -422,6 +646,10 @@ def main(argv=None) -> int:
             payload_wire=args.payload_wire,
             exchange_overlap=args.exchange_overlap,
             build_workers=args.build_workers,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_dir=args.checkpoint_dir,
+            fault_schedule=schedule, event_plan=event_plan,
+            repair=args.repair, sentinel=args.sentinel,
         )
         _check_sharding(args, cfg)
         if cfg.delivery in DELIVERIES and topo.implicit_full:
@@ -444,6 +672,24 @@ def main(argv=None) -> int:
     except (ValueError, RuntimeError, NotImplementedError) as e:
         print(str(e), file=sys.stderr)
         return 2
+
+    if (args.auto_resume > 0 and not args.resume
+            and not (args.checkpoint_every and args.checkpoint_dir)):
+        print(
+            "warning: --auto-resume has no usable checkpoint config "
+            "(need both --checkpoint-dir and --checkpoint-every) — a "
+            "recovery will RESTART FROM SCRATCH",
+            file=sys.stderr,
+        )
+
+    state = None
+    if args.resume:
+        try:
+            state, cfg = _load_resume(args, cfg, topo, ckpt)
+        except _ResumeRefused as e:
+            print(str(e), file=sys.stderr)
+            return 2
+
     if not args.quiet:
         print_start_banner(algo)
     try:
@@ -453,11 +699,17 @@ def main(argv=None) -> int:
             )
 
             result = run_simulation_sharded(topo, cfg, mesh=mesh)
+        elif state is not None:
+            result = resume_simulation(topo, cfg, state)
         else:
             result = run_simulation(topo, cfg)
     except RoutedConfigError as e:
         print(str(e), file=sys.stderr)
         return 2
+    except Exception as e:
+        if not (_is_runtime_death(e) and args.auto_resume > 0):
+            raise
+        return _recover(args, argv, cfg, topo, ckpt, e)
 
     print_convergence_time(result.wall_ms)
     if not args.quiet:
@@ -469,6 +721,154 @@ def main(argv=None) -> int:
         if err is not None:
             print(f"push-sum max |s/w - mean| = {err:.3e}")
     return 0 if result.converged else 1
+
+
+def _event_plan(args, topo, schedule, faults):
+    """``(event plan or None, schedule)`` from ``--event-plan``,
+    ``--churn`` and ``--value-faults`` (the JAX CLI's rules: the plan's
+    kill/revive/loss keys merge into the schedule; a generator or value
+    faults given twice is an error)."""
+    import dataclasses
+
+    from gossipprotocol_tpu_torch.events import (
+        EventPlan, parse_churn_arg, parse_event_plan, parse_value_faults_arg,
+    )
+
+    event_plan = None
+    if args.event_plan is not None:
+        event_plan, plan_sched = parse_event_plan(
+            args.event_plan, topo.num_nodes, seed=args.seed)
+        schedule = faults.merge_schedules(schedule, plan_sched)
+    if args.churn is not None:
+        spec = parse_churn_arg(args.churn)
+        if event_plan is not None and event_plan.churn is not None:
+            raise ValueError(
+                "--churn and an event-plan 'churn' generator both "
+                "given — configure one")
+        event_plan = dataclasses.replace(
+            event_plan if event_plan is not None else EventPlan(),
+            churn=spec)
+    if args.value_faults is not None:
+        vf = parse_value_faults_arg(args.value_faults)
+        if event_plan is not None and event_plan.value_faults:
+            raise ValueError(
+                "--value-faults and an event-plan 'value_faults' list "
+                "both given — configure one")
+        event_plan = dataclasses.replace(
+            event_plan if event_plan is not None else EventPlan(),
+            value_faults=(vf,))
+    if event_plan is not None and topo.implicit_full:
+        raise ValueError(
+            "event plans need an explicit edge list; the implicit "
+            "complete graph has no CSR to rewrite")
+    return event_plan, schedule
+
+
+class _ResumeRefused(Exception):
+    """A resume the CLI refuses with exit 2 (the message says why)."""
+
+
+def _load_resume(args, cfg, topo, ckpt):
+    """``(state, cfg)`` for ``--resume``: the newest readable checkpoint
+    of a directory (falling back past unreadable ones, as the JAX CLI
+    does) or the named file, checked against this run's trajectory
+    fields, topology kind and adjacency fingerprint; ``cfg`` gains the
+    checkpoint's logged quarantines. A checkpoint of the JAX package is
+    refused at once."""
+    import dataclasses
+    import zipfile
+
+    cands = (ckpt.candidates(args.resume)
+             if os.path.isdir(args.resume) else [args.resume])
+    if not cands:
+        raise _ResumeRefused(f"no checkpoint found in {args.resume}")
+    state = meta = None
+    for path in cands:
+        try:
+            ckpt.check_package(ckpt.peek_meta(path), path)
+            state, meta = ckpt.load(path)
+            break
+        except ckpt.ForeignCheckpointError as e:
+            raise _ResumeRefused(str(e))
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+            print(
+                f"warning: checkpoint {path} unreadable "
+                f"({type(e).__name__}: {e}); falling back to the "
+                "previous published checkpoint",
+                file=sys.stderr,
+            )
+    if state is None:
+        raise _ResumeRefused(f"no readable checkpoint in {args.resume}")
+    problems = [
+        f"{k} {ckpt.stored_value(meta, k)!r} != {v!r}"
+        for k, v in ckpt.trajectory_meta(cfg).items()
+        if not ckpt.field_matches(meta, k, v)
+    ]
+    if meta.get("topology") not in (None, topo.kind):
+        problems.append(
+            f"topology {meta.get('topology')!r} != {topo.kind!r}")
+    fp = ckpt.topology_fingerprint(topo)
+    if meta.get("adjacency") not in (None, fp):
+        problems.append(
+            f"adjacency {meta.get('adjacency')!r} != {fp!r} "
+            "(different graph, e.g. --avg-degree/--attach changed)")
+    if state.alive.shape[0] != topo.num_nodes:
+        problems.append(f"checkpoint has {state.alive.shape[0]} nodes, "
+                        f"run has {topo.num_nodes}")
+    if problems:
+        raise _ResumeRefused("checkpoint mismatch: " + "; ".join(problems))
+    if meta.get("quarantines"):
+        cfg = dataclasses.replace(cfg, quarantine_log=tuple(
+            (int(r), tuple(int(i) for i in ids))
+            for r, ids in meta["quarantines"]))
+    return state, cfg
+
+
+def _recover(args, argv, cfg, topo, ckpt, e) -> int:
+    """Elastic recovery after the CUDA context died: re-exec from the
+    furthest-along compatible checkpoint — the newest in
+    ``--checkpoint-dir`` or the one ``--resume`` named — or from scratch
+    (the JAX CLI's choice)."""
+    traj = ckpt.trajectory_meta(cfg)
+    fp = ckpt.topology_fingerprint(topo)
+
+    def round_of(path_or_dir):
+        if not path_or_dir:
+            return None
+        paths = (ckpt.candidates(path_or_dir)
+                 if os.path.isdir(path_or_dir) else [path_or_dir])
+        for path in paths:
+            if not os.path.exists(path):
+                continue
+            try:
+                m = ckpt.peek_meta(path)
+            except Exception:
+                continue
+            compatible = (
+                m.get(ckpt.PACKAGE_KEY) == ckpt.PACKAGE_TAG
+                and all(ckpt.field_matches(m, k, v) for k, v in traj.items())
+                and m.get("topology") in (None, topo.kind)
+                and m.get("adjacency") in (None, fp)
+            )
+            # the first readable candidate decides
+            return int(m.get("round", -1)) if compatible else None
+        return None
+
+    candidates = [(r, target)
+                  for target in (args.checkpoint_dir, args.resume)
+                  if (r := round_of(target)) is not None]
+    resume_target = (max(candidates, key=lambda t: t[0])[1]
+                     if candidates else None)
+    effective = list(sys.argv[1:]) if argv is None else list(argv)
+    new_argv = resume_argv(effective, resume_target, args.auto_resume - 1)
+    print(
+        f"accelerator runtime died ({type(e).__name__}); "
+        + (f"resuming from {resume_target}" if resume_target
+           else "no checkpoint yet — restarting from scratch")
+        + f", {args.auto_resume - 1} recovery attempts left",
+        file=sys.stderr,
+    )
+    return _reexec(new_argv)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ from gossipprotocol_tpu_torch.engine.driver import (
     RunResult,
     build_protocol,
     make_chunk_runner,
+    resume_simulation,
     run_simulation,
 )
 
@@ -15,5 +16,6 @@ __all__ = [
     "RunResult",
     "build_protocol",
     "make_chunk_runner",
+    "resume_simulation",
     "run_simulation",
 ]

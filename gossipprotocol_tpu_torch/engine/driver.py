@@ -33,16 +33,30 @@ The sharded push design (``--devices S``) has its own engine in
 ``routed_design``, ``exchange_overlap``, ``payload_wire`` and
 ``build_workers``.
 
+Faults, events, repair, checkpoints and the health sentinel ride the
+host loop (:func:`_drive`) as in the JAX engine: host events
+(``events/engine.py`` :class:`~gossipprotocol_tpu_torch.events.engine.
+HostEvents`: kills, revives, edge churn, repair, the partition rule,
+value faults) fire between chunks, each chunk stopping at the next event
+round; an adjacency change rebuilds the round's device arrays through
+``rebuild`` (the plan cache, under the new CSR's key); checkpoints are
+saved every ``checkpoint_every`` chunks (``utils/checkpoint.py``); the
+sentinel, when on, freezes a chunk at the first round whose state holds
+a non-finite or negative row and the loop records, quarantines or rolls
+back. Loss windows are device events inside the drawing rounds. The
+JAX engine's telemetry, round budgets and drain are not ported here.
+
 What is not yet ported exits as a :class:`NotPortedError` naming itself:
 the ``invert`` delivery, the fanout-all ``scatter`` delivery, the sharded
-pull design, faults and repair, checkpoints, telemetry, sweeps.
+pull design, telemetry, sweeps; and every flag of faults, events, repair,
+checkpoints and the sentinel under the sharded engine (``--devices``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +70,7 @@ from gossipprotocol_tpu_torch.protocols.gossip import (
     gossip_done, gossip_round_core, inversion_legal,
 )
 from gossipprotocol_tpu_torch.protocols.pushsum import (
-    pushsum_done, pushsum_round_core,
+    pushsum_done, pushsum_round_core, sum0,
 )
 from gossipprotocol_tpu_torch.protocols.sampling import (
     key_data, round_keys, use_dense,
@@ -149,7 +163,48 @@ class RunConfig:
     exchange_overlap: bool = False  # sharded exchange on the ring
                                    # schedule (pallas_exchange
                                    # overlap=True); the same bytes move
+    checkpoint_every: int = 0      # chunks between checkpoints; 0 = off
+    checkpoint_dir: Optional[str] = None
+    fault_plan: Optional[dict] = None  # legacy {round: node_ids} kill
+                                   # sugar; merges into the schedule
+    fault_schedule: Optional[Any] = None  # utils.faults.FaultSchedule:
+                                   # timed kill/revive strikes + link-loss
+                                   # windows
+    repair: str = "off"            # overlay repair at event rounds: "off" |
+                                   # "prune" | "rewire" (topology/repair.py)
+    event_plan: Optional[Any] = None  # events.EventPlan: timed edge
+                                   # add/remove/swap events, the churn
+                                   # generator and value faults
+    sentinel: str = "off"          # health sentinel: "off" (the chunk
+                                   # launches what it launches without
+                                   # it) | "on" (detect, record, stop) |
+                                   # "quarantine" (kill + zero the
+                                   # offending rows through the host
+                                   # events) | "rollback" (quarantine +
+                                   # restore the newest checkpoint
+                                   # predating the trip)
+    quarantine_log: Tuple = ()     # ((round, (ids...)), ...) quarantines a
+                                   # resumed checkpoint lived through (its
+                                   # "quarantines" metadata), replayed into
+                                   # the adjacency like scheduled kills
     device: str = "cuda"
+
+    @property
+    def schedule(self):
+        """The effective :class:`~gossipprotocol_tpu_torch.utils.faults.
+        FaultSchedule`: ``fault_schedule`` with the legacy ``fault_plan``
+        kills merged in (possibly empty, never None)."""
+        from gossipprotocol_tpu_torch.utils import faults
+
+        return faults.as_schedule(self.fault_schedule, self.fault_plan)
+
+    @property
+    def events(self):
+        """The effective :class:`~gossipprotocol_tpu_torch.events.plan.
+        EventPlan` (possibly empty, never None)."""
+        from gossipprotocol_tpu_torch.events import plan as events_plan
+
+        return events_plan.as_plan(self.event_plan)
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
@@ -178,6 +233,34 @@ class RunConfig:
         if self.delivery not in ALL_DELIVERIES:
             raise ValueError("delivery must be 'scatter', 'invert', "
                              "'routed', 'pallas', or 'megakernel'")
+        sched = self.schedule.validate()  # structural check, loud + early
+        from gossipprotocol_tpu_torch.topology.repair import validate_policy
+
+        validate_policy(self.repair)
+        # structural plan check (the id range is checked at engine entry,
+        # where the topology is known)
+        plan = self.events.validate()
+        if plan and ref:
+            raise ValueError(
+                "event plans rewrite the adjacency mid-run; "
+                "semantics='reference' replays the F# baseline's static "
+                "world and rejects topology schedules")
+        if self.repair != "off" and ref:
+            raise ValueError(
+                "repair applies to faulted runs; semantics='reference' "
+                "rejects fault schedules entirely, so there is nothing "
+                "to repair")
+        if bool(self.checkpoint_every) != bool(self.checkpoint_dir):
+            import warnings
+
+            missing = ("checkpoint_dir" if self.checkpoint_every
+                       else "checkpoint_every")
+            given = ("checkpoint_every" if self.checkpoint_every
+                     else "checkpoint_dir")
+            warnings.warn(
+                f"checkpointing is DISABLED: {given} is set but {missing} "
+                "is not — both are required, no checkpoint will be "
+                "written this run", stacklevel=2)
         if self.delivery in DELIVERIES and (
                 self.algorithm != "push-sum" or self.fanout != "all"):
             raise ValueError(
@@ -185,6 +268,53 @@ class RunConfig:
                 "diffusion only (the static edge structure is what the "
                 "routing plan compiles; single-target draws fresh targets "
                 "every round — see README 'Performance')")
+        if self.delivery in DELIVERIES and sched.has_loss:
+            # kill/revive strikes are fine (the live-degree path is exact
+            # under any dead set); a static plan cannot thread a fresh
+            # per-edge drop mask
+            raise ValueError(
+                f"delivery='{self.delivery}' compiles a static "
+                "routing plan and cannot apply per-edge drop masks "
+                "through it; use delivery='scatter' for loss windows")
+        if use_megakernel(self) and (sched or plan
+                                     or self.repair != "off"):
+            raise ValueError(
+                "the round-loop megakernel compiles K rounds against "
+                "a fixed live topology; fault strikes, loss windows, "
+                "topology events and repair all need the per-round "
+                "engine — use delivery='pallas' with "
+                "rounds_per_kernel=1")
+        if self.sentinel not in ("off", "on", "quarantine", "rollback"):
+            raise ValueError(
+                "sentinel must be 'off', 'on', 'quarantine', or 'rollback'")
+        if plan.value_faults and self.algorithm != "push-sum":
+            raise ValueError(
+                "value faults corrupt push-sum's (s, w) payload; "
+                "gossip carries no numeric mass to poison — use "
+                "algorithm='push-sum'")
+        if self.sentinel != "off":
+            if self.algorithm != "push-sum":
+                raise ValueError(
+                    "the health sentinel checks push-sum's (s, w) mass "
+                    "invariants; gossip has none — use "
+                    "algorithm='push-sum'")
+            if ref:
+                raise ValueError(
+                    "the sentinel guards the mass-conserving push-sum "
+                    "state; semantics='reference' replays the F# walk "
+                    "and rejects it")
+            if use_megakernel(self):
+                raise ValueError(
+                    "the sentinel folds its health check through the "
+                    "per-round chunk loop; the round-loop megakernel "
+                    "checks nothing between its fused rounds — use "
+                    "delivery='pallas' with rounds_per_kernel=1")
+        if self.sentinel == "rollback" and not (
+                self.checkpoint_every and self.checkpoint_dir):
+            raise ValueError(
+                "sentinel='rollback' restores the newest checkpoint "
+                "predating a trip; it requires checkpoint_every AND "
+                "checkpoint_dir")
         if is_walk(self) and self.delivery != "scatter":
             raise ValueError(
                 "delivery variants invert/route the all-send deliveries; "
@@ -299,6 +429,12 @@ class RunResult:
     # the sum of the kernel's own ``executed`` — equals ``rounds`` less
     # the start
     rounds_executed: int = 0
+    # the host loop's records: one per chunk ({"round", "done", ...}) and
+    # one per host event ({"event": "repair" | "churn" | "value_fault" |
+    # "sentinel_trip" | "quarantine" | "rollback" | "rollback_fallback",
+    # ...}), as the JAX engine's metrics stream
+    metrics: List[dict] = dataclasses.field(default_factory=list)
+    checkpoints: List[str] = dataclasses.field(default_factory=list)
 
     @property
     def estimate_error(self) -> Optional[float]:
@@ -358,9 +494,12 @@ def gossip_inversion_enabled(topo: Topology, cfg: RunConfig) -> bool:
     and Erdős–Rényi 1M (the round is host-paced) and its table costs a
     1.4-1.8 s host lexsort, so the card runs the scatter (PERF.md,
     ``utils/profiling.py --algorithm gossip``). Whether a chunk takes the
-    inverted branch is decided at run time (:class:`GossipCore`)."""
+    inverted branch is decided at run time (:class:`GossipCore`). A run
+    with loss windows never inverts: the JAX engine's per-round legality
+    adds "no loss this round", and both branches give the same hits
+    wherever it holds, so the scatter alone is the same trajectory."""
     return (cfg.algorithm == "gossip" and not topo.asymmetric
-            and use_dense(topo)
+            and use_dense(topo) and not cfg.schedule.has_loss
             and torch.device(cfg.device).type == "cpu")
 
 
@@ -385,17 +524,19 @@ class GossipCore:
     :meth:`observe` reads the legality of the state a chunk starts from
     out of the previous chunk's one fetch, and the chunk takes the
     inverted branch only if it held and keep-alive is on. Under
-    keep-alive with a fixed alive set (this engine has no alive-changing
-    events) ``heard`` only grows, so a legal state stays legal for the
-    rest of the run; under ``keep_alive=False`` a node converging
+    keep-alive with a fixed alive set ``heard`` only grows, so a legal
+    state stays legal for the rest of the chunk (host events, which
+    change it, fire between chunks, and the engine observes the state
+    again after them); under ``keep_alive=False`` a node converging
     mid-chunk falls silent and breaks legality, so such a run keeps the
     scatter branch. On legal rounds both branches give bitwise equal
     hits, so the trajectory is the JAX package's whichever is taken."""
 
     def __init__(self, *, n: int, threshold: int, keep_alive: bool,
-                 all_alive: bool, invertible: bool):
+                 all_alive: bool, invertible: bool,
+                 loss_windows: tuple = ()):
         self.opts = dict(n=n, threshold=threshold, keep_alive=keep_alive,
-                         all_alive=all_alive)
+                         all_alive=all_alive, loss_windows=loss_windows)
         self.invertible = invertible
         self.inverted = False
 
@@ -439,8 +580,10 @@ def build_protocol(topo: Topology, cfg: RunConfig,
     (:func:`draws`; for gossip a :class:`GossipCore`). With no birth
     exclusions the round drops its aliveness masks (``all_alive``); birth
     exclusions are whole components, so an alive node's neighbors are
-    alive (``targets_alive``). ``allow_all_alive=False`` forces the
-    general dead-set path. Under :func:`use_megakernel` the core is the
+    alive (``targets_alive``). A schedule with kill or revive strikes
+    takes both away (the dead set changes mid-run); loss windows alone
+    keep them. ``allow_all_alive=False`` forces the general dead-set
+    path. Under :func:`use_megakernel` the core is the
     K-round kernel's ``(padded state, megakernel delivery) -> padded
     state``, which runs the all-alive round only. The walk
     (:func:`is_walk`) has no per-round core (None): its chunk runner
@@ -451,8 +594,13 @@ def build_protocol(topo: Topology, cfg: RunConfig,
     ref = cfg.semantics == "reference"
     n = topo.num_nodes
     alive0 = initial_alive(topo)
-    all_alive = allow_all_alive and alive0 is None
-    targets_alive = allow_all_alive
+    sched = cfg.schedule
+    # only aliveness-changing events (kills, revives) take the liveness
+    # fast paths away; loss windows drop messages, never nodes
+    strikes = sched.has_strikes
+    loss_windows = sched.static_loss_windows()
+    all_alive = allow_all_alive and not strikes and alive0 is None
+    targets_alive = allow_all_alive and not strikes
     core = None
     if cfg.algorithm == "gossip":
         if cfg.seed_node is not None:
@@ -468,12 +616,19 @@ def build_protocol(topo: Topology, cfg: RunConfig,
                           else cfg.threshold,
                           keep_alive=effective_keep_alive(topo, cfg),
                           all_alive=all_alive,
-                          invertible=gossip_inversion_enabled(topo, cfg))
+                          invertible=gossip_inversion_enabled(topo, cfg),
+                          loss_windows=loss_windows)
     elif is_walk(cfg):
         from gossipprotocol_tpu_torch.protocols.walk import (
             pushsum_walk_init,
         )
 
+        if sched:
+            raise ValueError(
+                "semantics='reference' push-sum cannot take faults or "
+                "loss: killing the token holder — or dropping the one "
+                "in-flight message — hangs the walk exactly as an "
+                "actor crash would hang the reference (SURVEY §5.3)")
         state = pushsum_walk_init(n, walk_start_node(topo, cfg),
                                   value_mode=cfg.value_mode, device=dev)
         done_fn = pushsum_done
@@ -494,7 +649,7 @@ def build_protocol(topo: Topology, cfg: RunConfig,
                 st, nbrs, key, n=n, eps=cfg.eps,
                 streak_target=cfg.streak_target, predicate=cfg.predicate,
                 tol=cfg.tol, all_alive=all_alive,
-                targets_alive=targets_alive)
+                targets_alive=targets_alive, loss_windows=loss_windows)
 
         return state, core, done_fn, (all_alive, targets_alive)
 
@@ -599,16 +754,21 @@ def _freeze(active: torch.Tensor, new, old):
 
 
 def chunk_stats(state, done_fn, extra_stats=None,
-                delivery=None) -> torch.Tensor:
+                delivery=None, sentinel_fn=None) -> torch.Tensor:
     """The chunk's verdict as ONE int32 device tensor (one host fetch):
-    ``[round, done, *extra_stats(state, delivery)]``."""
+    ``[round, done, *extra_stats(state, delivery)]``, and with
+    ``sentinel_fn`` three more: the trip flag and the float32 bits of the
+    mass sums ``(Σs, Σw)`` (:func:`sentinel_words`)."""
     extra = [] if extra_stats is None else extra_stats(state, delivery)
+    if sentinel_fn is not None:
+        extra = extra + sentinel_words(state, sentinel_fn)
     return torch.stack([state.round, done_fn(state).to(torch.int32),
                         *extra])
 
 
 def make_chunk_runner(round_core, done_fn, extra_stats=None,
-                      base_key: Optional[torch.Tensor] = None):
+                      base_key: Optional[torch.Tensor] = None,
+                      sentinel_fn=None):
     """``chunk(state, delivery, start_round, round_limit) -> (state,
     stats)``: advance until global convergence or ``round ==
     round_limit``. The predicate is evaluated before every round, as the
@@ -617,18 +777,28 @@ def make_chunk_runner(round_core, done_fn, extra_stats=None,
 
     With ``base_key`` the round draws: the chunk hashes the keys of its
     rounds ``state.round, state.round + 1, ...`` in one pass and hands
-    round i the i-th (a round that runs unfrozen is always that round)."""
+    round i the i-th (a round that runs unfrozen is always that round).
+
+    ``sentinel_fn`` (the health sentinel, :func:`make_sentinel_fn`) joins
+    the freeze predicate: the chunk freezes at the first round whose
+    state trips it, as the JAX engine's loop condition exits there (the
+    trip persists in the state, so the stats see it again), and the
+    stats gain the trip flag and the mass sums. Unset, the chunk launches
+    what it launched before the sentinel existed."""
+    stop_fn = (done_fn if sentinel_fn is None
+               else lambda st: done_fn(st) | sentinel_fn(st))
 
     def chunk(state, delivery, start_round: int, round_limit: int):
         count = max(0, round_limit - start_round)
         keys = (None if base_key is None
                 else round_keys(base_key, state.round, count))
         for i in range(count):
-            active = ~done_fn(state)
+            active = ~stop_fn(state)
             new = (round_core(state, delivery) if keys is None
                    else round_core(state, delivery, keys[i]))
             state = _freeze(active, new, state)
-        return state, chunk_stats(state, done_fn, extra_stats, delivery)
+        return state, chunk_stats(state, done_fn, extra_stats, delivery,
+                                  sentinel_fn)
 
     return chunk
 
@@ -670,40 +840,412 @@ def warm_start(step, state) -> None:
     stats.cpu()  # the sync point
 
 
+# ---- host events: revives, the sentinel, value faults -----------------
+
+def _put(field: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
+    """``field`` with rows ``idx`` set to ``values``, as a new tensor on
+    the field's device (never a host buffer the next chunk could see)."""
+    if not isinstance(values, torch.Tensor):
+        values = torch.full((), values, dtype=field.dtype,
+                            device=field.device)
+    return field.index_put((idx,), values.to(field.dtype))
+
+
+def _index(ids, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(ids, dtype=np.int64).copy()).to(
+        device)
+
+
+def fresh_values(idx: torch.Tensor, num_nodes: int,
+                 value_mode: str) -> torch.Tensor:
+    """Push-sum's initial ``s`` of rows ``idx``, computed on the device as
+    :func:`~gossipprotocol_tpu_torch.protocols.state.pushsum_init` computes
+    it: the id as float32, divided (IEEE, by a tensor) by ``num_nodes``
+    under ``value_mode='scaled'``."""
+    v = idx.to(torch.float32)
+    return v / torch.full_like(v, num_nodes) if value_mode == "scaled" \
+        else v
+
+
+def revive_rows(state, ids, cfg: RunConfig, num_nodes: int):
+    """Reset rows ``ids`` to fresh-born state on the device — a crashed
+    process restarting from its initial value: gossip rows drop to zero
+    hearings, push-sum rows get their init ``(s, w)`` back (the values of
+    :func:`fresh_values`, so a revived row is bitwise an initial row;
+    ``ratio = s`` as ``w == 1``). The stranded pre-death mass is
+    discarded. Callers flip ``alive`` separately."""
+    idx = _index(ids, state.alive.device)
+    if isinstance(state, GossipState):
+        return state._replace(counts=_put(state.counts, idx, 0),
+                              converged=_put(state.converged, idx, False))
+    vals = fresh_values(idx, num_nodes, cfg.value_mode)
+    streak0 = 1 if cfg.semantics == "reference" else 0
+    return state._replace(
+        s=_put(state.s, idx, vals), w=_put(state.w, idx, 1.0),
+        ratio=_put(state.ratio, idx, vals),
+        streak=_put(state.streak, idx, streak0),
+        converged=_put(state.converged, idx, False))
+
+
+# Host mass-drift tripwire threshold (ULPs of the anchored baseline), the
+# JAX package's value.
+SENTINEL_MASS_ULPS = 256.0
+
+
+def sentinel_bad_mask(state) -> torch.Tensor:
+    """Per-row health predicate of the sentinel: an alive row is bad when
+    its ``s`` is non-finite, or ``w`` is non-finite or negative (``w ==
+    0`` is healthy: the receipt-dry-spell underflow, not a data fault).
+    Shared by the trip check and the host's offender identification."""
+    return state.alive & (~torch.isfinite(state.s) | ~torch.isfinite(state.w)
+                          | (state.w < 0))
+
+
+def make_sentinel_fn(cfg: RunConfig):
+    """The sentinel's trip predicate (``state -> bool`` device scalar) for
+    :func:`make_chunk_runner`."""
+    del cfg  # the predicate is config-independent once the sentinel is on
+
+    def sentinel_fn(state):
+        return torch.any(sentinel_bad_mask(state))
+
+    return sentinel_fn
+
+
+def sentinel_words(state, sentinel_fn) -> list:
+    """``[trip, bits(Σs), bits(Σw)]`` as int32 device scalars: the mass
+    sums ride the chunk's one int32 fetch as their float32 bit patterns."""
+    ms = mass_stats(state)
+    return [sentinel_fn(state).to(torch.int32),
+            ms["mass_s"].reshape(1).view(torch.int32)[0],
+            ms["mass_w"].reshape(1).view(torch.int32)[0]]
+
+
+def quarantine_rows(state, ids):
+    """Zero the protocol mass (``s``, ``w``, ``ratio``) of rows ``ids`` on
+    the device — the first step of a quarantine, before the synthetic kill
+    fires through the host events, so the poison leaves every later sum
+    the moment the nodes leave the network."""
+    idx = _index(ids, state.alive.device)
+    return state._replace(s=_put(state.s, idx, 0.0),
+                          w=_put(state.w, idx, 0.0),
+                          ratio=_put(state.ratio, idx, 0.0))
+
+
+def inject_value_fault(state, ids, spec, cfg: RunConfig, num_nodes: int):
+    """Corrupt push-sum's ``s`` at rows ``ids`` (live rows) as ``spec``'s
+    model says: ``nan``, ``inf``, ``scale:K`` (a float32 multiply by K),
+    ``stuck`` (the row's initial value). ``w`` and the rest stay."""
+    idx = _index(ids, state.alive.device)
+    model = str(spec.model).split(":", 1)[0]
+    if model == "nan":
+        return state._replace(s=_put(state.s, idx, float("nan")))
+    if model == "inf":
+        return state._replace(s=_put(state.s, idx, float("inf")))
+    if model == "scale":
+        k = float(np.float32(spec.scale_factor()))
+        return state._replace(s=_put(state.s, idx, state.s[idx] * k))
+    return state._replace(
+        s=_put(state.s, idx, fresh_values(idx, num_nodes, cfg.value_mode)))
+
+
+def mass_stats(state) -> dict:
+    """Total push-sum mass ``(Σs, Σw)`` over every row, in float32 on the
+    device (the chunk's reduction, so a baseline taken by a no-op chunk
+    drifts by exactly 0 ULPs on a lossless run); empty for gossip."""
+    if not hasattr(state, "s"):
+        return {}
+    return {"mass_s": sum0(state.s), "mass_w": sum0(state.w)}
+
+
+def _mass_snapshot(state):
+    """(Σs, Σw) over every row as float64 host sums — the invariant a
+    rebuild must preserve bitwise; None for gossip."""
+    if not hasattr(state, "s"):
+        return None
+    return (float(state.s.cpu().numpy().astype(np.float64).sum()),
+            float(state.w.cpu().numpy().astype(np.float64).sum()))
+
+
+def ulp_drift(value, baseline) -> float:
+    """|value − baseline| in ULPs of the baseline's dtype (a copy of the
+    JAX package's ``obs/counters.py`` ``ulp_drift``): 0.0 when equal,
+    NaN/Inf propagate."""
+    b = np.asarray(baseline)
+    v = np.asarray(value)
+    if b.ndim:
+        return max(ulp_drift(v.reshape(-1)[k], b.reshape(-1)[k])
+                   for k in range(b.size))
+    v = float(np.float64(v))
+    bf = float(np.float64(b))
+    if v == bf:
+        return 0.0
+    ulp = float(np.spacing(np.abs(b).astype(b.dtype, copy=False)))
+    if ulp == 0.0:
+        ulp = float(np.spacing(np.asarray(0, b.dtype)))
+    return abs(v - bf) / ulp
+
+
+def _f32(bits: int) -> np.float32:
+    return np.array([bits], dtype=np.int32).view(np.float32)[0]
+
+
 def _drive(cfg: RunConfig, state, step, num_nodes: int,
-           compile_ms: float, trim=None, observe=None) -> RunResult:
+           compile_ms: float, trim=None, observe=None, *,
+           topo: Optional[Topology] = None,
+           rebuild: Optional[Callable] = None,
+           run_topo: Optional[Topology] = None) -> RunResult:
     """Host loop: chunks up to ``max_rounds`` and the convergence
     verdict. ``trim`` cuts a padded final state to the real rows (the
     sharded engine). ``observe(extra)`` takes each chunk's extra stats
     and returns True when the run has stalled (gossip with no spreader
-    left): the run then stops unconverged, as the JAX engine's does."""
+    left): the run then stops unconverged, as the JAX engine's does.
+
+    With ``topo`` (the birth topology; the single-card engine) the loop
+    is the JAX engine's host-event loop: due host events fire at the top
+    of each iteration and each chunk stops at the next event round;
+    ``rebuild(new_topo, state) -> ((step, observe), state, info)``
+    re-derives the round for an adjacency change (``run_topo`` is the
+    adjacency in force at entry: the birth one unless a resume replayed
+    events past it); checkpoints are saved every ``checkpoint_every``
+    chunks; and the sentinel's trips are recorded, quarantined or rolled
+    back. The rebuilds' warm-up chunks are kept out of ``wall_ms``."""
+    from gossipprotocol_tpu_torch.events import HostEvents
+    from gossipprotocol_tpu_torch.utils import checkpoint as ckpt_mod
+
+    trim = trim if trim is not None else (lambda st: st)
+    dev = state.alive.device
+    run_topo = run_topo if run_topo is not None else topo
     cur_round = int(state.round)
+    host_events = (HostEvents(topo, cfg, start_round=cur_round)
+                   if topo is not None else None)
+    metrics: List[dict] = []
+    checkpoints: List[str] = []
+    chunk_i = 0
     done = False
     executed = 0
+    excluded_s = 0.0       # rebuild warm-ups, kept out of wall_ms
     fused = use_megakernel(cfg)
+    checkpointing = bool(cfg.checkpoint_every and cfg.checkpoint_dir)
+    adjacency = (ckpt_mod.topology_fingerprint(topo)
+                 if checkpointing and topo is not None else None)
+    topo_kind = topo.kind if topo is not None else None
+    sentinel_on = cfg.sentinel != "off"
+    # quarantines this trajectory lived through: the resumed prefix plus
+    # everything this process performs (saved into every checkpoint)
+    quar_log = {int(r): np.asarray(ids, np.int64)
+                for r, ids in (cfg.quarantine_log or ())}
+
+    def quar_meta():
+        if not quar_log:
+            return None
+        return {"quarantines": [[r, quar_log[r].tolist()]
+                                for r in sorted(quar_log)]}
+
+    def noop_stats():
+        """A chunk of no rounds: the stats of ``state`` through the
+        chunk's own reductions."""
+        nonlocal state
+        r = int(state.round)
+        state, st = step(state, r, r)
+        return st.tolist()
+
+    def take_engine(new):
+        nonlocal step, observe
+        if new is not None:
+            step, observe = new
+
+    def after_events():
+        """Gossip: observe the state again (events change legality)."""
+        if observe is not None:
+            observe(noop_stats()[2:])
+
+    def base_of(vals):
+        return (_f32(vals[-2]), _f32(vals[-1]))
+
+    mass_base = None
+    if sentinel_on:
+        # the baseline from the chunk's own reduction (a no-op chunk), so
+        # a lossless run drifts by exactly 0 ULPs
+        mass_base = base_of(noop_stats())
+
     t0 = time.perf_counter()
     while cur_round < cfg.max_rounds:
-        round_limit = min(cur_round + cfg.chunk, cfg.max_rounds)
+        if host_events is not None and host_events.due(cur_round):
+            state, run_topo, new, recs, reborn = host_events.fire(
+                state, run_topo, cur_round, rebuild)
+            take_engine(new)
+            excluded_s += sum(rec.get("warm_s", 0.0) for rec in recs)
+            metrics.extend(recs)
+            if reborn and mass_base is not None:
+                # revived rows changed the conserved quantity itself
+                mass_base = base_of(noop_stats())
+            after_events()
+        next_event = (host_events.next_round(cfg.max_rounds)
+                      if host_events is not None else cfg.max_rounds)
+        round_limit = min(cur_round + cfg.chunk, cfg.max_rounds, next_event)
         state, stats = step(state, cur_round, round_limit)
+        chunk_i += 1
+        vals = stats.tolist()  # the chunk's one fetch
         prev = cur_round
-        cur_round, done, *extra = stats.tolist()  # the chunk's one fetch
+        cur_round, done = vals[0], bool(vals[1])
+        extra = vals[2:-3] if sentinel_on else vals[2:]
         # the kernel adds the rounds it ran to `round` itself
         executed += (cur_round - prev) if fused else (round_limit - prev)
-        stalled = observe is not None and observe(extra)
+        stalled = (not done and observe is not None
+                   and bool(observe(extra)))
+        rec = {"round": cur_round, "done": done}
+        if stalled:
+            rec["stalled"] = True
+        trip_dev = mass_trip = False
+        if sentinel_on:
+            trip_dev = bool(vals[-3])
+            chunk_mass = base_of(vals)
+            s_ulps = ulp_drift(chunk_mass[0], mass_base[0])
+            w_ulps = ulp_drift(chunk_mass[1], mass_base[1])
+            rec["mass_drift_ulps"] = s_ulps
+            rec["w_drift_ulps"] = w_ulps
+            mass_trip = any((not np.isfinite(u)) or u > SENTINEL_MASS_ULPS
+                            for u in (s_ulps, w_ulps))
+        trip = trip_dev or mass_trip
+        if trip:
+            rec["sentinel_trip"] = True
+        metrics.append(rec)
+        if trip:
+            # handled BEFORE the checkpoint save: under quarantine and
+            # rollback no poisoned state is ever published, so every
+            # checkpoint on disk predates its trip
+            bad_ids = torch.nonzero(sentinel_bad_mask(trim(state))).reshape(
+                -1).cpu().numpy().astype(np.int64)
+            ev = {"event": "sentinel_trip", "round": cur_round,
+                  "cause": "nonfinite" if trip_dev else "mass_drift",
+                  "nodes": int(bad_ids.size), "mode": cfg.sentinel}
+            metrics.append(ev)
+
+            def requarantine(at_round, ids):
+                nonlocal state, run_topo, excluded_s
+                state, run_topo, new, q_recs = host_events.quarantine(
+                    state, run_topo, at_round, ids, rebuild)
+                take_engine(new)
+                excluded_s += sum(qr.get("warm_s", 0.0) for qr in q_recs)
+                metrics.extend(q_recs)
+                quar_log[at_round] = np.union1d(
+                    quar_log.get(at_round, np.empty(0, np.int64)), ids)
+
+            def reanchor():
+                nonlocal mass_base
+                mass_base = base_of(noop_stats())
+
+            if cfg.sentinel in ("quarantine", "rollback") and bad_ids.size:
+                if rebuild is None:
+                    raise RuntimeError(
+                        "sentinel tripped but the engine supplied no "
+                        "rebuild hook for quarantine")
+                target = None
+                if cfg.sentinel == "rollback":
+                    # newest readable checkpoint strictly predating the trip
+                    for path in ckpt_mod.candidates(cfg.checkpoint_dir):
+                        try:
+                            c_meta = ckpt_mod.peek_meta(path)
+                        except Exception:
+                            continue
+                        if int(c_meta.get("round", cur_round)) < cur_round:
+                            target = (path, int(c_meta["round"]))
+                            break
+                if target is not None:
+                    from gossipprotocol_tpu_torch.events import (
+                        replay_topology_events,
+                    )
+
+                    c_path, c_round = target
+                    rb_state, _rb_meta = ckpt_mod.load(c_path)
+                    # quarantines of the abandoned timeline (r > C) go; one
+                    # at exactly C merges with the new bad set
+                    merged = np.union1d(
+                        quar_log.get(c_round, np.empty(0, np.int64)),
+                        bad_ids)
+                    quar_log = {r: v for r, v in quar_log.items()
+                                if r < c_round}
+                    run_topo = replay_topology_events(
+                        topo, cfg.schedule, cfg.events, cfg.repair,
+                        cfg.seed, c_round, quarantines=quar_log)
+                    state = type(rb_state)(*(t.to(dev) for t in rb_state))
+                    # a fresh engine at C restores the events the old one
+                    # consumed on the abandoned path
+                    host_events = HostEvents(topo, cfg, start_round=c_round)
+                    prev_topo = run_topo
+                    requarantine(c_round, merged)
+                    if run_topo is prev_topo and (
+                            cfg.repair != "off" or cfg.events.has_events):
+                        # the adjacency at C can differ from the one the
+                        # current round was built against
+                        new, state, info = rebuild(run_topo, state)
+                        take_engine(new)
+                        excluded_s += info.get("warm_s", 0.0)
+                    cur_round = c_round
+                    metrics.append({"event": "rollback", "round": cur_round,
+                                    "from_round": int(ev["round"]),
+                                    "checkpoint": c_path,
+                                    "nodes": int(merged.size)})
+                else:
+                    if cfg.sentinel == "rollback":
+                        # no checkpoint predates the trip: contain in place
+                        metrics.append({
+                            "event": "rollback_fallback",
+                            "round": cur_round,
+                            "reason": "no checkpoint predates the trip"})
+                    requarantine(cur_round, bad_ids)
+                # the quarantine zeroed rows: re-anchor the drift baseline
+                reanchor()
+                after_events()
+                continue
+            if trip_dev:
+                # detect-only cannot remove the poison, and a tripped
+                # state re-trips at once: record and stop
+                break
+            # an unattributable mass-level trip: accept the new level
+            reanchor()
+        if checkpointing and chunk_i % cfg.checkpoint_every == 0:
+            checkpoints.append(ckpt_mod.save(
+                cfg.checkpoint_dir, trim(state), cfg, topo_kind,
+                adjacency=adjacency, extra_meta=quar_meta()))
         if done or stalled:
             break
     if state.round.is_cuda:
         torch.cuda.synchronize(state.round.device)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    if trim is not None:
-        state = trim(state)
+    wall_ms = (time.perf_counter() - t0 - excluded_s) * 1e3
+    state = trim(state)
     return RunResult(
         converged=bool(done), rounds=cur_round, wall_ms=wall_ms,
         compile_ms=compile_ms, num_nodes=num_nodes,
         algorithm=cfg.algorithm,
         final_state=type(state)(*(t.cpu() for t in state)),
-        rounds_executed=executed,
+        rounds_executed=executed, metrics=metrics,
+        checkpoints=checkpoints,
     )
+
+
+def sharded_unported(cfg: RunConfig) -> Optional[str]:
+    """The flags of faults, events, repair, checkpoints and the sentinel
+    that ``cfg`` uses, which the sharded engine does not run yet (its
+    side, with the plan patching of ``patch_shard_push_deliveries``, is
+    still to port), or None."""
+    sched = cfg.schedule
+    names = []
+    if sched.has_strikes:
+        names.append("--fail-fraction/--fault-plan (kill and revive "
+                     "strikes)")
+    if sched.has_loss:
+        names.append("--drop-prob/--fault-plan (loss windows)")
+    if cfg.events.has_events:
+        names.append("--event-plan/--churn/--value-faults")
+    if cfg.repair != "off":
+        names.append(f"--repair {cfg.repair}")
+    if cfg.sentinel != "off":
+        names.append(f"--sentinel {cfg.sentinel}")
+    if cfg.checkpoint_every or cfg.checkpoint_dir or cfg.quarantine_log:
+        names.append("--checkpoint-dir/--checkpoint-every/--resume")
+    return ", ".join(names) or None
 
 
 def resume_allows_fast(topo: Topology,
@@ -725,45 +1267,99 @@ def run_simulation(topo: Topology, cfg: RunConfig,
                    initial_state=None) -> RunResult:
     """Build what the round reads, warm the kernels, and drive the
     protocol to convergence (or ``max_rounds``). ``initial_state``
-    continues from a given state (for example one carried across with
-    :mod:`gossipprotocol_tpu_torch.convert`); it runs the general
-    dead-set path unless its dead set is the birth exclusions."""
+    continues from a given state (a checkpoint's, or one carried across
+    with :mod:`gossipprotocol_tpu_torch.convert`); it runs the general
+    dead-set path unless its dead set is the birth exclusions, and a run
+    with repair, events or logged quarantines first replays the adjacency
+    the state lived through (``events.replay_topology``).
+
+    An adjacency change mid-run (repair, churn, a quarantine under
+    repair) goes through ``rebuild``: the round is built again for the
+    new topology with the general dead-set path, its device arrays — for
+    ``pallas`` and ``routed`` the plans, through the plan cache under the
+    new CSR's key — are placed, and its chunk is warmed (kept out of
+    ``wall_ms``); a failed build raises."""
     dev = resolve_device(cfg.device)
+    run_topo = topo
+    if initial_state is not None and (
+            cfg.repair != "off" or cfg.events.has_events
+            or cfg.quarantine_log):
+        # the run's adjacency is a function of (birth topology, schedule,
+        # event plan, policy, seed): replay the event rounds the state
+        # already lived through
+        from gossipprotocol_tpu_torch.events import replay_topology
+
+        run_topo = replay_topology(topo, cfg, int(initial_state.round))
     state, round_core, done_fn, _ = build_protocol(
-        topo, cfg, allow_all_alive=resume_allows_fast(topo, initial_state))
+        run_topo, cfg,
+        allow_all_alive=resume_allows_fast(topo, initial_state))
     if initial_state is not None:
         state = type(state)(*(t.to(dev).clone() for t in initial_state))
-    delivery = device_arrays(topo, cfg)
-    gossip = isinstance(round_core, GossipCore)
-    extra_stats = round_core.extra_stats if gossip else None
-    observe = round_core.observe if gossip else None
-    if is_walk(cfg):
-        from gossipprotocol_tpu_torch.protocols.walk import (
-            make_walk_chunk_runner,
-        )
+    sentinel_fn = make_sentinel_fn(cfg) if cfg.sentinel != "off" else None
+    base_key = key_data(cfg.seed, dev)
 
-        runner = make_walk_chunk_runner(
-            delivery, topo.num_nodes, streak_target=cfg.streak_target,
-            quorum=(topo.num_nodes if cfg.alert_quorum is None
-                    else cfg.alert_quorum),
-            base_key=key_data(cfg.seed, dev), done_fn=done_fn)
-    elif use_megakernel(cfg):
-        runner = make_megakernel_chunk_runner(round_core, done_fn,
-                                              cfg.rounds_per_kernel)
-    else:
-        runner = make_chunk_runner(
-            round_core, done_fn, extra_stats,
-            base_key=key_data(cfg.seed, dev) if draws(cfg) else None)
+    def make_step(ctopo, core, done, delivery):
+        """``(step, observe)`` for one build of the round."""
+        gossip = isinstance(core, GossipCore)
+        extra_stats = core.extra_stats if gossip else None
+        if is_walk(cfg):
+            from gossipprotocol_tpu_torch.protocols.walk import (
+                make_walk_chunk_runner,
+            )
 
-    def step(s, start_round, round_limit):
-        return runner(s, delivery, start_round, round_limit)
+            runner = make_walk_chunk_runner(
+                delivery, ctopo.num_nodes, streak_target=cfg.streak_target,
+                quorum=(ctopo.num_nodes if cfg.alert_quorum is None
+                        else cfg.alert_quorum),
+                base_key=base_key, done_fn=done)
+        elif use_megakernel(cfg):
+            runner = make_megakernel_chunk_runner(core, done,
+                                                  cfg.rounds_per_kernel)
+        else:
+            runner = make_chunk_runner(
+                core, done, extra_stats,
+                base_key=base_key if draws(cfg) else None,
+                sentinel_fn=sentinel_fn)
+
+        def step(s, start_round, round_limit):
+            return runner(s, delivery, start_round, round_limit)
+
+        return step, (core.observe if gossip else None)
+
+    delivery = device_arrays(run_topo, cfg)
+    step, observe = make_step(run_topo, round_core, done_fn, delivery)
+
+    def observe_state(step_fn, observe_fn, st):
+        if observe_fn is not None:
+            # the first chunk's branch, from the state it starts from
+            r = int(st.round)
+            observe_fn(step_fn(st, r, r)[1].tolist()[2:])
 
     t0 = time.perf_counter()
     warm_start(step, state)
-    if observe is not None:
-        # the first chunk's branch, from the state it starts from
-        observe(chunk_stats(state, done_fn, extra_stats,
-                            delivery).tolist()[2:])
+    observe_state(step, observe, state)
     compile_ms = (time.perf_counter() - t0) * 1e3
+
+    def rebuild(new_topo, st):
+        t0p = time.perf_counter()
+        _, core2, done2, _ = build_protocol(new_topo, cfg,
+                                            allow_all_alive=False)
+        delivery2 = device_arrays(new_topo, cfg)
+        plan_patch_s = time.perf_counter() - t0p
+        step2, observe2 = make_step(new_topo, core2, done2, delivery2)
+        t0w = time.perf_counter()
+        warm_start(step2, st)
+        observe_state(step2, observe2, st)
+        return (step2, observe2), st, {
+            "plan_patch_s": plan_patch_s,
+            "warm_s": time.perf_counter() - t0w}
+
     return _drive(cfg, state, step, topo.num_nodes, compile_ms,
-                  observe=observe)
+                  observe=observe, topo=topo, rebuild=rebuild,
+                  run_topo=run_topo)
+
+
+def resume_simulation(topo: Topology, cfg: RunConfig, state) -> RunResult:
+    """Continue a run from a checkpointed state (``utils/checkpoint.py``
+    :func:`~gossipprotocol_tpu_torch.utils.checkpoint.load`)."""
+    return run_simulation(topo, cfg, initial_state=state)

@@ -35,6 +35,7 @@ from gossipprotocol_tpu_torch.engine.driver import (
     initial_alive,
     make_chunk_runner,
     resume_allows_fast,
+    sharded_unported,
     use_megakernel,
     warm_start,
 )
@@ -175,6 +176,12 @@ def run_simulation_sharded(topo, cfg: RunConfig,
         raise NotPortedError(
             f"delivery {cfg.delivery!r} is not ported to the sharded "
             "engine (only --delivery routed and pallas are)")
+    unported = sharded_unported(cfg)
+    if unported is not None:
+        raise NotPortedError(
+            f"option not yet ported with --devices: {unported} (faults, "
+            "events, repair, checkpoints and the sentinel run on one "
+            "shard: drop --devices)")
     if mesh is None:
         mesh = make_mesh(num_devices, cfg.device)
     n = topo.num_nodes

@@ -1,6 +1,7 @@
 """Bulk-synchronous gossip rumor spreading (port of
 ``gossipprotocol_tpu/protocols/gossip.py``, single card, synchronous
-clock, no loss windows).
+clock, with the loss windows of ``utils/faults.py``: a dropped rumor
+message never lands).
 
 One round advances every node at once: every spreading node draws one
 random neighbour, hits accumulate by a scatter-add (``index_add_`` on
@@ -25,7 +26,8 @@ import torch
 
 from gossipprotocol_tpu_torch.ops.build import resolve_device
 from gossipprotocol_tpu_torch.protocols.sampling import (
-    InvertedDense, dense_table, fold_in, recomputed_hits, sample_neighbors,
+    InvertedDense, dense_table, fold_in, recomputed_hits, round_drops,
+    sample_neighbors,
 )
 from gossipprotocol_tpu_torch.protocols.state import GossipState
 from gossipprotocol_tpu_torch.topology.base import Topology
@@ -51,20 +53,29 @@ def inversion_legal(state: GossipState, nbrs: InvertedDense, *,
 def gossip_round_core(state: GossipState, nbrs, key: torch.Tensor, *,
                       n: int, threshold: int = 10, keep_alive: bool = True,
                       all_alive: bool = False,
-                      inverted: bool = False) -> GossipState:
+                      inverted: bool = False,
+                      loss_windows: tuple = ()) -> GossipState:
     """One synchronous round under the round key ``key``.
 
     ``all_alive=True`` drops the aliveness masks (legal only when no node
     is dead). ``inverted=True`` takes the gather-inverted branch (``nbrs``
     an :class:`InvertedDense`), which the caller may do only while
-    :func:`inversion_legal` holds."""
+    :func:`inversion_legal` holds and no loss window is active (a dropped
+    send breaks the histogram's equality; the engine never inverts a run
+    with loss windows). ``loss_windows`` (``FaultSchedule.
+    static_loss_windows()``): a dropped send never lands — gossip needs
+    no mass return."""
     spreaders = _spreaders(state, keep_alive, all_alive)
     if inverted:
+        assert not loss_windows, "the inverted branch cannot drop sends"
         hits = hits_by_inversion(nbrs, key)
     else:
         targets, valid = sample_neighbors(nbrs, n, key)
-        send = (spreaders & valid).to(torch.int32)
-        hits = torch.zeros_like(state.counts).index_add_(0, targets, send)
+        send = spreaders & valid
+        if loss_windows:
+            send = send & ~round_drops(key, state.round, loss_windows, n)
+        hits = torch.zeros_like(state.counts).index_add_(
+            0, targets, send.to(torch.int32))
     # the reference's sender-side dictionary check, applied at the
     # receiver: no hit lands on a converged or failed node
     suppressed = (state.converged if all_alive
@@ -79,13 +90,14 @@ def gossip_round_core(state: GossipState, nbrs, key: torch.Tensor, *,
 def gossip_round(state: GossipState, nbrs, base_key: torch.Tensor, *,
                  n: int, threshold: int = 10, keep_alive: bool = True,
                  all_alive: bool = False,
-                 inverted: bool = False) -> GossipState:
+                 inverted: bool = False,
+                 loss_windows: tuple = ()) -> GossipState:
     """One round keyed by ``fold_in(base_key, state.round)`` (the JAX
     package's ``gossip_round``, with the branch chosen by the caller)."""
     return gossip_round_core(
         state, nbrs, fold_in(base_key, state.round), n=n,
         threshold=threshold, keep_alive=keep_alive, all_alive=all_alive,
-        inverted=inverted)
+        inverted=inverted, loss_windows=loss_windows)
 
 
 def gossip_done(state: GossipState) -> torch.Tensor:

@@ -2,10 +2,11 @@
 supervisor predicate (port of the scalar pieces of
 ``gossipprotocol_tpu/protocols/pushsum.py``).
 
-Only the intended semantics are ported (``--semantics reference``, the
-gather-inverted ``delivery='invert'``, clocks and loss windows are not
-yet): every round every node halves its ``(s, w)``, keeps one half and
-scatter-adds the other to one random neighbour. The convergence
+Only the intended semantics are ported (the gather-inverted
+``delivery='invert'`` and clocks are not yet): every round every node
+halves its ``(s, w)``, keeps one half and scatter-adds the other to one
+random neighbour; under a loss window (``utils/faults.py``) a dropped
+send keeps its half at the sender. The convergence
 predicate is either the local delta streak ``|Δ(s/w)| <= eps`` for
 ``streak_target`` rounds (sticky) or the global ``|s/w - mean| <= tol``
 streak (non-sticky).
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from gossipprotocol_tpu_torch.protocols.sampling import (
-    fold_in, sample_neighbors,
+    fold_in, round_drops, sample_neighbors,
 )
 from gossipprotocol_tpu_torch.protocols.state import PushSumState
 
@@ -74,14 +75,17 @@ def pushsum_round_core(state: PushSumState, nbrs, key: torch.Tensor, *,
                        n: int, eps: float = 1e-10, streak_target: int = 3,
                        predicate: str = "delta", tol: float = 1e-4,
                        all_alive: bool = False,
-                       targets_alive: bool = False) -> PushSumState:
+                       targets_alive: bool = False,
+                       loss_windows: tuple = ()) -> PushSumState:
     """One fanout-one round under the round key ``key``, delivered by
     scatter (``index_add_``, the JAX package's ``segment_sum``).
 
     A send lands when its sender has a neighbour and, unless
     ``all_alive``, the sender is alive and (unless ``targets_alive``, the
-    dead set being whole components) so is its target; an undelivered
-    half stays with the sender, so mass is conserved.
+    dead set being whole components) so is its target, and no loss
+    window drops it (``loss_windows``, the static ``(start, stop, prob)``
+    table); an undelivered half stays with the sender, so mass is
+    conserved.
 
     Summation order: the JAX package's text is ``s - s_sent + in_s``
     with ``in_s = segment_sum(s_sent)``, but XLA on the CPU rewrites the
@@ -98,6 +102,8 @@ def pushsum_round_core(state: PushSumState, nbrs, key: torch.Tensor, *,
         deliver = valid & state.alive
     else:
         deliver = valid & state.alive & state.alive[targets]
+    if loss_windows:
+        deliver = deliver & ~round_drops(key, state.round, loss_windows, n)
     zero = torch.zeros_like(state.s)
     s_sent = torch.where(deliver, state.s * 0.5, zero)
     w_sent = torch.where(deliver, state.w * 0.5, zero)

@@ -37,8 +37,9 @@ _PARITY = 0x1BD11BDA
 # jax 0.9's default of ``jax_threefry_partitionable``
 THREEFRY_PARTITIONABLE = True
 
-# Domain-separation constant of the JAX package's loss draws (kept for
-# the drop windows, which are not ported yet).
+# Domain-separation constant folded into the round key before the drop
+# draws (the JAX package's): without it node i's drop coin would be the
+# same u32 stream as its neighbour pick.
 LOSS_FOLD = 0x10553
 
 # Above this max degree the dense table stops paying; CSR covers hubs.
@@ -298,6 +299,46 @@ def sample_neighbors(nbrs, n: int, key: torch.Tensor):
     targets = nbrs.indices[flat]
     valid = deg > 0
     return torch.where(valid, targets, torch.zeros_like(targets)), valid
+
+
+def loss_probability(rnd: torch.Tensor, windows) -> torch.Tensor:
+    """Active drop probability at round ``rnd`` (a float32 device
+    scalar): overlapping windows ``(start, stop, prob)`` compose as
+    independent drops, survive = Π (1 − pₖ·activeₖ), in float32, each
+    factor ``1 - prob`` rounded from the double once, as the JAX
+    package's ``jnp.float32(1.0 - prob)``."""
+    survive = torch.ones((), dtype=torch.float32, device=rnd.device)
+    for start, stop, prob in windows:
+        active = (rnd >= int(start)) & (rnd < int(stop))
+        keep = float(np.float32(1.0 - prob))
+        survive = survive * torch.where(
+            active, torch.full_like(survive, keep), torch.ones_like(survive))
+    return 1.0 - survive
+
+
+def drop_mask(key: torch.Tensor, prob: torch.Tensor, ids: torch.Tensor,
+              ids2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-message Bernoulli drops under a loss-folded round key
+    (``fold_in(round_key, LOSS_FOLD)``): the threefry hash of the id pair
+    ``(ids_i, ids2_i)`` (``(ids_i, ids_i)`` without ``ids2``: the JAX
+    package's concatenated ``[a, b]`` layout, whose first output word
+    belongs to pair i), dropped where ``float32(u) < prob · 2³²``. The
+    uint32 word converts to float32 rounding to nearest even, as XLA's
+    ``uitofp`` does, and ``prob · 2³²`` is exact; the mask is a function
+    of global ids, so any layout draws the same drops."""
+    a = ids.to(torch.int64) & _U32
+    b = a if ids2 is None else ids2.to(torch.int64) & _U32
+    u, _ = threefry2x32_words(key[0], key[1], a, b)
+    thresh = prob.to(torch.float32) * 4294967296.0
+    return u.to(torch.float32) < thresh
+
+
+def round_drops(key: torch.Tensor, rnd: torch.Tensor, windows,
+                n: int) -> torch.Tensor:
+    """The fanout-one rounds' drop mask of round ``rnd`` under its round
+    key ``key``: one draw per sender id in ``[0, n)``."""
+    return drop_mask(fold_in(key, LOSS_FOLD),
+                     loss_probability(rnd, windows), _ids(n, key.device))
 
 
 def send_valid_mask(nbrs, n: int) -> Optional[torch.Tensor]:

@@ -124,9 +124,15 @@ class Topology:
 def kill_disconnected(topo: Topology, alive: np.ndarray) -> np.ndarray:
     """Keep only the largest alive connected component; everything else
     is marked dead (copy of ``gossipprotocol_tpu.utils.faults
-    .kill_disconnected``, explicit topologies only). If the largest
-    component has fewer than 2 nodes, everyone is marked dead."""
+    .kill_disconnected``). If the largest component has fewer than 2
+    nodes, everyone is marked dead. Majority-partition semantics, applied
+    at birth and after every strike batch (``events/engine.py``)."""
     alive = np.asarray(alive, dtype=bool).copy()
+    if topo.implicit_full:
+        # any two alive nodes are neighbors: one component by definition
+        if alive.sum() < 2:
+            alive[:] = False
+        return alive
     from scipy import sparse
     from scipy.sparse import csgraph
 

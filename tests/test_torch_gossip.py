@@ -376,11 +376,13 @@ def test_cli_stall_exit_1(capsys):
      "--delivery scatter"),
     (["64", "imp3D", "gossip", "--devices", "2"], "--devices"),
     (["64", "imp3D", "gossip", "--clock", "poisson"], "--clock"),
-    (["64", "imp3D", "gossip", "--drop-prob", "0.1"], "--drop-prob"),
-    (["64", "imp3D", "gossip", "--fail-fraction", "0.1"], "--fail-fraction"),
+    (["64", "imp3D", "gossip", "--drop-prob", "1.5"], "--drop-prob"),
+    (["64", "imp3D", "gossip", "--fail-fraction", "0.1", "--devices", "2"],
+     "--fail-fraction"),
     (["64", "imp3D", "push-sum", "--x64"], "--x64"),
     (["64", "imp3D", "gossip", "--metrics-out", "m.jsonl"], "--metrics-out"),
-    (["64", "imp3D", "gossip", "--checkpoint-dir", "ck"], "--checkpoint-dir"),
+    (["64", "imp3D", "gossip", "--checkpoint-dir", "ck", "--devices", "2"],
+     "--checkpoint-dir"),
     (["64", "imp3D", "gossip", "--telemetry-dir", "t"], "--telemetry-dir"),
     (["64", "imp3D", "gossip", "--sweep-seeds", "2"], "--sweep-seeds"),
     (["64", "imp3D", "push-sum", "--payload-dim", "4"], "--payload-dim"),

@@ -46,7 +46,8 @@ def test_walk_finds_the_package():
             "delivery.py", "mesh.py", "sharded.py",
             "sharddelivery.py", "sampling.py", "gossip.py", "walk.py",
             "probes.py", "slab_probe.py", "route_probe.py",
-            "tile_perm_probe.py", "curves.py", "oracle_curves.py"} <= names
+            "tile_perm_probe.py", "curves.py", "oracle_curves.py",
+            "faults.py", "repair.py", "engine.py", "checkpoint.py"} <= names
     assert (ROOT / "gossipprotocol_tpu_torch" / "ops" / "walk.py"
             in _FILES)
     assert (ROOT / "gossipprotocol_tpu_torch" / "probes" / "__init__.py"

@@ -212,6 +212,78 @@ def test_dead_set_run_card_equals_cpu(cuda):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("graph", [("imp3D", 20_000, {"seed": 1}),
+                                   ("power_law", 20_000, {"seed": 1, "m": 4})])
+def test_dead_set_matvecs_on_card_equal_plain(cuda, graph):
+    """The live-degree branch of the round under a random dead set: the
+    masked shares and ``matvec(alive, alive)`` through the pallas and the
+    routed kernels on the card, bitwise their plain versions (the same
+    deliveries on the CPU) and each other; then one whole round of the
+    dead-set path and a run with a kill strike at round 3 rewired mid-run
+    (a plan rebuilt under the new CSR's key), card against CPU."""
+    from gossipprotocol_tpu_torch.convert import routed_delivery_from_numpy
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.ops.delivery import build_routed_delivery_np
+    from gossipprotocol_tpu_torch.protocols.diffusion import (
+        pushsum_diffusion_round_routed,
+    )
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+    from gossipprotocol_tpu_torch.utils import faults
+
+    name, n, kw = graph
+    topo = build_topology(name, n, **kw)
+    n = topo.num_nodes
+    host = build_routed_delivery_np(topo)
+    dels = {
+        "pallas": (pdm.build_pallas_delivery(topo, device=cuda),
+                   pdm.build_pallas_delivery(topo, device="cpu")),
+        "routed": (routed_delivery_from_numpy(host, cuda),
+                   routed_delivery_from_numpy(host, "cpu")),
+    }
+    rng = np.random.default_rng(5)
+    alive = torch.from_numpy(rng.random(n) > 0.1)
+    state = pushsum_init(n, device="cpu")._replace(alive=alive)
+    deg = torch.from_numpy(topo.degree.astype(np.float32))
+    inv = torch.ones_like(deg) / (deg + 1)
+    zero = torch.zeros(n)
+    share_s = torch.where(alive, state.s * inv, zero)
+    share_w = torch.where(alive, state.w * inv, zero)
+    alive_f = alive.to(torch.float32)
+    outs = {}
+    for dname, (card, cpu) in dels.items():
+        for xs, xw in ((share_s, share_w), (alive_f, alive_f)):
+            a = card.matvec(xs.to(cuda), xw.to(cuda))
+            b = cpu.matvec(xs, xw)
+            for u, v in zip(a, b):
+                assert _bits_equal(u.cpu(), v)
+            outs.setdefault(dname, []).append(a)
+        rounds = [pushsum_diffusion_round_routed(
+            type(state)(*(t.to(dev) for t in state)), d, predicate="global",
+            all_alive=False, targets_alive=False)
+            for dev, d in ((cuda, card), ("cpu", cpu))]
+        for u, v in zip(*rounds):
+            u = u.cpu()
+            assert (_bits_equal(u, v) if u.dtype == torch.float32
+                    else torch.equal(u, v))
+    for a, b in zip(outs["pallas"], outs["routed"]):
+        for u, v in zip(a, b):
+            assert _bits_equal(u, v)
+    sched = faults.build_schedule(n, fail_fraction=0.1, fail_round=3, seed=1)
+    for delivery in ("pallas", "routed"):
+        res = [run_simulation(topo, RunConfig(
+            algorithm="push-sum", fanout="all", delivery=delivery,
+            device=dev, max_rounds=12, chunk_rounds=4, repair="rewire",
+            fault_schedule=sched, plan_cache="none"))
+            for dev in (str(cuda), "cpu")]
+        assert res[0].rounds == res[1].rounds == 12
+        assert any(m.get("event") == "repair" and m["changed"]
+                   for m in res[0].metrics)
+        for a, b in zip(res[0].final_state, res[1].final_state):
+            assert (_bits_equal(a, b) if a.dtype == torch.float32
+                    else torch.equal(a, b))
+
+
 _MK_GRAPHS = {"imp3D": ("imp3D", 216, {"seed": 4}),
               "powerlaw": ("powerlaw", 400, {"seed": 3, "m": 3})}
 

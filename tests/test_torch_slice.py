@@ -317,13 +317,13 @@ def test_cli_not_converged_exit_1(capsys):
       "--device", "cpu"], "--fanout one"),
     (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "scatter",
       "--device", "cpu"], "--delivery scatter"),
-    (["64", "imp3D", *_CLI, "--fail-fraction=0.1"], "--fail-fraction"),
+    (["64", "imp3D", *_CLI, "--fail-fraction=1.5"], "--fail-fraction"),
     (["report", "/tmp/x"], "report"),
     (["64", "torus", *_CLI], "unknown topology"),
     (["64", "full", *_CLI], "complete graph"),
     (["64", "imp3D", "wiretap", "--device", "cpu"], "option invalid"),
-    (["64", "line", "gossip", "--repair", "prune", "--device", "cpu"],
-     "option not yet ported: --repair"),
+    (["64", "line", "gossip", "--repair", "prune", "--semantics",
+      "reference", "--device", "cpu"], "repair applies to faulted runs"),
 ])
 def test_cli_exit_2(argv, needle, capsys):
     assert torch_main(argv) == 2
