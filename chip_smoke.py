@@ -163,7 +163,24 @@ Phases (each prints its lines; any failure exits non-zero):
       the injection round, the quarantined ids ``value_fault_ids``, the
       run converging; (n5) imp3D 262,144 with ``--churn 0.001,swap,10``:
       a plan rebuild every 10 rounds, rebuild seconds, ms per round
-      between rebuilds. Each run's launch counts are read around it.
+      between rebuilds. Each run's launch counts are read around it;
+  (o) the workloads through the CLI on the card: (o1) the slice's main
+      path, Stochastic Gradient Push at imp3D 1M (``--workload sgp
+      --payload-dim 16 --sgp-samples 8 --predicate global --tol 1e-3``)
+      on ``--delivery pallas`` and ``routed``: rounds and executed rounds,
+      the last chunk's train loss, estimate error, ms per executed round,
+      matvec calls a round (9), the launches of rows 1, 11 (pallas) and
+      1, 2, 7, 8 (routed), the two final states bitwise equal; the same on
+      pallas at imp3D 262,144 (resident gathers: row 10); (o2) ``--clock
+      poisson --activation-rate 1.0`` on imp3D 1M pallas push-sum and
+      gossip, and gossip at 262,144 card against CPU bitwise; (o3) card
+      against CPU at imp3D 32,768, 32 rounds, for every new path (the
+      fanout-all scatter, GALA with ``--groups 4``, Chebyshev with
+      ``--accel-lambda`` and EPD, ``--x64``, fanout-one ``--delivery
+      invert`` and Poisson push-sum, SGP on pallas), each within its
+      stated tolerance; (o4) ``--delivery invert`` against ``scatter`` on
+      imp3D 1M fanout-one push-sum, 64 rounds each, ms per executed
+      round. The phase's seconds are printed.
 
 ``slice_times`` (not a phase) times rows 12, 15-20 and 6 through
 their wrappers by graph replay for whichever tree's package is first on
@@ -182,6 +199,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -2908,6 +2926,215 @@ def phase_faults(torch, totals):
         f"between rebuilds")
 
 
+# ---------------------------------------------------------------- (o)
+
+# (o1) the slice's main path: SGP at the port's 1M graph, d = 16, m = 8
+SGP_ARGV = ["1000000", "imp3D", "push-sum", "--fanout", "all", "--delivery",
+            "pallas", "--workload", "sgp", "--payload-dim", "16",
+            "--sgp-samples", "8", "--predicate", "global", "--tol", "1e-3",
+            "--max-rounds", "400", "--device", "cuda"]
+SGP_RESIDENT_ARGV = ["262144"] + SGP_ARGV[1:]
+SGP_MATVECS = 9            # ceil((16 + 1) / 2)
+PALLAS_RESIDENT_KERNELS = ("gather_resident", "class_reduce_small")
+# (o2) Poisson clocks at 1M
+CLOCK_FLAGS = ["--clock", "poisson", "--activation-rate", "1.0"]
+CLOCK_RUNS = {
+    "pallas push-sum": ["1000000", "imp3D", "push-sum", "--fanout", "all",
+                        "--delivery", "pallas", "--predicate", "global",
+                        "--tol", "1e-4", "--max-rounds", "400"],
+    "gossip": ["1000000", "imp3D", "gossip", "--max-rounds", "400"],
+}
+# (o3) card against CPU, small graph, fixed rounds; (tag, argv tail,
+# tolerance on s, w, ratio: 0 = bitwise)
+O3_HEAD = ["32768", "imp3D", "push-sum", "--max-rounds", "32",
+           "--chunk-rounds", "8"]
+O3_RUNS = (
+    ("fanout-all scatter", ["--fanout", "all", "--delivery", "scatter"],
+     SCATTER_TOL),
+    ("GALA --groups 4 poisson", ["--fanout", "all", "--delivery", "scatter",
+                                 "--workload", "gala", "--groups", "4",
+                                 "--payload-dim", "8", "--predicate",
+                                 "global", "--clock", "poisson"], 1e-4),
+    ("Chebyshev --accel-lambda 0.9", ["--fanout", "all", "--accel",
+                                      "chebyshev", "--accel-lambda", "0.9"],
+     SCATTER_TOL),
+    ("EPD", ["--fanout", "all", "--accel", "epd"], SCATTER_TOL),
+    ("--x64 fanout-all scatter", ["--fanout", "all", "--delivery",
+                                  "scatter", "--x64"], 1e-12),
+    ("--delivery invert", ["--delivery", "invert"], 0.0),
+    ("fanout-one poisson d=3", ["--clock", "poisson", "--payload-dim", "3"],
+     SCATTER_TOL),
+    ("SGP pallas", ["--fanout", "all", "--delivery", "pallas", "--workload",
+                    "sgp", "--payload-dim", "16", "--predicate", "global"],
+     1e-4),
+)
+# (o4) the inverted fanout-one delivery against the scatter, imp3D 1M
+INVERT_ARGV = ["1000000", "imp3D", "push-sum", "--eps", "0", "--max-rounds",
+               "64", "--chunk-rounds", "16", "--device", "cuda"]
+
+
+def _count_matvecs():
+    """Count the calls of both deliveries' matvec; returns (counter,
+    restore)."""
+    from gossipprotocol_tpu_torch.ops.delivery import RoutedDelivery
+    from gossipprotocol_tpu_torch.ops.pallasdelivery import PallasDelivery
+
+    calls = {"n": 0}
+    origs = {cls: cls.matvec for cls in (PallasDelivery, RoutedDelivery)}
+
+    def wrap(orig):
+        def counted(self, *a, **kw):
+            calls["n"] += 1
+            return orig(self, *a, **kw)
+        return counted
+
+    for cls, orig in origs.items():
+        cls.matvec = wrap(orig)
+
+    def restore():
+        for cls, orig in origs.items():
+            cls.matvec = orig
+
+    return calls, restore
+
+
+def _workload_cli(tag, argv, rcs=(0,)):
+    """One in-process CLI run of phase (o): ``(RunResult, launch counts,
+    (rounds, executed, wall ms, estimate error or None), matvec calls,
+    seconds)``."""
+    calls, restore = _count_matvecs()
+    t1 = time.perf_counter()
+    try:
+        rc, text, etext, counts, res = _ref_cli(argv)
+    finally:
+        restore()
+    secs = time.perf_counter() - t1
+    for line in (etext + text).splitlines():
+        say(f"(o) {tag} | {line}")
+    require(rc in rcs, f"(o) {tag}: exit {rc}, want {rcs}: {' '.join(argv)}")
+    conv = re.search(r"Convergence Time: ([0-9.]+) ms", text)
+    rounds = re.search(r"rounds: (\d+) \((\d+) executed\)", text)
+    err = re.search(r"max \|s/w - mean\| = (\S+)", text)
+    require(conv and rounds, f"(o) {tag}: output lines missing")
+    return res, counts, (int(rounds.group(1)), int(rounds.group(2)),
+                         float(conv.group(1)),
+                         err.group(1) if err else None), calls["n"], secs
+
+
+def phase_workloads(torch, totals):
+    """Phase (o); adds the launches of its SGP runs to ``totals``."""
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    def count(counts):
+        for k, v in counts.items():
+            if k in totals:
+                totals[k] += v
+
+    # (o1) SGP at 1M on pallas and routed, then at 262,144 (resident)
+    runs = {}
+    for delivery, argv, need in (
+            ("pallas", SGP_ARGV, PALLAS_IMP3D_KERNELS),
+            ("routed", [("routed" if a == "pallas" else a)
+                        for a in SGP_ARGV], ROUTED_IMP3D_KERNELS),
+            ("pallas 262,144", SGP_RESIDENT_ARGV, PALLAS_RESIDENT_KERNELS)):
+        res, counts, nums, calls, secs = _workload_cli(
+            f"o1 sgp {delivery}", argv, rcs=(0, 1))
+        rounds, executed, wall_ms, err = nums
+        # the JAX CLI's rule: 0 converged, 1 stopped at --max-rounds
+        require((res.converged and rounds < 400) or (not res.converged
+                                                     and rounds == 400),
+                f"(o1) {delivery}: converged {res.converged} at {rounds}")
+        missing = [k for k in need if not counts[k]]
+        require(not missing, f"(o1) {delivery}: {missing} never launched")
+        # the warm-up chunk runs one round besides the executed ones
+        per_round = calls / (executed + 1)
+        require(calls == SGP_MATVECS * (executed + 1),
+                f"(o1) {delivery}: {calls} matvec calls for {executed} + 1 "
+                f"rounds, want {SGP_MATVECS} a round")
+        loss = [m["train_loss"] for m in res.metrics if "train_loss" in m]
+        require(loss and math.isfinite(loss[-1]) and float(err) < 1e-3,
+                f"(o1) {delivery}: train loss {loss[-1:]}, error {err}")
+        count(counts)
+        runs[delivery] = res
+        say(f"(o1) sgp {delivery}: rc {0 if res.converged else 1}, "
+            f"{rounds} rounds ({executed} executed), {wall_ms:.3f} ms, "
+            f"{wall_ms / max(executed, 1):.4f} ms per executed round, "
+            f"train_loss {loss[-1]:.6e}, estimate_error {err}, "
+            f"{per_round:.1f} matvec calls a round, launches {counts}, "
+            f"{secs:.1f} s with the data and plan build")
+    a, b = runs["pallas"].final_state, runs["routed"].final_state
+    diff = _states_bitwise(torch, a, b)
+    require(not diff and runs["pallas"].rounds == runs["routed"].rounds,
+            f"(o1) pallas vs routed final state: {diff} differ")
+    say(f"(o1) sgp routed == pallas at 1M: round {runs['pallas'].rounds}, "
+        "final state bitwise (s, w, ratio, streak, converged, alive, round, "
+        "loss)")
+
+    # (o2) Poisson clocks at 1M; gossip card vs CPU at 262,144
+    for tag, argv in CLOCK_RUNS.items():
+        res, counts, nums, _calls, secs = _workload_cli(
+            f"o2 poisson {tag}", argv + CLOCK_FLAGS + ["--device", "cuda"])
+        if "pallas" in tag:
+            missing = [k for k in PALLAS_IMP3D_KERNELS if not counts[k]]
+            require(not missing, f"(o2) {tag}: {missing} never launched")
+        say(f"(o2) poisson rate 1.0 {tag} imp3D 1M: {nums[0]} rounds "
+            f"({nums[1]} executed), {nums[2]:.3f} ms, "
+            f"{nums[2] / max(nums[1], 1):.4f} ms per executed round, "
+            f"estimate_error {nums[3]}, {secs:.1f} s in all")
+    topo = build_topology("imp3D", 262_144, seed=0)
+    got = {dev: run_simulation(topo, RunConfig(
+        algorithm="gossip", clock="poisson", device=dev, max_rounds=400))
+        for dev in ("cuda", "cpu")}
+    diff = _states_bitwise(torch, got["cuda"].final_state,
+                           got["cpu"].final_state)
+    require(not diff and got["cuda"].rounds == got["cpu"].rounds,
+            f"(o2) poisson gossip card vs cpu: {diff} differ")
+    say(f"(o2) poisson gossip imp3D 262,144: card == cpu bitwise, "
+        f"{got['cuda'].rounds} rounds")
+
+    # (o3) card against CPU for every new path
+    for tag, tail, tol in O3_RUNS:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            res[dev] = _workload_cli(f"o3 {tag} {dev}",
+                                     O3_HEAD + tail + ["--device", dev],
+                                     rcs=(0, 1))[0]
+        a, b = res["cuda"].final_state, res["cpu"].final_state
+        require(res["cuda"].rounds == res["cpu"].rounds
+                 and torch.equal(a.alive, b.alive),
+                 f"(o3) {tag}: rounds {res['cuda'].rounds} vs "
+                 f"{res['cpu'].rounds}")
+        errs = {f: max_abs_err(torch, getattr(a, f).double(),
+                               getattr(b, f).double())
+                for f in ("s", "w", "ratio")}
+        require(all(e <= tol for e in errs.values()),
+                f"(o3) {tag}: card vs cpu {errs} above {tol}")
+        say(f"(o3) {tag}: {res['cuda'].rounds} rounds, card vs cpu max "
+            f"|diff| s {errs['s']:.3e}, w {errs['w']:.3e}, ratio "
+            f"{errs['ratio']:.3e} (bound {tol})")
+
+    # (o4) invert against scatter at imp3D 1M
+    got = {}
+    for delivery in ("scatter", "invert", "scatter", "invert"):
+        res, counts, nums, _calls, _secs = _workload_cli(
+            f"o4 {delivery}", INVERT_ARGV + ["--delivery", delivery],
+            rcs=(0, 1))
+        require(not any(counts.values()),
+                f"(o4) {delivery}: kernels launched {counts}")
+        got.setdefault(delivery, []).append(
+            (res, nums[2] / max(nums[1], 1)))
+    a, b = got["scatter"][0][0].final_state, got["invert"][0][0].final_state
+    errs = {f: max_abs_err(torch, getattr(a, f), getattr(b, f))
+            for f in ("s", "w")}
+    require(all(e <= SCATTER_TOL for e in errs.values()),
+            f"(o4) invert vs scatter {errs} above {SCATTER_TOL}")
+    say(f"(o4) fanout-one push-sum imp3D 1M, 64 rounds: ms per executed "
+        f"round scatter {[round(t, 4) for _, t in got['scatter']]}, "
+        f"invert {[round(t, 4) for _, t in got['invert']]}; invert vs "
+        f"scatter max |diff| s {errs['s']:.3e}, w {errs['w']:.3e}")
+
+
 def summarize(records, totals, stream_rate):
     """One record per kernel: its largest main-path call, with its bytes
     over the measured stream rate (``bound_stream_ms``) beside the
@@ -3012,6 +3239,8 @@ def main(argv=None) -> int:
             lap("m")
             phase_faults(torch, totals)
             lap("n")
+            phase_workloads(torch, totals)
+            lap("o")
             kernels = summarize(records, totals, stream_rate)
         except SmokeFailure as e:
             print(f"FAIL: {e}", flush=True)

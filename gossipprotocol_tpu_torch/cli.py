@@ -6,8 +6,13 @@
         [--value-mode scaled|index] [--semantics intended|reference]
         [--device cuda|cpu] [--backend auto|cpu|gpu|cuda] [--check]
     python -m gossipprotocol_tpu_torch N TOPOLOGY push-sum \\
-        --fanout all --delivery pallas|routed|megakernel
-        [--rounds-per-kernel K]
+        [--fanout one --delivery scatter|invert]
+        [--fanout all --delivery scatter|pallas|routed|megakernel]
+        [--rounds-per-kernel K] [--edge-chunks K] [--x64]
+        [--payload-dim D] [--workload avg|sgp|gala [--lr LR]
+         [--local-steps K] [--sgp-samples M] [--loss-tol T] [--groups G]]
+        [--clock sync|poisson [--activation-rate R]]
+        [--accel off|chebyshev|epd [--accel-lambda G]]
         [--devices S [--exchange-overlap] [--payload-wire f32|bf16|int8]
          [--build-workers W] [--routed-design push]]
         [--plan-cache DIR|none] [--device cuda|cpu]
@@ -37,9 +42,11 @@ repair, checkpoint and sentinel flags print the JAX CLI's lines and exit
 codes; a resume refuses a checkpoint of another run ("checkpoint
 mismatch: ...") or of the JAX package, with exit 2, and ``--auto-resume
 N`` re-executes the CLI from the newest resumable checkpoint when the
-CUDA context dies (:func:`_is_runtime_death`). Every flag and combination
-the port does not have yet exits 2 and names itself; nothing falls back
-quietly to another path.
+CUDA context dies (:func:`_is_runtime_death`). The workload flags (vector
+payloads, SGP and GALA, Poisson clocks, acceleration, ``--x64``,
+``--edge-chunks``) print the JAX CLI's rejections with exit 2. Every flag
+and combination the port does not have yet exits 2 and names itself;
+nothing falls back quietly to another path.
 """
 
 from __future__ import annotations
@@ -59,10 +66,7 @@ _ALGO_ALIASES = {
 # flags of the JAX package's CLI that this port does not have yet
 UNPORTED_FLAGS = (
     "--build",
-    "--build-memory-budget", "--payload-dim", "--workload", "--clock",
-    "--activation-rate", "--groups", "--accel", "--accel-lambda", "--lr",
-    "--local-steps", "--sgp-samples", "--loss-tol", "--x64",
-    "--edge-chunks", "--metrics-out", "--profile-dir",
+    "--build-memory-budget", "--metrics-out", "--profile-dir",
     "--telemetry-dir", "--sweep", "--sweep-seeds", "--round-budget",
     "--trace-cap", "--compile-cache", "--request-id", "--admission-json",
 )
@@ -111,6 +115,45 @@ def _unit_fraction(s: str) -> float:
             f"{v!r} is out of range — must be in [0.0, 1.0) "
             "(1.0 would kill/drop everything, which nothing survives)"
         )
+    return v
+
+
+def _at_least_one(s: str) -> int:
+    """argparse type for integer knobs that must be >= 1 (--payload-dim,
+    --local-steps, --sgp-samples, --groups; the JAX CLI's)."""
+    try:
+        v = int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{s!r} is not an integer")
+    if v < 1:
+        raise argparse.ArgumentTypeError(
+            f"{v!r} is out of range — must be >= 1")
+    return v
+
+
+def _positive_float(s: str) -> float:
+    """argparse type for strictly-positive float knobs (--lr, --loss-tol,
+    --activation-rate; the JAX CLI's)."""
+    try:
+        v = float(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{s!r} is not a number")
+    if not v > 0.0:
+        raise argparse.ArgumentTypeError(
+            f"{v!r} is out of range — must be > 0")
+    return v
+
+
+def _open_unit(s: str) -> float:
+    """argparse type for --accel-lambda: a spectral bound strictly inside
+    (0, 1) (the JAX CLI's)."""
+    try:
+        v = float(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{s!r} is not a number")
+    if not 0.0 < v < 1.0:
+        raise argparse.ArgumentTypeError(
+            f"{v!r} is out of range — must be strictly in (0.0, 1.0)")
     return v
 
 
@@ -164,7 +207,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "delivery; fanout-all push-sum over the fused gather "
                     "delivery, the Clos-routed delivery and the K-round "
                     "megakernel; faults, loss windows, topology events, "
-                    "repair, checkpoints and the health sentinel)",
+                    "repair, checkpoints and the health sentinel; vector "
+                    "payloads, SGP and GALA, Poisson clocks and "
+                    "accelerated averaging)",
     )
     p.add_argument("num_nodes", type=int)
     p.add_argument("topology", type=str)
@@ -316,15 +361,92 @@ def build_parser() -> argparse.ArgumentParser:
                             "megakernel"],
                    default="scatter",
                    help="push-sum delivery. fanout one: 'scatter' (an "
-                        "index_add_ of the halves; 'invert' is not yet "
-                        "ported). fanout all: 'routed' (expand, Clos "
-                        "routing plans, class folds), 'pallas' (the routed "
-                        "pipeline fused into two gathers around the class "
-                        "folds) and 'megakernel' (the pallas path with the "
-                        "whole protocol round fused into one persistent "
-                        "kernel, running --rounds-per-kernel rounds per "
-                        "launch; all-alive, resident gather plans) are "
-                        "ported")
+                        "index_add_ of the halves) or 'invert' (the "
+                        "receivers recompute their neighbours' draws and "
+                        "gather; bounded degree, no faults, synchronous "
+                        "clock, scalar payload). fanout all: 'scatter' (an "
+                        "index_add_ over the edge list), 'routed' (expand, "
+                        "Clos routing plans, class folds), 'pallas' (the "
+                        "routed pipeline fused into two gathers around the "
+                        "class folds) and 'megakernel' (the pallas path "
+                        "with the whole protocol round fused into one "
+                        "persistent kernel, running --rounds-per-kernel "
+                        "rounds per launch; all-alive, resident gather "
+                        "plans)")
+    p.add_argument("--edge-chunks", type=int, default=1,
+                   help="fanout-all scatter delivery in K sequential edge "
+                        "slices (K-fold smaller per-edge intermediates)")
+    p.add_argument("--payload-dim", type=_at_least_one, default=1,
+                   metavar="D",
+                   help="push-sum payload width: 1 (default) is the scalar "
+                        "(s, w) protocol; D > 1 averages a per-node [D] "
+                        "vector through the same delivery plans (w stays "
+                        "one weight per node; ceil((D+1)/2) matvec calls a "
+                        "round on pallas and routed). Requires push-sum "
+                        "with intended semantics; delivery='invert' is "
+                        "scalar-only")
+    p.add_argument("--workload", choices=["avg", "sgp", "gala"],
+                   default="avg",
+                   help="what the push-sum payload carries: 'avg' (plain "
+                        "averaging), 'sgp' — Stochastic Gradient Push "
+                        "(arXiv:1811.10792): each node takes --local-steps "
+                        "gradient steps on its synthetic least-squares "
+                        "shard between mixing rounds, and the run "
+                        "converges on consensus distance AND a train-loss "
+                        "plateau (push-sum, --predicate global; --delivery "
+                        "scatter, routed or pallas) — or 'gala' "
+                        "(arXiv:1906.04585): SGP learners in --groups "
+                        "groups, exactly averaged inside each group and "
+                        "mixed between groups by push-sum gossip "
+                        "(--delivery scatter)")
+    p.add_argument("--clock", choices=["sync", "poisson"], default="sync",
+                   help="execution clock: 'sync' (default) activates every "
+                        "node every round; 'poisson' activates each node "
+                        "i.i.d. with P = 1 - exp(-rate) a round (the "
+                        "thinned continuous-time gossip of "
+                        "arXiv:2011.02379; receivers stay passive), drawn "
+                        "from the run's counter-based key on global ids. "
+                        "Incompatible with --accel, --semantics reference "
+                        "and --delivery invert")
+    p.add_argument("--activation-rate", type=_positive_float, default=1.0,
+                   metavar="R",
+                   help="poisson clock rate r > 0 (ignored under --clock "
+                        "sync)")
+    p.add_argument("--groups", type=_at_least_one, default=1, metavar="G",
+                   help="GALA learner-group count (>= 2, must divide the "
+                        "node count; requires --workload gala). Groups "
+                        "share one activation clock under --clock poisson")
+    p.add_argument("--accel", choices=["off", "chebyshev", "epd"],
+                   default="off",
+                   help="accelerated averaging for --fanout all --delivery "
+                        "scatter (fixed mixing matrix: no faults, loss, "
+                        "events or repair): 'chebyshev' semi-iterative "
+                        "weights (bound from --accel-lambda or a host "
+                        "power-iteration estimate) or 'epd' (the "
+                        "parameter-free Euler-Poisson-Darboux scheme, "
+                        "arXiv:2202.10742)")
+    p.add_argument("--accel-lambda", type=_open_unit, default=None,
+                   metavar="G",
+                   help="Chebyshev spectral bound |lambda_2(W)| strictly in "
+                        "(0, 1); unset = host power-iteration estimate")
+    p.add_argument("--lr", type=_positive_float, default=0.05,
+                   help="SGP local gradient step size (> 0)")
+    p.add_argument("--local-steps", type=_at_least_one, default=1,
+                   metavar="K",
+                   help="SGP gradient steps per mixing round (>= 1)")
+    p.add_argument("--sgp-samples", type=_at_least_one, default=8,
+                   metavar="M",
+                   help="SGP least-squares rows per node shard (>= 1; m < "
+                        "payload-dim keeps per-node problems "
+                        "under-determined so nodes genuinely disagree)")
+    p.add_argument("--loss-tol", type=_positive_float, default=1e-5,
+                   help="SGP loss-plateau tolerance: converge only when "
+                        "|delta mean train loss| <= this on top of the "
+                        "consensus predicate")
+    p.add_argument("--x64", action="store_true",
+                   help="push-sum state in float64 (the scatter "
+                        "deliveries; pallas, routed and megakernel route "
+                        "f32 lanes)")
     p.add_argument("--routed-design", choices=["pull", "push"], default=None,
                    help="sharded routed delivery variant (requires "
                         "--delivery routed or pallas with --devices N). "
@@ -489,6 +611,24 @@ def _slice_flag(args):
     return None
 
 
+def _workload_flag(args):
+    """The first flag of vector payloads, the learning workloads, clocks,
+    acceleration, float64 or the fanout-all scatter that ``args`` sets, or
+    None."""
+    for flag, given in (
+            ("--payload-dim", args.payload_dim != 1),
+            ("--workload", args.workload != "avg"),
+            ("--groups", args.groups != 1),
+            ("--clock", args.clock != "sync"),
+            ("--accel", args.accel != "off"),
+            ("--x64", args.x64),
+            ("--delivery scatter with --fanout all",
+             args.fanout == "all" and args.delivery == "scatter")):
+        if given:
+            return flag
+    return None
+
+
 def _check_sharding(args, cfg) -> None:
     """The JAX CLI's rejections of the sharding flags (its messages),
     raised as ValueError (exit 2), and the sharded runs not yet ported."""
@@ -496,6 +636,10 @@ def _check_sharding(args, cfg) -> None:
         NotPortedError, is_walk,
     )
 
+    if cfg.delivery == "invert" and args.devices > 1:
+        raise ValueError(
+            "delivery='invert' is single-chip only — drop --devices "
+            "or use delivery='scatter'")
     if args.devices > 1:
         flag = _slice_flag(args)
         if flag is not None:
@@ -503,6 +647,13 @@ def _check_sharding(args, cfg) -> None:
                 f"option not yet ported with --devices: {flag} (faults, "
                 "events, repair, checkpoints and the sentinel run on one "
                 "shard: drop --devices)")
+        flag = _workload_flag(args)
+        if flag is not None:
+            raise NotPortedError(
+                f"option not yet ported with --devices: {flag} (vector "
+                "payloads, the learning workloads, clocks, acceleration, "
+                "float64 and the fanout-all scatter run on one shard: "
+                "drop --devices)")
     if args.devices > 1 and is_walk(cfg):
         raise ValueError(
             "semantics='reference' push-sum is the single-token walk "
@@ -543,12 +694,14 @@ def main(argv=None) -> int:
     bad = _unported(argv)
     if bad is not None:
         print(f"option not yet ported: {bad} (the PyTorch port runs "
-              "gossip and push-sum --fanout one --delivery scatter, "
+              "gossip and push-sum --fanout one --delivery scatter|invert, "
               "--semantics reference, push-sum --fanout all --delivery "
-              "pallas|routed|megakernel (with --devices S on one card), "
-              "faults, loss, events, repair, checkpoints and the sentinel, "
-              "--check and --backend; use python -m gossipprotocol_tpu for "
-              "the rest)", file=sys.stderr)
+              "scatter|pallas|routed|megakernel (pallas and routed with "
+              "--devices S on one card), faults, loss, events, repair, "
+              "checkpoints and the sentinel, vector payloads, SGP and "
+              "GALA, Poisson clocks, acceleration, --x64, --check and "
+              "--backend; use python -m gossipprotocol_tpu for the rest)",
+              file=sys.stderr)
         return 2
     try:
         args = build_parser().parse_args(argv)
@@ -562,8 +715,8 @@ def main(argv=None) -> int:
         return 2
 
     from gossipprotocol_tpu_torch.engine.driver import (
-        DELIVERIES, NotPortedError, RunConfig, resolve_device,
-        resume_simulation, run_simulation,
+        DELIVERIES, NotPortedError, RunConfig, require_invertible,
+        resolve_device, resume_simulation, run_simulation,
     )
     from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
     from gossipprotocol_tpu_torch.utils.metrics import (
@@ -650,13 +803,28 @@ def main(argv=None) -> int:
             checkpoint_dir=args.checkpoint_dir,
             fault_schedule=schedule, event_plan=event_plan,
             repair=args.repair, sentinel=args.sentinel,
+            edge_chunks=args.edge_chunks, payload_dim=args.payload_dim,
+            workload=args.workload, clock=args.clock,
+            activation_rate=args.activation_rate, groups=args.groups,
+            accel=args.accel, accel_lambda=args.accel_lambda, lr=args.lr,
+            local_steps=args.local_steps, sgp_samples=args.sgp_samples,
+            loss_tol=args.loss_tol,
+            dtype="float64" if args.x64 else "float32",
         )
+        if cfg.delivery == "invert":
+            # the engine's build-time precondition as a clean input error
+            require_invertible(topo)
         _check_sharding(args, cfg)
         if cfg.delivery in DELIVERIES and topo.implicit_full:
             raise ValueError(
                 f"delivery='{cfg.delivery}' needs an explicit edge list; "
                 "the complete graph has none (diffusion on K_n mixes in "
                 "one round via two reductions) — use delivery='scatter'")
+        if cfg.workload == "gala" and topo.num_nodes % cfg.groups:
+            raise ValueError(
+                f"--workload gala splits {topo.num_nodes} nodes into "
+                f"{cfg.groups} equal groups — the node count must be "
+                "divisible by --groups")
         if cfg.seed_node is not None \
                 and not 0 <= cfg.seed_node < topo.num_nodes:
             raise ValueError(

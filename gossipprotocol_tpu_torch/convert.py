@@ -3,7 +3,8 @@
 The system has no weights; what stands in for them is the protocol state
 and the tables the round reads. These converters take them as numpy
 arrays — for example the fields of a JAX-package ``GossipState``,
-``PushSumState`` or ``WalkState``, of its ``DenseNeighbors``, ``InvertedDense`` or
+``PushSumState``, ``SGPState``, ``AccelState`` or ``WalkState``, of an
+``SGPBundle``'s data, of its ``DenseNeighbors``, ``InvertedDense`` or
 ``CSRNeighbors``, or of a ``PallasDelivery`` or ``RoutedDelivery`` built
 with ``device=False`` —
 and place them on a torch device, checking shapes, types and index
@@ -32,15 +33,21 @@ from gossipprotocol_tpu_torch.protocols.state import (
 
 def state_from_numpy(s, w, ratio, streak, converged, alive, round,
                      device="cuda") -> PushSumState:
-    """A :class:`PushSumState` on ``device`` from its fields as numpy
-    (the scalar push-sum path: every field ``[n]``, ``round`` a scalar)."""
+    """A :class:`PushSumState` on ``device`` from its fields as numpy:
+    ``w`` float32 or float64 ``[n]``; ``s`` and ``ratio`` of ``w``'s dtype,
+    ``[n]`` or an ``[n, d]`` vector payload; ``round`` a scalar."""
     dev = resolve_device(device)
     s, w, ratio = (np.ascontiguousarray(a) for a in (s, w, ratio))
-    n = s.shape[0]
-    for name, a in (("s", s), ("w", w), ("ratio", ratio)):
-        if a.shape != (n,) or a.dtype != np.float32:
-            raise ValueError(f"state field {name}: expected float32 [{n}], "
-                             f"got {a.dtype} {a.shape}")
+    n = w.shape[0]
+    if w.shape != (n,) or w.dtype not in (np.float32, np.float64):
+        raise ValueError(f"state field w: expected float32 or float64 "
+                         f"[{n}], got {w.dtype} {w.shape}")
+    for name, a in (("s", s), ("ratio", ratio)):
+        if a.dtype != w.dtype or a.shape[:1] != (n,) or a.ndim > 2 \
+                or a.shape != s.shape:
+            raise ValueError(f"state field {name}: expected {w.dtype} "
+                             f"[{n}] or [{n}, d] like s, got {a.dtype} "
+                             f"{a.shape}")
     streak = np.asarray(streak)
     converged = np.asarray(converged)
     alive = np.asarray(alive)
@@ -55,6 +62,74 @@ def state_from_numpy(s, w, ratio, streak, converged, alive, round,
         alive=torch.from_numpy(alive.astype(bool)).to(dev),
         round=torch.tensor(int(round), dtype=torch.int32, device=dev),
     )
+
+
+def sgp_state_from_numpy(s, w, ratio, streak, converged, alive, round, loss,
+                         device="cuda"):
+    """A :class:`~gossipprotocol_tpu_torch.protocols.state.SGPState` on
+    ``device``: the push-sum fields as for :func:`state_from_numpy` (``s``
+    and ``ratio`` ``[n, d]``) and the float32 scalar ``loss``."""
+    from gossipprotocol_tpu_torch.protocols.state import SGPState
+
+    node = state_from_numpy(s, w, ratio, streak, converged, alive, round,
+                            device=device)
+    if node.s.dim() != 2:
+        raise ValueError(f"SGP state field s: expected [n, d], got "
+                         f"{tuple(node.s.shape)}")
+    loss = np.asarray(loss)
+    if loss.shape != () or loss.dtype != np.float32:
+        raise ValueError(f"SGP loss: expected a float32 scalar, got "
+                         f"{loss.dtype} {loss.shape}")
+    return SGPState(**node._asdict(),
+                    loss=torch.tensor(float(loss), dtype=torch.float32,
+                                      device=node.s.device))
+
+
+def accel_state_from_numpy(s, w, ratio, streak, converged, alive, round,
+                           s_prev, w_prev, omega, device="cuda"):
+    """An :class:`~gossipprotocol_tpu_torch.protocols.state.AccelState` on
+    ``device``: the push-sum fields as for :func:`state_from_numpy`, the
+    previous iterate ``s_prev``/``w_prev`` shaped and typed like ``s``/``w``
+    and the scalar ``omega`` in the state's dtype."""
+    from gossipprotocol_tpu_torch.protocols.state import AccelState
+
+    node = state_from_numpy(s, w, ratio, streak, converged, alive, round,
+                            device=device)
+    s_prev, w_prev = np.ascontiguousarray(s_prev), np.ascontiguousarray(w_prev)
+    omega = np.asarray(omega)
+    np_dt = node.w.cpu().numpy().dtype
+    for name, a, like in (("s_prev", s_prev, node.s), ("w_prev", w_prev,
+                                                      node.w)):
+        if a.dtype != np_dt or a.shape != tuple(like.shape):
+            raise ValueError(f"accel state field {name}: expected {np_dt} "
+                             f"{tuple(like.shape)}, got {a.dtype} {a.shape}")
+    if omega.shape != () or omega.dtype != np_dt:
+        raise ValueError(f"accel omega: expected a {np_dt} scalar, got "
+                         f"{omega.dtype} {omega.shape}")
+    dev = node.s.device
+    return AccelState(**node._asdict(),
+                      s_prev=torch.from_numpy(s_prev.copy()).to(dev),
+                      w_prev=torch.from_numpy(w_prev.copy()).to(dev),
+                      omega=torch.from_numpy(omega.copy()).to(dev))
+
+
+def sgp_bundle_from_numpy(nbrs, A, b, device="cuda"):
+    """An :class:`~gossipprotocol_tpu_torch.learn.SGPBundle` on
+    ``device``: ``nbrs`` the mixing core's arrays, already placed (or None
+    for the implicit complete graph), and the data shards ``A`` ``[n, m,
+    d]`` and ``b`` ``[n, m]`` of one float dtype."""
+    from gossipprotocol_tpu_torch.learn import SGPBundle
+
+    dev = resolve_device(device)
+    A, b = np.ascontiguousarray(A), np.ascontiguousarray(b)
+    if A.ndim != 3 or A.dtype not in (np.float32, np.float64):
+        raise ValueError(f"SGP data A: expected float32 or float64 "
+                         f"[n, m, d], got {A.dtype} {A.shape}")
+    if b.shape != A.shape[:2] or b.dtype != A.dtype:
+        raise ValueError(f"SGP data b: expected {A.dtype} {A.shape[:2]}, "
+                         f"got {b.dtype} {b.shape}")
+    return SGPBundle(nbrs=nbrs, A=torch.from_numpy(A.copy()).to(dev),
+                     b=torch.from_numpy(b.copy()).to(dev))
 
 
 def walk_state_from_numpy(s, w, ratio, streak, converged, alive, round,

@@ -1,9 +1,13 @@
 """Experiment driver + convergence supervisor (port of the subset of
 ``gossipprotocol_tpu/engine/driver.py`` that the ported paths read:
 gossip and fanout-one push-sum over the scatter delivery — the
-reference's own ``N topology algorithm`` surface — and fanout-all
-push-sum over the fused gather delivery, the Clos-routed delivery and
-the K-round megakernel; and the reference semantics, ``semantics=
+reference's own ``N topology algorithm`` surface — and its gather-
+inverted ``invert`` delivery; fanout-all push-sum over the edge-list
+scatter, the fused gather delivery, the Clos-routed delivery and the
+K-round megakernel; vector payloads (``payload_dim``), float64 state
+(``dtype``), Poisson clocks (``clock``), the learning workloads
+(``workload``: SGP and GALA, ``learn/``) and acceleration (``accel``,
+``protocols/accel.py``); and the reference semantics, ``semantics=
 "reference"``: gossip at threshold + 1, push-sum as the single-token walk
 of ``protocols/walk.py``, and the quorum supervisor ``alert_quorum``).
 
@@ -47,9 +51,10 @@ back. Loss windows are device events inside the drawing rounds. The
 JAX engine's telemetry, round budgets and drain are not ported here.
 
 What is not yet ported exits as a :class:`NotPortedError` naming itself:
-the ``invert`` delivery, the fanout-all ``scatter`` delivery, the sharded
-pull design, telemetry, sweeps; and every flag of faults, events, repair,
-checkpoints and the sentinel under the sharded engine (``--devices``).
+the sharded pull design, telemetry, sweeps, float64 state on the
+reference walk; and under the sharded engine (``--devices``) every flag
+of faults, events, repair, checkpoints, the sentinel, vector payloads,
+the learning workloads, clocks, acceleration and float64.
 """
 
 from __future__ import annotations
@@ -76,7 +81,8 @@ from gossipprotocol_tpu_torch.protocols.sampling import (
     key_data, round_keys, use_dense,
 )
 from gossipprotocol_tpu_torch.protocols.state import (
-    GossipState, PushSumState, gossip_init, pushsum_init,
+    DTYPES, GossipState, PushSumState, gossip_init, pushsum_init,
+    pushsum_payload_values, torch_dtype,
 )
 from gossipprotocol_tpu_torch.topology.base import Topology
 
@@ -139,10 +145,35 @@ class RunConfig:
     tol: float = 1e-4              # global-predicate tolerance
     fanout: str = "one"            # push-sum sender: "one" (a random
                                    # neighbour) | "all" (diffusion)
-    delivery: str = "scatter"      # "scatter" for gossip and fanout one;
-                                   # fanout all: "pallas" | "routed" |
-                                   # "megakernel"
+    delivery: str = "scatter"      # fanout one: "scatter" | "invert" (the
+                                   # receivers recompute the draws);
+                                   # fanout all: "scatter" | "pallas" |
+                                   # "routed" | "megakernel"
+    edge_chunks: int = 1           # fanout-all scatter: deliver in this
+                                   # many sequential edge slices
     value_mode: str = "scaled"     # push-sum init: "scaled" (i/N) | "index" (i)
+    payload_dim: int = 1           # push-sum payload width d: 1 = the
+                                   # scalar (s, w) protocol; d > 1 rides an
+                                   # [n, d] payload (w stays per node)
+    workload: str = "avg"          # "avg" | "sgp" (Stochastic Gradient
+                                   # Push on a least-squares shard per
+                                   # node) | "gala" (learner groups)
+    clock: str = "sync"            # "sync" | "poisson" (a node sends iff
+                                   # its rate-r clock ticked this round)
+    activation_rate: float = 1.0   # poisson clock rate r: per-round
+                                   # activation probability 1 - exp(-r)
+    groups: int = 1                # GALA learner groups (workload="gala")
+    accel: str = "off"             # fanout-all scatter acceleration: "off" |
+                                   # "chebyshev" | "epd"
+    accel_lambda: Optional[float] = None  # Chebyshev γ = |λ₂(W)| in (0, 1);
+                                   # None = host power-iteration estimate
+    lr: float = 0.05               # SGP local gradient step size
+    local_steps: int = 1           # SGP gradient steps per gossip round
+    sgp_samples: int = 8           # SGP least-squares rows per node shard
+    loss_tol: float = 1e-5         # SGP loss plateau: converge only when
+                                   # |Δ mean loss| <= loss_tol as well
+    dtype: str = "float32"         # push-sum state: "float32" | "float64"
+                                   # (--x64; the scatter paths)
     max_rounds: int = 1_000_000
     chunk_rounds: Optional[int] = None  # None = DEFAULT_CHUNK_ROUNDS
     rounds_per_kernel: int = 1     # rounds per megakernel launch (K)
@@ -276,6 +307,43 @@ class RunConfig:
                 f"delivery='{self.delivery}' compiles a static "
                 "routing plan and cannot apply per-edge drop masks "
                 "through it; use delivery='scatter' for loss windows")
+        if self.edge_chunks < 1:
+            raise ValueError("edge_chunks must be >= 1")
+        if self.edge_chunks > 1 and not (
+                self.algorithm == "push-sum" and self.fanout == "all"):
+            raise ValueError(
+                "edge_chunks applies to fanout-all diffusion only (the "
+                "other senders have no per-edge intermediates to slice)")
+        if self.edge_chunks > 1 and self.delivery in DELIVERIES:
+            raise ValueError(
+                "edge_chunks applies to the scatter delivery; the routed "
+                "and pallas plans stream at fixed memory already")
+        if self.dtype not in DTYPES:
+            raise ValueError("dtype must be 'float32' or 'float64'")
+        if self.delivery in DELIVERIES and self.dtype != "float32":
+            raise ValueError(
+                f"delivery='{self.delivery}' routes f32 lane pairs; "
+                "use delivery='scatter' for float64 runs")
+        if use_megakernel(self):
+            # the in-kernel round loop replays the all-alive synchronous
+            # scalar averaging round only
+            if self.clock != "sync":
+                raise ValueError(
+                    "the round-loop megakernel replays the synchronous "
+                    "round in-register; poisson activation draws fresh "
+                    "masks per round — use clock='sync' or "
+                    "rounds_per_kernel=1")
+            if self.payload_dim != 1:
+                raise ValueError(
+                    "the round-loop megakernel carries the scalar (s, w) "
+                    "state in VMEM; vector payloads need the per-round "
+                    "pallas path — use delivery='pallas' with "
+                    "rounds_per_kernel=1")
+            if self.workload != "avg":
+                raise ValueError(
+                    "the round-loop megakernel fuses the plain averaging "
+                    "round; SGP/GALA inject gradient mass between rounds "
+                    "— use delivery='pallas' with rounds_per_kernel=1")
         if use_megakernel(self) and (sched or plan
                                      or self.repair != "off"):
             raise ValueError(
@@ -327,15 +395,14 @@ class RunConfig:
                     "only (gossip picks its inverted delivery "
                     "automatically; diffusion walks every edge and has "
                     "nothing to invert)")
-            raise NotPortedError(
-                "option not yet ported: --delivery invert (push-sum "
-                "--fanout one runs --delivery scatter)")
-        if (self.algorithm == "push-sum" and self.fanout == "all"
-                and self.delivery == "scatter"):
-            raise NotPortedError(
-                "option not yet ported: --delivery scatter with --fanout "
-                "all (fanout-all push-sum runs --delivery pallas, routed "
-                "and megakernel)")
+            if sched or plan:
+                raise ValueError(
+                    "delivery='invert' is exact only while no node can die "
+                    "mid-run, every send lands, and the adjacency never "
+                    "changes (receivers recompute senders' draws against "
+                    "the compiled graph); drop the fault schedule / event "
+                    "plan or use delivery='scatter'")
+        self._check_workloads(sched, plan, ref)
         if self.threshold < 1:
             raise ValueError("threshold must be >= 1")
         if self.rounds_per_kernel < 1:
@@ -389,6 +456,147 @@ class RunConfig:
             raise ValueError("streak_target must be >= 1")
         if self.chunk_rounds is not None and self.chunk_rounds < 1:
             raise ValueError("chunk_rounds must be >= 1")
+
+    def _check_workloads(self, sched, plan, ref: bool) -> None:
+        """The JAX package's checks of vector payloads, clocks, the
+        learning workloads and acceleration (its messages)."""
+        if self.payload_dim < 1:
+            raise ValueError("payload_dim must be >= 1")
+        if self.payload_dim > 1:
+            if self.algorithm != "push-sum" or ref:
+                raise ValueError(
+                    "payload_dim > 1 rides push-sum's (s, w) state under "
+                    "intended semantics; gossip and the reference replay "
+                    "are scalar protocols")
+            if self.delivery == "invert":
+                raise ValueError(
+                    "delivery='invert' recomputes senders' scalar draws "
+                    "and is scalar-payload only; use 'scatter' or 'routed' "
+                    "for payload_dim > 1")
+        if self.workload not in ("avg", "sgp", "gala"):
+            raise ValueError("workload must be 'avg', 'sgp', or 'gala'")
+        if self.clock not in ("sync", "poisson"):
+            raise ValueError("clock must be 'sync' or 'poisson'")
+        if self.activation_rate <= 0:
+            raise ValueError(
+                "activation_rate is a Poisson clock rate and must be > 0")
+        if self.clock == "poisson":
+            if self.accel != "off":
+                raise ValueError(
+                    "clock='poisson' gates senders per round; the "
+                    "accelerated schemes assume the *fixed* mixing matrix "
+                    "W every iteration — run them under clock='sync'")
+            if ref:
+                raise ValueError(
+                    "clock='poisson' models continuous-time activation; "
+                    "semantics='reference' replays the F# baseline's "
+                    "synchronous accident and must stay clock='sync'")
+            if self.delivery == "invert":
+                raise ValueError(
+                    "delivery='invert' reconstructs deliveries assuming "
+                    "every eligible sender sent; a poisson clock idles "
+                    "senders every round — use delivery='scatter'")
+        if self.groups < 1:
+            raise ValueError("groups must be >= 1")
+        if self.groups > 1 and self.workload != "gala":
+            raise ValueError(
+                "groups partitions nodes into GALA learner groups; it "
+                "requires workload='gala'")
+        if self.workload == "gala":
+            if self.groups < 2:
+                raise ValueError(
+                    "workload='gala' needs at least 2 learner groups "
+                    "(groups=1 is plain SGP — use workload='sgp')")
+            if self.algorithm != "push-sum" or ref:
+                raise ValueError(
+                    "workload='gala' mixes between groups by push-sum "
+                    "gossip: it requires algorithm='push-sum' with "
+                    "intended semantics")
+            if self.predicate != "global":
+                raise ValueError(
+                    "workload='gala' certifies inter-group consensus, "
+                    "which is the 'global' predicate")
+            if self.accel != "off":
+                raise ValueError(
+                    "workload='gala' re-injects mass every round (local "
+                    "gradient steps + group averaging); the accelerated "
+                    "schemes assume a fixed linear iteration")
+            if self.delivery != "scatter":
+                raise ValueError(
+                    "workload='gala' supports delivery='scatter' (same "
+                    "contract as workload='sgp')")
+            if sched or plan:
+                raise ValueError(
+                    "workload='gala' keeps groups exactly synchronized "
+                    "by intra-group averaging; fault strikes, loss "
+                    "windows and topology events are not modeled for it "
+                    "yet — drop the fault schedule / event plan")
+        if self.accel not in ("off", "chebyshev", "epd"):
+            raise ValueError("accel must be 'off', 'chebyshev', or 'epd'")
+        if self.lr <= 0:
+            raise ValueError("lr must be > 0")
+        if self.local_steps < 1:
+            raise ValueError("local_steps must be >= 1")
+        if self.sgp_samples < 1:
+            raise ValueError("sgp_samples must be >= 1")
+        if self.loss_tol <= 0:
+            raise ValueError("loss_tol must be > 0")
+        if self.workload == "sgp":
+            if self.algorithm != "push-sum" or ref:
+                raise ValueError(
+                    "workload='sgp' is Stochastic Gradient *Push*: it "
+                    "requires algorithm='push-sum' with intended semantics")
+            if self.predicate != "global":
+                raise ValueError(
+                    "workload='sgp' certifies consensus distance, which is "
+                    "the 'global' predicate; the local 'delta' rule would "
+                    "fire while gradients still move the mean")
+            if self.accel != "off":
+                raise ValueError(
+                    "workload='sgp' re-injects mass every round (gradient "
+                    "steps); the accelerated two-buffer schemes assume a "
+                    "fixed linear iteration — run them on workload='avg'")
+            if self.delivery not in ("scatter", "routed", "pallas"):
+                raise ValueError(
+                    "workload='sgp' supports delivery='scatter', "
+                    "'routed', or 'pallas' (the fanout-all plans ride "
+                    "the d-dim payload through matvec_payload; invert is "
+                    "scalar-only and the megakernel fuses the scalar "
+                    "averaging round)")
+        if self.accel != "off":
+            if self.algorithm != "push-sum" or self.fanout != "all":
+                raise ValueError(
+                    "accel applies to fanout-all diffusion push-sum: the "
+                    "polynomial schemes accelerate a fixed mixing matrix W, "
+                    "which only the diffusion sender applies")
+            if self.delivery != "scatter":
+                raise ValueError(
+                    "accel currently runs on delivery='scatter' (the "
+                    "two-buffer combination wraps the scatter diffusion "
+                    "mix)")
+            if sched:
+                raise ValueError(
+                    "accel assumes a *fixed* mixing matrix: Chebyshev/EPD "
+                    "coefficient schedules are invalid the moment a strike "
+                    "or loss window rewrites W mid-run; drop the fault "
+                    "schedule or use accel='off'")
+            if self.repair != "off":
+                raise ValueError(
+                    "accel assumes a fixed mixing matrix; repair rewrites "
+                    "the adjacency mid-run")
+            if plan:
+                raise ValueError(
+                    "accel assumes a fixed mixing matrix; an event plan "
+                    "rewrites the adjacency mid-run")
+        if self.accel_lambda is not None and not (
+                0.0 < self.accel_lambda < 1.0):
+            raise ValueError(
+                "accel_lambda is a spectral bound γ = |λ₂(W)| and must lie "
+                "strictly in (0, 1)")
+        if ref and self.algorithm == "push-sum" and self.dtype != "float32":
+            raise NotPortedError(
+                "option not yet ported: --x64 with --semantics reference "
+                "push-sum (the walk runs float32)")
 
     @property
     def chunk(self) -> int:
@@ -497,9 +705,12 @@ def gossip_inversion_enabled(topo: Topology, cfg: RunConfig) -> bool:
     inverted branch is decided at run time (:class:`GossipCore`). A run
     with loss windows never inverts: the JAX engine's per-round legality
     adds "no loss this round", and both branches give the same hits
-    wherever it holds, so the scatter alone is the same trajectory."""
+    wherever it holds, so the scatter alone is the same trajectory. Nor
+    does a run under a Poisson clock (idle spreaders break legality every
+    round; the JAX package's rule)."""
     return (cfg.algorithm == "gossip" and not topo.asymmetric
             and use_dense(topo) and not cfg.schedule.has_loss
+            and cfg.clock == "sync"
             and torch.device(cfg.device).type == "cpu")
 
 
@@ -534,9 +745,10 @@ class GossipCore:
 
     def __init__(self, *, n: int, threshold: int, keep_alive: bool,
                  all_alive: bool, invertible: bool,
-                 loss_windows: tuple = ()):
+                 loss_windows: tuple = (), clock: tuple = ()):
         self.opts = dict(n=n, threshold=threshold, keep_alive=keep_alive,
-                         all_alive=all_alive, loss_windows=loss_windows)
+                         all_alive=all_alive, loss_windows=loss_windows,
+                         clock=clock)
         self.invertible = invertible
         self.inverted = False
 
@@ -565,9 +777,58 @@ class GossipCore:
 
 
 def draws(cfg: RunConfig) -> bool:
-    """Does the round draw from the device RNG (gossip, fanout one)? Its
-    round core then takes the round key as a third argument."""
-    return cfg.algorithm == "gossip" or cfg.fanout == "one"
+    """Does the round draw from the device RNG (gossip, fanout one, a
+    Poisson clock, loss windows on the fanout-all scatter)? Its round core
+    then takes the round key as a third argument."""
+    return (cfg.algorithm == "gossip" or cfg.fanout == "one"
+            or cfg.clock == "poisson"
+            or (cfg.delivery == "scatter" and cfg.schedule.has_loss))
+
+
+def run_clock_spec(topo: Topology, cfg: RunConfig) -> tuple:
+    """The run's clock spec: ``()`` for the synchronous clock, else
+    ``(rate, id_div)`` with ``id_div`` the GALA group size under
+    ``workload='gala'`` (a group shares one clock), 1 otherwise."""
+    if cfg.clock == "sync":
+        return ()
+    from gossipprotocol_tpu_torch.async_ import clock_spec
+
+    id_div = 1
+    if cfg.workload == "gala":
+        if topo.num_nodes % cfg.groups:
+            raise ValueError(
+                f"workload='gala' splits {topo.num_nodes} nodes into "
+                f"{cfg.groups} equal groups — nodes must be divisible "
+                "by groups")
+        id_div = topo.num_nodes // cfg.groups
+    return clock_spec(cfg.clock, cfg.activation_rate, id_div=id_div)
+
+
+def require_invertible(topo: Topology) -> None:
+    """``delivery='invert'`` needs the dense neighbour table of a
+    symmetric graph; raises ValueError naming what is missing (the JAX
+    package's messages)."""
+    from gossipprotocol_tpu_torch.protocols.sampling import (
+        DENSE_MAX_DEGREE, use_dense,
+    )
+
+    if topo.asymmetric:
+        raise ValueError(
+            "delivery='invert' needs a symmetric simple graph; this "
+            "reference-quirks topology carries directed/self/duplicate "
+            "entries — use delivery='scatter'")
+    if use_dense(topo):
+        return
+    if topo.implicit_full:
+        why = ("the implicit complete graph has no neighbor table to "
+               "invert (neighbors are sampled, never materialized)")
+    else:
+        why = (f"max degree {int(topo.degree.max())} exceeds "
+               f"DENSE_MAX_DEGREE={DENSE_MAX_DEGREE} (hub graphs keep "
+               "the CSR path)")
+    raise ValueError(
+        f"delivery='invert' needs the dense neighbor table: {why} — "
+        "use delivery='scatter'")
 
 
 def build_protocol(topo: Topology, cfg: RunConfig,
@@ -589,7 +850,13 @@ def build_protocol(topo: Topology, cfg: RunConfig,
     (:func:`is_walk`) has no per-round core (None): its chunk runner
     (``protocols/walk.py``) is built in :func:`run_simulation`. With
     ``alert_quorum`` the run is done once that many rows are settled
-    (converged or not alive)."""
+    (converged or not alive).
+
+    ``accel`` swaps the state for :class:`~gossipprotocol_tpu_torch.
+    protocols.state.AccelState` and the round for the accelerated one;
+    ``workload='sgp'``/``'gala'`` keeps the mixing core and wraps it
+    (``learn/``), with an :class:`~gossipprotocol_tpu_torch.learn.
+    SGPBundle` in the neighbour slot (:func:`device_arrays`)."""
     dev = resolve_device(cfg.device)
     ref = cfg.semantics == "reference"
     n = topo.num_nodes
@@ -599,6 +866,8 @@ def build_protocol(topo: Topology, cfg: RunConfig,
     # fast paths away; loss windows drop messages, never nodes
     strikes = sched.has_strikes
     loss_windows = sched.static_loss_windows()
+    clock = run_clock_spec(topo, cfg)
+    dt = torch_dtype(cfg.dtype)
     all_alive = allow_all_alive and not strikes and alive0 is None
     targets_alive = allow_all_alive and not strikes
     core = None
@@ -617,7 +886,7 @@ def build_protocol(topo: Topology, cfg: RunConfig,
                           keep_alive=effective_keep_alive(topo, cfg),
                           all_alive=all_alive,
                           invertible=gossip_inversion_enabled(topo, cfg),
-                          loss_windows=loss_windows)
+                          loss_windows=loss_windows, clock=clock)
     elif is_walk(cfg):
         from gossipprotocol_tpu_torch.protocols.walk import (
             pushsum_walk_init,
@@ -633,27 +902,57 @@ def build_protocol(topo: Topology, cfg: RunConfig,
                                   value_mode=cfg.value_mode, device=dev)
         done_fn = pushsum_done
     else:
-        state = pushsum_init(n, value_mode=cfg.value_mode, device=dev)
+        state = pushsum_init(n, value_mode=cfg.value_mode, device=dev,
+                             dtype=dt, payload_dim=cfg.payload_dim)
         done_fn = pushsum_done
+    if cfg.algorithm == "push-sum" and not is_walk(cfg):
+        state, core = _pushsum_core(topo, cfg, state, all_alive,
+                                    targets_alive, loss_windows, clock)
     if alive0 is not None:
         state = state._replace(
             alive=state.alive & torch.from_numpy(np.array(alive0)).to(dev))
     if cfg.alert_quorum is not None:
         done_fn = quorum_done(cfg.alert_quorum)
-    if cfg.algorithm == "gossip" or is_walk(cfg):
-        return state, core, done_fn, (all_alive, targets_alive)
+    return state, core, done_fn, (all_alive, targets_alive)
 
-    if cfg.fanout == "one":
+
+def _pushsum_core(topo: Topology, cfg: RunConfig, state, all_alive: bool,
+                  targets_alive: bool, loss_windows: tuple, clock: tuple):
+    """``(state, round core)`` of intended push-sum: the sender and
+    delivery of ``cfg``, accelerated or wrapped by a learner."""
+    n = topo.num_nodes
+    dev = state.w.device
+    pred = dict(eps=cfg.eps, streak_target=cfg.streak_target,
+                predicate=cfg.predicate, tol=cfg.tol, all_alive=all_alive,
+                targets_alive=targets_alive)
+    if cfg.accel != "off":
+        from gossipprotocol_tpu_torch.protocols.accel import (
+            accel_init, accel_round, estimate_gamma,
+        )
+
+        state = accel_init(n, value_mode=cfg.value_mode, device=dev,
+                           dtype=cfg.dtype, payload_dim=cfg.payload_dim)
+        gamma = 0.0
+        if cfg.accel == "chebyshev":
+            gamma = (cfg.accel_lambda if cfg.accel_lambda is not None
+                     else estimate_gamma(topo))
+
+        def core(st, nbrs, key=None):
+            return accel_round(st, nbrs, key, n=n, variant=cfg.accel,
+                               gamma=float(gamma),
+                               edge_chunks=cfg.edge_chunks, **pred)
+    elif cfg.fanout == "one":
+        if cfg.delivery == "invert" and not targets_alive:
+            raise ValueError(
+                "delivery='invert' is exact only while the dead set "
+                "is component-closed (no fault plan, no resumed "
+                "arbitrary dead set) — use delivery='scatter'")
+
         def core(st, nbrs, key):
             return pushsum_round_core(
-                st, nbrs, key, n=n, eps=cfg.eps,
-                streak_target=cfg.streak_target, predicate=cfg.predicate,
-                tol=cfg.tol, all_alive=all_alive,
-                targets_alive=targets_alive, loss_windows=loss_windows)
-
-        return state, core, done_fn, (all_alive, targets_alive)
-
-    if use_megakernel(cfg):
+                st, nbrs, key, n=n, loss_windows=loss_windows, clock=clock,
+                delivery=cfg.delivery, **pred)
+    elif use_megakernel(cfg):
         from gossipprotocol_tpu_torch.ops.megakernel import (
             make_megakernel_round,
         )
@@ -668,15 +967,50 @@ def build_protocol(topo: Topology, cfg: RunConfig,
             n=n, rounds_per_kernel=cfg.rounds_per_kernel,
             eps=cfg.eps, streak_target=cfg.streak_target,
             predicate=cfg.predicate, tol=cfg.tol)
-        return state, core, done_fn, (all_alive, targets_alive)
+    elif cfg.delivery == "scatter":
+        from gossipprotocol_tpu_torch.protocols.diffusion import (
+            pushsum_diffusion_round,
+        )
 
-    def round_core(st, delivery):
-        return pushsum_diffusion_round_routed(
-            st, delivery, eps=cfg.eps, streak_target=cfg.streak_target,
-            predicate=cfg.predicate, tol=cfg.tol, all_alive=all_alive,
-            targets_alive=targets_alive)
+        if loss_windows and topo.implicit_full:
+            raise ValueError(
+                "per-edge loss windows need an explicit edge list; "
+                "the implicit complete graph's diffusion is two "
+                "reductions with no edges to mask — materialize the "
+                "topology or drop the loss windows")
 
-    return state, round_core, done_fn, (all_alive, targets_alive)
+        def core(st, nbrs, key=None):
+            return pushsum_diffusion_round(
+                st, nbrs, key, n=n, edge_chunks=cfg.edge_chunks,
+                loss_windows=loss_windows, clock=clock, **pred)
+    else:
+        def core(st, delivery, key=None):
+            return pushsum_diffusion_round_routed(st, delivery, key,
+                                                  clock=clock, **pred)
+    if cfg.workload in ("sgp", "gala"):
+        from gossipprotocol_tpu_torch.learn import (
+            make_gala_core, make_sgp_core, sgp_init,
+        )
+
+        # the mixing core is reused as it is; only the state swaps (x₀ = 0
+        # plus the loss) and the round gains the gradient step and the
+        # loss-plateau gate
+        state = sgp_init(n, cfg.payload_dim, device=dev, dtype=cfg.dtype)
+        if cfg.workload == "sgp":
+            core = make_sgp_core(core, lr=cfg.lr,
+                                 local_steps=cfg.local_steps,
+                                 loss_tol=cfg.loss_tol)
+        else:
+            if n % cfg.groups:
+                raise ValueError(
+                    f"workload='gala' splits {n} nodes into "
+                    f"{cfg.groups} equal groups — nodes must be "
+                    "divisible by groups")
+            core = make_gala_core(core, num_groups=cfg.groups,
+                                  group_size=n // cfg.groups, lr=cfg.lr,
+                                  local_steps=cfg.local_steps,
+                                  loss_tol=cfg.loss_tol)
+    return state, core
 
 
 def quorum_done(quorum: int):
@@ -713,26 +1047,52 @@ def walk_start_node(topo: Topology, cfg: RunConfig) -> int:
 
 def device_arrays(topo: Topology, cfg: RunConfig):
     """What the round reads, placed on the run's device: for the drawing
-    rounds the neighbor arrays (gossip's with the inversion tables when
-    :func:`gossip_inversion_enabled`); else the delivery, through the
-    plan cache (``cfg.plan_cache``): the routed plans for
+    senders the neighbor arrays (gossip's with the inversion tables when
+    :func:`gossip_inversion_enabled`, ``delivery='invert'``'s always);
+    for the fanout-all scatter the edge list; else the delivery, through
+    the plan cache (``cfg.plan_cache``): the routed plans for
     ``delivery='routed'``, else the fused gather plan, under
     :func:`use_megakernel` wrapped for the K-round kernel, whose
-    eligibility (resident gathers) is checked here, before any launch."""
+    eligibility (resident gathers) is checked here, before any launch.
+    The learning workloads wrap these with the nodes' data shards in an
+    :class:`~gossipprotocol_tpu_torch.learn.SGPBundle`."""
     from gossipprotocol_tpu_torch.ops.plancache import (
         pallas_delivery_cached, routed_delivery_cached,
     )
 
     dev = resolve_device(cfg.device)
-    if draws(cfg):
+    if cfg.algorithm == "push-sum" and cfg.workload in ("sgp", "gala"):
+        from gossipprotocol_tpu_torch.learn import (
+            SGPBundle, make_least_squares,
+        )
+
+        # groups rides along with the workload: replace both, or the
+        # re-run checks reject groups > 1 without workload='gala'
+        inner = device_arrays(topo, dataclasses.replace(
+            cfg, workload="avg", groups=1))
+        a, b, _ = make_least_squares(
+            topo.num_nodes, cfg.payload_dim, cfg.sgp_samples, cfg.seed,
+            dtype=np.dtype(cfg.dtype))
+        return SGPBundle(nbrs=inner, A=torch.from_numpy(a).to(dev),
+                         b=torch.from_numpy(b).to(dev))
+    if cfg.algorithm == "gossip" or cfg.fanout == "one":
         from gossipprotocol_tpu_torch.protocols.gossip import inverted_dense
         from gossipprotocol_tpu_torch.protocols.sampling import (
             device_topology,
         )
 
+        if cfg.delivery == "invert":
+            require_invertible(topo)
+            return inverted_dense(topo, device=dev)
         if gossip_inversion_enabled(topo, cfg):
             return inverted_dense(topo, device=dev)
         return device_topology(topo, device=dev)
+    if cfg.delivery == "scatter":
+        from gossipprotocol_tpu_torch.protocols.diffusion import (
+            diffusion_edges,
+        )
+
+        return diffusion_edges(topo, device=dev)
     if cfg.delivery == "routed":
         rd, _prov = routed_delivery_cached(
             topo, cache_dir=cfg.plan_cache, device=dev)
@@ -753,13 +1113,27 @@ def _freeze(active: torch.Tensor, new, old):
     return type(new)(*(torch.where(active, a, b) for a, b in zip(new, old)))
 
 
+def _words(x: torch.Tensor) -> list:
+    """The bits of ``x`` as int32 device scalars (one a float32 value,
+    two a float64 one), to ride the chunk's one int32 fetch."""
+    return list(x.reshape(-1).contiguous().view(torch.int32))
+
+
+def _from_words(words, dtype) -> np.ndarray:
+    """The values whose bits :func:`_words` gave."""
+    return np.asarray(words, dtype=np.int32).view(np.dtype(dtype))
+
+
 def chunk_stats(state, done_fn, extra_stats=None,
                 delivery=None, sentinel_fn=None) -> torch.Tensor:
     """The chunk's verdict as ONE int32 device tensor (one host fetch):
-    ``[round, done, *extra_stats(state, delivery)]``, and with
-    ``sentinel_fn`` three more: the trip flag and the float32 bits of the
-    mass sums ``(Σs, Σw)`` (:func:`sentinel_words`)."""
+    ``[round, done, *extra_stats(state, delivery)]``; for a learning state
+    the float32 bits of its train loss; and with ``sentinel_fn`` the trip
+    flag and the bits of the mass sums (:func:`sentinel_words`; their
+    count is :func:`sentinel_width`)."""
     extra = [] if extra_stats is None else extra_stats(state, delivery)
+    if hasattr(state, "loss"):
+        extra = extra + _words(state.loss)
     if sentinel_fn is not None:
         extra = extra + sentinel_words(state, sentinel_fn)
     return torch.stack([state.round, done_fn(state).to(torch.int32),
@@ -856,15 +1230,32 @@ def _index(ids, device) -> torch.Tensor:
         device)
 
 
-def fresh_values(idx: torch.Tensor, num_nodes: int,
-                 value_mode: str) -> torch.Tensor:
+def fresh_values(idx: torch.Tensor, num_nodes: int, value_mode: str,
+                 like: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Push-sum's initial ``s`` of rows ``idx``, computed on the device as
     :func:`~gossipprotocol_tpu_torch.protocols.state.pushsum_init` computes
-    it: the id as float32, divided (IEEE, by a tensor) by ``num_nodes``
-    under ``value_mode='scaled'``."""
-    v = idx.to(torch.float32)
+    it: the id in the state's dtype, divided (IEEE, by a tensor) by
+    ``num_nodes`` under ``value_mode='scaled'``; for an ``[n, d]`` payload
+    (``like``, the state's ``s``) the rows of
+    :func:`~gossipprotocol_tpu_torch.protocols.state.pushsum_payload_values`,
+    and for a learning state the shared start x₀ = 0."""
+    dt = torch.float32 if like is None else like.dtype
+    if like is not None and like.dim() == 2:
+        return pushsum_payload_values(idx, num_nodes, like.shape[1],
+                                      value_mode, dt)
+    v = idx.to(dt)
     return v / torch.full_like(v, num_nodes) if value_mode == "scaled" \
         else v
+
+
+def _fresh_s(state, idx: torch.Tensor, cfg: RunConfig,
+             num_nodes: int) -> torch.Tensor:
+    """The fresh-born ``s`` of rows ``idx`` of ``state``: x₀ = 0 for a
+    learning state, else :func:`fresh_values`."""
+    if hasattr(state, "loss"):
+        return torch.zeros((idx.shape[0],) + tuple(state.s.shape[1:]),
+                           dtype=state.s.dtype, device=state.s.device)
+    return fresh_values(idx, num_nodes, cfg.value_mode, like=state.s)
 
 
 def revive_rows(state, ids, cfg: RunConfig, num_nodes: int):
@@ -872,13 +1263,14 @@ def revive_rows(state, ids, cfg: RunConfig, num_nodes: int):
     process restarting from its initial value: gossip rows drop to zero
     hearings, push-sum rows get their init ``(s, w)`` back (the values of
     :func:`fresh_values`, so a revived row is bitwise an initial row;
-    ``ratio = s`` as ``w == 1``). The stranded pre-death mass is
-    discarded. Callers flip ``alive`` separately."""
+    ``ratio = s`` as ``w == 1``; a learner restarts at x₀ = 0). The
+    stranded pre-death mass is discarded. Callers flip ``alive``
+    separately."""
     idx = _index(ids, state.alive.device)
     if isinstance(state, GossipState):
         return state._replace(counts=_put(state.counts, idx, 0),
                               converged=_put(state.converged, idx, False))
-    vals = fresh_values(idx, num_nodes, cfg.value_mode)
+    vals = _fresh_s(state, idx, cfg, num_nodes)
     streak0 = 1 if cfg.semantics == "reference" else 0
     return state._replace(
         s=_put(state.s, idx, vals), w=_put(state.w, idx, 1.0),
@@ -894,11 +1286,14 @@ SENTINEL_MASS_ULPS = 256.0
 
 def sentinel_bad_mask(state) -> torch.Tensor:
     """Per-row health predicate of the sentinel: an alive row is bad when
-    its ``s`` is non-finite, or ``w`` is non-finite or negative (``w ==
-    0`` is healthy: the receipt-dry-spell underflow, not a data fault).
-    Shared by the trip check and the host's offender identification."""
-    return state.alive & (~torch.isfinite(state.s) | ~torch.isfinite(state.w)
-                          | (state.w < 0))
+    its ``s`` has a non-finite component, or ``w`` is non-finite or
+    negative (``w == 0`` is healthy: the receipt-dry-spell underflow, not
+    a data fault). Shared by the trip check and the host's offender
+    identification."""
+    s_bad = ~torch.isfinite(state.s)
+    if s_bad.dim() == 2:
+        s_bad = torch.any(s_bad, dim=1)
+    return state.alive & (s_bad | ~torch.isfinite(state.w) | (state.w < 0))
 
 
 def make_sentinel_fn(cfg: RunConfig):
@@ -913,12 +1308,30 @@ def make_sentinel_fn(cfg: RunConfig):
 
 
 def sentinel_words(state, sentinel_fn) -> list:
-    """``[trip, bits(Σs), bits(Σw)]`` as int32 device scalars: the mass
-    sums ride the chunk's one int32 fetch as their float32 bit patterns."""
+    """``[trip, *bits(Σs), *bits(Σw)]`` as int32 device scalars: the mass
+    sums (per payload column) ride the chunk's one int32 fetch as their
+    bit patterns. A learning state carries the trip flag alone: its
+    gradient steps inject mass by design."""
     ms = mass_stats(state)
-    return [sentinel_fn(state).to(torch.int32),
-            ms["mass_s"].reshape(1).view(torch.int32)[0],
-            ms["mass_w"].reshape(1).view(torch.int32)[0]]
+    words = [sentinel_fn(state).to(torch.int32)]
+    if ms:
+        words += _words(ms["mass_s"]) + _words(ms["mass_w"])
+    return words
+
+
+def sentinel_width(state) -> int:
+    """How many int32 words :func:`sentinel_words` gives for ``state``."""
+    if not mass_stats_tracked(state):
+        return 1
+    per_value = state.w.element_size() // 4
+    cols = state.s.shape[1] if state.s.dim() == 2 else 1
+    return 1 + per_value * (cols + 1)
+
+
+def mass_stats_tracked(state) -> bool:
+    """Is the push-sum mass a conserved quantity of ``state``? Not for
+    gossip, nor for the learning states (their gradient steps move it)."""
+    return hasattr(state, "s") and not hasattr(state, "loss")
 
 
 def quarantine_rows(state, ids):
@@ -943,17 +1356,19 @@ def inject_value_fault(state, ids, spec, cfg: RunConfig, num_nodes: int):
     if model == "inf":
         return state._replace(s=_put(state.s, idx, float("inf")))
     if model == "scale":
-        k = float(np.float32(spec.scale_factor()))
+        k = float(np.asarray(spec.scale_factor(),
+                             dtype=str(state.s.dtype).split(".")[-1]))
         return state._replace(s=_put(state.s, idx, state.s[idx] * k))
     return state._replace(
-        s=_put(state.s, idx, fresh_values(idx, num_nodes, cfg.value_mode)))
+        s=_put(state.s, idx, _fresh_s(state, idx, cfg, num_nodes)))
 
 
 def mass_stats(state) -> dict:
-    """Total push-sum mass ``(Σs, Σw)`` over every row, in float32 on the
-    device (the chunk's reduction, so a baseline taken by a no-op chunk
-    drifts by exactly 0 ULPs on a lossless run); empty for gossip."""
-    if not hasattr(state, "s"):
+    """Total push-sum mass ``(Σs, Σw)`` over every row (``Σs`` per payload
+    column), in the state's dtype on the device (the chunk's reduction, so
+    a baseline taken by a no-op chunk drifts by exactly 0 ULPs on a
+    lossless run); empty for gossip and the learning states."""
+    if not mass_stats_tracked(state):
         return {}
     return {"mass_s": sum0(state.s), "mass_w": sum0(state.w)}
 
@@ -1060,8 +1475,19 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
         if observe is not None:
             observe(noop_stats()[2:])
 
+    # the chunk stats' layout: [round, done, *extra, loss?, *sentinel]
+    has_loss = hasattr(state, "loss")
+    tail = sentinel_width(state) if sentinel_on else 0
+    tracked = mass_stats_tracked(state)
+    mass_dt = state.w.dtype if hasattr(state, "w") else torch.float32
+    cols = state.s.shape[1] if tracked and state.s.dim() == 2 else 1
+
     def base_of(vals):
-        return (_f32(vals[-2]), _f32(vals[-1]))
+        if not tracked:
+            return None
+        words = _from_words(vals[len(vals) - tail + 1:],
+                            str(mass_dt).split(".")[-1])
+        return (words[:cols] if cols > 1 else words[0], words[cols])
 
     mass_base = None
     if sentinel_on:
@@ -1089,18 +1515,23 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
         vals = stats.tolist()  # the chunk's one fetch
         prev = cur_round
         cur_round, done = vals[0], bool(vals[1])
-        extra = vals[2:-3] if sentinel_on else vals[2:]
+        extra = vals[2:len(vals) - tail]
+        rec = {"round": cur_round, "done": done}
+        if has_loss:
+            rec["train_loss"] = float(_f32(extra[-1]))
+            extra = extra[:-1]
         # the kernel adds the rounds it ran to `round` itself
         executed += (cur_round - prev) if fused else (round_limit - prev)
         stalled = (not done and observe is not None
                    and bool(observe(extra)))
-        rec = {"round": cur_round, "done": done}
         if stalled:
             rec["stalled"] = True
         trip_dev = mass_trip = False
         if sentinel_on:
-            trip_dev = bool(vals[-3])
+            trip_dev = bool(vals[len(vals) - tail])
             chunk_mass = base_of(vals)
+        if sentinel_on and tracked:
+            # a vector payload drifts by its worst column
             s_ulps = ulp_drift(chunk_mass[0], mass_base[0])
             w_ulps = ulp_drift(chunk_mass[1], mass_base[1])
             rec["mass_drift_ulps"] = s_ulps
@@ -1226,10 +1657,11 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
 
 
 def sharded_unported(cfg: RunConfig) -> Optional[str]:
-    """The flags of faults, events, repair, checkpoints and the sentinel
-    that ``cfg`` uses, which the sharded engine does not run yet (its
-    side, with the plan patching of ``patch_shard_push_deliveries``, is
-    still to port), or None."""
+    """The flags of faults, events, repair, checkpoints, the sentinel,
+    vector payloads, the learning workloads, clocks, acceleration and
+    float64 that ``cfg`` uses, which the sharded engine does not run yet
+    (its side, with the plan patching of ``patch_shard_push_deliveries``
+    and the sharded ``matvec_payload``, is still to port), or None."""
     sched = cfg.schedule
     names = []
     if sched.has_strikes:
@@ -1245,6 +1677,13 @@ def sharded_unported(cfg: RunConfig) -> Optional[str]:
         names.append(f"--sentinel {cfg.sentinel}")
     if cfg.checkpoint_every or cfg.checkpoint_dir or cfg.quarantine_log:
         names.append("--checkpoint-dir/--checkpoint-every/--resume")
+    for flag, given in (("--payload-dim", cfg.payload_dim != 1),
+                        ("--workload", cfg.workload != "avg"),
+                        ("--clock", cfg.clock != "sync"),
+                        ("--accel", cfg.accel != "off"),
+                        ("--x64", cfg.dtype != "float32")):
+        if given:
+            names.append(flag)
     return ", ".join(names) or None
 
 

@@ -250,6 +250,45 @@ class RoutedDelivery(NamedTuple):
         return out_s, out_w
 
 
+def matvec_payload(matvec, xs: torch.Tensor, xw: torch.Tensor):
+    """Route a vector payload through an unchanged two-stream matvec (the
+    JAX package's ``matvec_payload``).
+
+    Every fused or routed delivery moves exactly two f32 streams a call.
+    An ``[rows, d]`` payload plus the weight stream is ``d + 1`` streams,
+    routed pairwise through ``ceil((d + 1) / 2)`` calls against the same
+    plans: columns (0, 1), (2, 3), ..., ``xw`` last, an odd leftover
+    paired with zeros. A 1-D ``xs`` is one direct call. Returns ``(in_s,
+    in_w)`` with ``in_s`` shaped like ``xs``."""
+    if xs.dim() == 1:
+        return matvec(xs, xw)
+    cols = [xs[:, k] for k in range(xs.shape[1])] + [xw]
+    outs = []
+    for i in range(0, len(cols) - 1, 2):
+        a, b = matvec(cols[i], cols[i + 1])
+        outs += [a, b]
+    if len(cols) % 2:
+        a, _ = matvec(cols[-1], torch.zeros_like(cols[-1]))
+        outs.append(a)
+    return torch.stack(outs[:-1], dim=1), outs[-1]
+
+
+def mask_sender_rows(share_s: torch.Tensor, share_w: torch.Tensor,
+                     round_key: torch.Tensor, clock: tuple,
+                     gids: torch.Tensor):
+    """Zero the outgoing shares of rows whose activation clock did not
+    tick (``async_/clock.py``). The plans are static linear operators, so
+    an idle sender is a zeroed input row: the plan, the ``share · deg``
+    accounting and mass conservation compose unchanged. ``gids`` are
+    global row ids."""
+    from gossipprotocol_tpu_torch.async_.clock import activation_mask
+
+    active = activation_mask(round_key, clock, gids)
+    row = active if share_s.dim() == 1 else active[:, None]
+    return (torch.where(row, share_s, torch.zeros_like(share_s)),
+            torch.where(active, share_w, torch.zeros_like(share_w)))
+
+
 def routed_streamed_bytes_per_round(rd: RoutedDelivery) -> int:
     """Edge-stream f32 bytes one matvec moves through the class layout:
     the interleaved ``[2 * m_pairs]`` slab (both expand output and reduce

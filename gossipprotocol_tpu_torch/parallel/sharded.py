@@ -179,9 +179,8 @@ def run_simulation_sharded(topo, cfg: RunConfig,
     unported = sharded_unported(cfg)
     if unported is not None:
         raise NotPortedError(
-            f"option not yet ported with --devices: {unported} (faults, "
-            "events, repair, checkpoints and the sentinel run on one "
-            "shard: drop --devices)")
+            f"option not yet ported with --devices: {unported} (these "
+            "run on one shard: drop --devices)")
     if mesh is None:
         mesh = make_mesh(num_devices, cfg.device)
     n = topo.num_nodes

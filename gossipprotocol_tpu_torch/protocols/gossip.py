@@ -1,7 +1,8 @@
 """Bulk-synchronous gossip rumor spreading (port of
-``gossipprotocol_tpu/protocols/gossip.py``, single card, synchronous
-clock, with the loss windows of ``utils/faults.py``: a dropped rumor
-message never lands).
+``gossipprotocol_tpu/protocols/gossip.py``, single card, with the loss
+windows of ``utils/faults.py`` — a dropped rumor message never lands —
+and the Poisson clocks of ``async_/clock.py``: only a node whose clock
+ticked spreads).
 
 One round advances every node at once: every spreading node draws one
 random neighbour, hits accumulate by a scatter-add (``index_add_`` on
@@ -54,7 +55,8 @@ def gossip_round_core(state: GossipState, nbrs, key: torch.Tensor, *,
                       n: int, threshold: int = 10, keep_alive: bool = True,
                       all_alive: bool = False,
                       inverted: bool = False,
-                      loss_windows: tuple = ()) -> GossipState:
+                      loss_windows: tuple = (),
+                      clock: tuple = ()) -> GossipState:
     """One synchronous round under the round key ``key``.
 
     ``all_alive=True`` drops the aliveness masks (legal only when no node
@@ -64,8 +66,17 @@ def gossip_round_core(state: GossipState, nbrs, key: torch.Tensor, *,
     send breaks the histogram's equality; the engine never inverts a run
     with loss windows). ``loss_windows`` (``FaultSchedule.
     static_loss_windows()``): a dropped send never lands — gossip needs
-    no mass return."""
+    no mass return. ``clock`` (a Poisson spec, ``async_/clock.py``): only
+    rows whose clock ticked spread; the inverted branch is never taken
+    under it (activation breaks its legality every round)."""
     spreaders = _spreaders(state, keep_alive, all_alive)
+    if clock:
+        assert not inverted, "inverted delivery requires the sync clock"
+        from gossipprotocol_tpu_torch.async_.clock import activation_mask
+
+        spreaders = spreaders & activation_mask(
+            key, clock, torch.arange(state.counts.shape[0],
+                                     dtype=torch.int64, device=key.device))
     if inverted:
         assert not loss_windows, "the inverted branch cannot drop sends"
         hits = hits_by_inversion(nbrs, key)
@@ -91,13 +102,14 @@ def gossip_round(state: GossipState, nbrs, base_key: torch.Tensor, *,
                  n: int, threshold: int = 10, keep_alive: bool = True,
                  all_alive: bool = False,
                  inverted: bool = False,
-                 loss_windows: tuple = ()) -> GossipState:
+                 loss_windows: tuple = (),
+                 clock: tuple = ()) -> GossipState:
     """One round keyed by ``fold_in(base_key, state.round)`` (the JAX
     package's ``gossip_round``, with the branch chosen by the caller)."""
     return gossip_round_core(
         state, nbrs, fold_in(base_key, state.round), n=n,
         threshold=threshold, keep_alive=keep_alive, all_alive=all_alive,
-        inverted=inverted, loss_windows=loss_windows)
+        inverted=inverted, loss_windows=loss_windows, clock=clock)
 
 
 def gossip_done(state: GossipState) -> torch.Tensor:

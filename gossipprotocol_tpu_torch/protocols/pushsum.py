@@ -1,15 +1,19 @@
-"""Push-sum: the single-target scatter round, the round tail and the
-supervisor predicate (port of the scalar pieces of
-``gossipprotocol_tpu/protocols/pushsum.py``).
+"""Push-sum: the single-target round, the round tail and the supervisor
+predicate (port of ``gossipprotocol_tpu/protocols/pushsum.py``).
 
-Only the intended semantics are ported (the gather-inverted
-``delivery='invert'`` and clocks are not yet): every round every node
-halves its ``(s, w)``, keeps one half and scatter-adds the other to one
-random neighbour; under a loss window (``utils/faults.py``) a dropped
-send keeps its half at the sender. The convergence
-predicate is either the local delta streak ``|Δ(s/w)| <= eps`` for
-``streak_target`` rounds (sticky) or the global ``|s/w - mean| <= tol``
-streak (non-sticky).
+Only the intended semantics run here (the reference's walk is
+``protocols/walk.py``): every round every node halves its ``(s, w)``,
+keeps one half and sends the other to one random neighbour — by scatter
+(``index_add_``), or by the gather-inverted ``delivery='invert'``
+(:func:`received_by_inversion`), where each receiver recomputes its
+neighbours' draws. Under a loss window (``utils/faults.py``) a dropped
+send keeps its half at the sender; under a Poisson clock
+(``async_/clock.py``) a node whose clock did not tick keeps its whole
+pair. ``s`` may be ``[n]`` or an ``[n, d]`` vector payload. The
+convergence predicate is either the local delta streak ``|Δ(s/w)| <=
+eps`` for ``streak_target`` rounds (sticky) or the global ``|s/w - mean|
+<= tol`` streak (non-sticky); under vector payloads every column must be
+within tolerance.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from gossipprotocol_tpu_torch.protocols.sampling import (
-    fold_in, round_drops, sample_neighbors,
+    fold_in, recomputed_hits, round_drops, sample_neighbors,
 )
 from gossipprotocol_tpu_torch.protocols.state import PushSumState
 
@@ -55,12 +59,16 @@ def finish_pushsum_round(state: PushSumState, s_new: torch.Tensor,
         mean = all_sum(s_healthy) / torch.clamp(all_sum(w_healthy),
                                                 min=1e-30)
         near = torch.abs(ratio_new - mean) <= tol
+        if near.dim() == 2:
+            near = torch.all(near, dim=-1)
         streak = torch.where(near, state.streak + 1,
                              torch.zeros_like(state.streak))
         # non-sticky: a node that drifts back out of tol un-converges
         converged = streak >= streak_target
     elif predicate == "delta":
         near = torch.abs(ratio_new - state.ratio) <= eps
+        if near.dim() == 2:
+            near = torch.all(near, dim=-1)
         streak = torch.where(near, state.streak + 1,
                              torch.zeros_like(state.streak))
         # sticky, like the reference's one-shot Alert
@@ -76,16 +84,18 @@ def pushsum_round_core(state: PushSumState, nbrs, key: torch.Tensor, *,
                        predicate: str = "delta", tol: float = 1e-4,
                        all_alive: bool = False,
                        targets_alive: bool = False,
-                       loss_windows: tuple = ()) -> PushSumState:
+                       loss_windows: tuple = (), clock: tuple = (),
+                       delivery: str = "scatter") -> PushSumState:
     """One fanout-one round under the round key ``key``, delivered by
-    scatter (``index_add_``, the JAX package's ``segment_sum``).
+    scatter (``index_add_``, the JAX package's ``segment_sum``) or, with
+    ``delivery='invert'``, by :func:`received_by_inversion`.
 
     A send lands when its sender has a neighbour and, unless
     ``all_alive``, the sender is alive and (unless ``targets_alive``, the
-    dead set being whole components) so is its target, and no loss
-    window drops it (``loss_windows``, the static ``(start, stop, prob)``
-    table); an undelivered half stays with the sender, so mass is
-    conserved.
+    dead set being whole components) so is its target, its Poisson clock
+    ticked (``clock``, ``async_/clock.py``), and no loss window drops it
+    (``loss_windows``, the static ``(start, stop, prob)`` table); an
+    undelivered half stays with the sender, so mass is conserved.
 
     Summation order: the JAX package's text is ``s - s_sent + in_s``
     with ``in_s = segment_sum(s_sent)``, but XLA on the CPU rewrites the
@@ -94,7 +104,32 @@ def pushsum_round_core(state: PushSumState, nbrs, key: torch.Tensor, *,
     order. The port does the same (``index_add_`` onto ``s - s_sent``,
     which on the CPU adds in ascending index order), so the round is
     bitwise the JAX package's there (ROADMAP.md Queue 3). On the card the
-    float adds are atomics: equal up to accumulation order."""
+    float adds are atomics: equal up to accumulation order.
+
+    The inverted delivery is legal only where every drawn send lands: a
+    dense table, a component-closed dead set (``targets_alive``), the
+    synchronous clock, no loss window and a scalar payload (the engine's
+    config checks pin this); its sums are taken by receivers, in slot
+    order, bitwise the JAX package's."""
+    if delivery == "invert":
+        assert not (clock or loss_windows) and state.s.dim() == 1, (
+            "delivery='invert' needs the synchronous clock, no loss and a "
+            "scalar payload")
+        valid = nbrs.degree > 0
+        deliver = valid if all_alive else valid & state.alive
+        zero = torch.zeros_like(state.s)
+        s_sent = torch.where(deliver, state.s * 0.5, zero)
+        w_sent = torch.where(deliver, state.w * 0.5, zero)
+        in_s, in_w = received_by_inversion(nbrs, key, state.s, state.w)
+        if not all_alive:
+            # dead rows neighbour only dead rows (component closure), but
+            # their own gather output is garbage: pin them unchanged
+            in_s = torch.where(state.alive, in_s, zero)
+            in_w = torch.where(state.alive, in_w, zero)
+        return finish_pushsum_round(
+            state, state.s - s_sent + in_s, state.w - w_sent + in_w,
+            eps=eps, streak_target=streak_target, predicate=predicate,
+            tol=tol, all_alive=all_alive)
     targets, valid = sample_neighbors(nbrs, n, key)
     if all_alive:
         deliver = valid
@@ -102,16 +137,48 @@ def pushsum_round_core(state: PushSumState, nbrs, key: torch.Tensor, *,
         deliver = valid & state.alive
     else:
         deliver = valid & state.alive & state.alive[targets]
+    if clock:
+        from gossipprotocol_tpu_torch.async_.clock import activation_mask
+
+        deliver = deliver & activation_mask(
+            key, clock, torch.arange(n, dtype=torch.int64,
+                                     device=key.device))
     if loss_windows:
         deliver = deliver & ~round_drops(key, state.round, loss_windows, n)
-    zero = torch.zeros_like(state.s)
-    s_sent = torch.where(deliver, state.s * 0.5, zero)
-    w_sent = torch.where(deliver, state.w * 0.5, zero)
+    s_sent = torch.where(rowmask(deliver, state.s), state.s * 0.5,
+                         torch.zeros_like(state.s))
+    w_sent = torch.where(deliver, state.w * 0.5, torch.zeros_like(state.w))
     s_new = (state.s - s_sent).index_add_(0, targets, s_sent)
     w_new = (state.w - w_sent).index_add_(0, targets, w_sent)
     return finish_pushsum_round(
         state, s_new, w_new, eps=eps, streak_target=streak_target,
         predicate=predicate, tol=tol, all_alive=all_alive)
+
+
+def received_by_inversion(nbrs, key: torch.Tensor, s: torch.Tensor,
+                          w: torch.Tensor):
+    """Receiver-side ``(in_s, in_w)``: no scatter, one static-index
+    gather over the dense table (the JAX package's
+    ``received_by_inversion``). Receiver ``i`` recomputes each
+    neighbour's draw, so the mass landing on it is
+
+        in_s_i = Σ_k [slot(table[i,k]) == rev[i,k]] · s[table[i,k]] / 2
+
+    (``w`` alike). The slots are summed left to right from zero, then
+    halved, as XLA's reduction over the slot axis of ``[rows, max_deg, 2]``
+    adds them; each add is elementwise, so the card sums in the same
+    order. Exact (the scatter's multiset of messages) only where every
+    sender with a valid draw delivers; ``nbrs`` is an
+    :class:`~gossipprotocol_tpu_torch.protocols.sampling.InvertedDense`."""
+    hit = recomputed_hits(nbrs, key)
+    zero = torch.zeros((), dtype=s.dtype, device=s.device)
+    acc_s = torch.zeros_like(s)
+    acc_w = torch.zeros_like(w)
+    for k in range(nbrs.table.shape[1]):
+        j = nbrs.table[:, k].long()
+        acc_s = acc_s + torch.where(hit[:, k], s[j], zero)
+        acc_w = acc_w + torch.where(hit[:, k], w[j], zero)
+    return acc_s * 0.5, acc_w * 0.5
 
 
 def pushsum_round(state: PushSumState, nbrs, base_key: torch.Tensor, *,

@@ -34,12 +34,13 @@ class ForeignCheckpointError(ValueError):
 
 def _state_types():
     from gossipprotocol_tpu_torch.protocols.state import (
-        GossipState, PushSumState,
+        AccelState, GossipState, PushSumState, SGPState,
     )
     from gossipprotocol_tpu_torch.protocols.walk import WalkState
 
     return {"GossipState": GossipState, "PushSumState": PushSumState,
-            "WalkState": WalkState}
+            "WalkState": WalkState, "SGPState": SGPState,
+            "AccelState": AccelState}
 
 
 # Every RunConfig field that influences the trajectory. Saved in checkpoint
@@ -189,26 +190,11 @@ def stored_value(meta: dict, field: str):
     return stored
 
 
-
-
-# Trajectory fields of the JAX package's RunConfig that the port has not
-# grown yet, written with the only value the port runs (the JAX package's
-# defaults), so that a checkpoint's trajectory record reads as JAX's would
-# for the same run.
-PORT_FIXED_FIELDS = {
-    "dtype": "float32", "edge_chunks": 1, "payload_dim": 1,
-    "workload": "avg", "accel": "off", "accel_lambda": None, "lr": 0.05,
-    "local_steps": 1, "sgp_samples": 8, "loss_tol": 1e-5, "clock": "sync",
-    "activation_rate": 1.0, "groups": 1,
-}
-
-
 def trajectory_meta(cfg) -> dict:
     """JSON-able dict of every trajectory-affecting config field: the
     single source of truth for both sides of resume validation (``save``
     embeds it, the CLI compares against it)."""
-    meta = {f: PORT_FIXED_FIELDS[f] if f in PORT_FIXED_FIELDS
-            else getattr(cfg, f, None) for f in TRAJECTORY_FIELDS}
+    meta = {f: getattr(cfg, f, None) for f in TRAJECTORY_FIELDS}
     if meta["alert_quorum"] is None:
         meta["alert_quorum"] = _QUORUM_ALL
     # the schedule and the event plan are stored as content digests:

@@ -15,7 +15,10 @@ megakernel's K cost (the port's counterpart of
     python -m gossipprotocol_tpu_torch.utils.profiling \\
         --nodes 1000000 --topology imp3D --algorithm gossip
     python -m gossipprotocol_tpu_torch.utils.profiling \\
-        --nodes 1000000 --topology imp3D --fanout one
+        --nodes 1000000 --topology imp3D --fanout one [--delivery invert]
+    python -m gossipprotocol_tpu_torch.utils.profiling \\
+        --nodes 1000000 --topology imp3D --delivery pallas \\
+        --workload sgp --payload-dim 16 --sgp-samples 8 --tol 1e-3
 
 Builds the graph and its delivery on ``cuda``, then:
 
@@ -23,10 +26,12 @@ Builds the graph and its delivery on ``cuda``, then:
      over the pallas or the routed delivery, ROUNDS / K launches of the
      K-round kernel, with ``--devices S`` the sharded push round over S
      shards on the card, or the drawing rounds of gossip and fanout-one
-     push-sum over the scatter delivery — gossip on both of its branches,
-     from the seed state and from a saturated one — with the predicate
-     disabled, so every round runs): device time per kernel name per
-     round, and the host time
+     push-sum over the scatter or the inverted delivery — gossip on both
+     of its branches, from the seed state and from a saturated one — with
+     the predicate disabled, so every round runs; ``--workload sgp`` and
+     ``--payload-dim D`` give the per-round path its learner and vector
+     payload, and the table its matvec calls a round): device time per
+     kernel name per round, and the host time
      spent enqueuing a round; times the same rounds with CUDA events, and
      reports the device's idle share of that window (1 - busy / event
      time); for the K-round kernel, also its phase split over the same
@@ -183,7 +188,10 @@ def _profile_sharded(topo, cfg, shards: int, out_path) -> int:
           f"{exchange_of(cfg)}; plans built in {build_s:.1f} s")
     print(f"device busy {busy_ms:.4f} ms/round (profiler), {event_ms:.4f} "
           f"ms/round by CUDA events, host enqueue {enqueue_ms:.4f} "
-          f"ms/round, idle share {idle:.3f}")
+          f"ms/round, idle share {idle:.3f}"
+          + ("" if matvecs is None else f", {matvecs} matvec calls a round")
+          + (f", workload {cfg.workload} d={cfg.payload_dim}"
+             if cfg.workload != "avg" or cfg.payload_dim > 1 else ""))
     _print_table(table)
     for r in conv:
         print(f"{r['delivery']:7s} shards {r['shards']} exchange "
@@ -209,6 +217,25 @@ def _print_table(table):
     print(f"{'kernel':70s} {'calls/round':>11s} {'ms/round':>10s}")
     for key, calls, ms_r in table:
         print(f"{key[:70]:70s} {calls:11.2f} {ms_r:10.4f}")
+
+
+def _matvec_calls(core, state, delivery) -> int:
+    """The delivery's matvec calls in one round of ``core``."""
+    inner = getattr(delivery, "nbrs", delivery)   # a learner's bundle
+    cls = type(inner)
+    orig = cls.matvec
+    calls = [0]
+
+    def counted(self, *a, **kw):
+        calls[0] += 1
+        return orig(self, *a, **kw)
+
+    cls.matvec = counted
+    try:
+        core(state, delivery)
+    finally:
+        cls.matvec = orig
+    return calls[0]
 
 
 def _profile_drawing(topo, cfg, dev, out_path) -> int:
@@ -312,7 +339,8 @@ def _profile_drawing(topo, cfg, dev, out_path) -> int:
             builds[name] = (time.perf_counter() - t0) * 1e3
 
     name = torch.cuda.get_device_name(dev)
-    what = ("gossip" if gossip else "push-sum --fanout one") + \
+    what = ("gossip" if gossip else
+            f"push-sum --fanout one --delivery {cfg.delivery}") + \
         f", {type(nbrs).__name__ if nbrs is not None else 'implicit full'}"
     print(f"{topo.kind} {n} nodes on {name}, {ROUNDS} rounds, {what}")
     for p in profiles:
@@ -354,10 +382,14 @@ def main(argv=None) -> int:
     ap.add_argument("--fanout", choices=["one", "all"], default="all",
                     help="push-sum sender (gossip draws one)")
     ap.add_argument("--tol", type=float, default=1e-4)
-    ap.add_argument("--delivery", choices=["pallas", "megakernel", "routed"],
+    ap.add_argument("--delivery", choices=["pallas", "megakernel", "routed",
+                                           "invert"],
                     default="pallas",
-                    help="fanout-all delivery (the drawing rounds run "
-                         "the scatter)")
+                    help="fanout-all delivery; with --fanout one, 'invert' "
+                         "(else the drawing rounds run the scatter)")
+    ap.add_argument("--workload", choices=["avg", "sgp"], default="avg")
+    ap.add_argument("--payload-dim", type=int, default=1)
+    ap.add_argument("--sgp-samples", type=int, default=8)
     ap.add_argument("--rounds-per-kernel", type=int, default=1)
     ap.add_argument("--devices", type=int, default=1,
                     help="shards of the push design (pallas or routed)")
@@ -382,13 +414,20 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     topo = build_topology(args.topology, args.nodes)
     fanout = "one" if args.algorithm == "gossip" else args.fanout
+    if fanout == "one":
+        delivery = "invert" if args.delivery == "invert" else "scatter"
+    elif args.delivery == "invert":
+        ap.error("--delivery invert takes --fanout one")
+    else:
+        delivery = args.delivery
     cfg = RunConfig(device="cuda", algorithm=args.algorithm,
                     fanout=fanout, predicate=args.predicate,
                     eps=args.eps, tol=args.tol, max_rounds=20_000,
-                    delivery="scatter" if fanout == "one" else args.delivery,
+                    delivery=delivery,
                     rounds_per_kernel=args.rounds_per_kernel,
                     exchange_overlap=args.exchange_overlap,
-                    plan_cache="none")
+                    workload=args.workload, payload_dim=args.payload_dim,
+                    sgp_samples=args.sgp_samples, plan_cache="none")
     if draws(cfg):
         return _profile_drawing(topo, cfg, dev, args.out)
     fused = use_megakernel(cfg)
@@ -443,6 +482,7 @@ def main(argv=None) -> int:
                 st = core(st, delivery)
 
     table, busy_ms, event_ms, enqueue_ms, idle = _profile_rounds(rounds, dev)
+    matvecs = None if fused else _matvec_calls(core, state0, delivery)
     split = None
     if fused:
         # where a launch's time goes: the kernel's probe instantiation
@@ -481,7 +521,10 @@ def main(argv=None) -> int:
           f"rounds, {what}")
     print(f"device busy {busy_ms:.4f} ms/round (profiler), {event_ms:.4f} "
           f"ms/round by CUDA events, host enqueue {enqueue_ms:.4f} "
-          f"ms/round, idle share {idle:.3f}")
+          f"ms/round, idle share {idle:.3f}"
+          + ("" if matvecs is None else f", {matvecs} matvec calls a round")
+          + (f", workload {cfg.workload} d={cfg.payload_dim}"
+             if cfg.workload != "avg" or cfg.payload_dim > 1 else ""))
     _print_table(table)
     if split is not None:
         print(f"megakernel phase split, us per round, mean over "
@@ -495,6 +538,8 @@ def main(argv=None) -> int:
                delivery=cfg.delivery, rounds_per_kernel=k, rounds=ROUNDS,
                busy_ms_per_round=busy_ms, event_ms_per_round=event_ms,
                enqueue_ms_per_round=enqueue_ms, idle_share=idle,
+               matvec_calls_per_round=matvecs, workload=cfg.workload,
+               payload_dim=cfg.payload_dim,
                kernels=[dict(name=kk, calls_per_round=c, ms_per_round=m)
                         for kk, c, m in table],
                convergence=conv, phase_split=split)

@@ -370,22 +370,24 @@ def test_cli_stall_exit_1(capsys):
 @pytest.mark.parametrize("argv,needle", [
     (["64", "imp3D", "push-sum", "--semantics", "reference", "--predicate",
       "global"], "semantics='reference'"),
-    (["64", "imp3D", "push-sum", "--delivery", "invert"],
-     "--delivery invert"),
-    (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "scatter"],
-     "--delivery scatter"),
+    (["64", "imp3D", "push-sum", "--delivery", "invert", "--devices", "2"],
+     "delivery='invert' is single-chip only"),
+    (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "scatter",
+      "--devices", "2"], "--delivery scatter"),
     (["64", "imp3D", "gossip", "--devices", "2"], "--devices"),
-    (["64", "imp3D", "gossip", "--clock", "poisson"], "--clock"),
+    (["64", "imp3D", "gossip", "--clock", "poisson", "--devices", "2"],
+     "--clock"),
     (["64", "imp3D", "gossip", "--drop-prob", "1.5"], "--drop-prob"),
     (["64", "imp3D", "gossip", "--fail-fraction", "0.1", "--devices", "2"],
      "--fail-fraction"),
-    (["64", "imp3D", "push-sum", "--x64"], "--x64"),
+    (["64", "imp3D", "push-sum", "--x64", "--devices", "2"], "--x64"),
     (["64", "imp3D", "gossip", "--metrics-out", "m.jsonl"], "--metrics-out"),
     (["64", "imp3D", "gossip", "--checkpoint-dir", "ck", "--devices", "2"],
      "--checkpoint-dir"),
     (["64", "imp3D", "gossip", "--telemetry-dir", "t"], "--telemetry-dir"),
     (["64", "imp3D", "gossip", "--sweep-seeds", "2"], "--sweep-seeds"),
-    (["64", "imp3D", "push-sum", "--payload-dim", "4"], "--payload-dim"),
+    (["64", "imp3D", "push-sum", "--payload-dim", "4", "--devices", "2"],
+     "--payload-dim"),
     (["64", "imp3D", "gossip", "--delivery", "pallas"], "fanout-all"),
     (["64", "imp3D", "gossip", "--seed-node", "64"], "--seed-node"),
     (["64", "imp3D", "gossip", "--threshold", "0"], "threshold"),

@@ -52,3 +52,13 @@ def test_walk_finds_the_package():
             in _FILES)
     assert (ROOT / "gossipprotocol_tpu_torch" / "probes" / "__init__.py"
             in _FILES)
+
+
+def test_walk_finds_the_workload_modules():
+    """The modules of the workloads (clocks, learners, acceleration) are
+    walked by the check above."""
+    pkg = ROOT / "gossipprotocol_tpu_torch"
+    for rel in ("async_/__init__.py", "async_/clock.py", "learn/__init__.py",
+                "learn/data.py", "learn/sgp.py", "learn/gala.py",
+                "protocols/accel.py"):
+        assert pkg / rel in _FILES, rel

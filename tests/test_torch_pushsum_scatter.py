@@ -246,5 +246,12 @@ def test_golden_graph_rounds_equal_jax(key):
                                 dict(fanout="all", delivery="routed",
                                      routed_design="pull")])
 def test_unported_variants_raise(kw):
+    """The pull design is refused by the config; the invert delivery and
+    the fanout-all scatter run on one card and are refused by the sharded
+    engine."""
+    from gossipprotocol_tpu_torch.parallel import run_simulation_sharded
+
     with pytest.raises(tdriver.NotPortedError):
-        tx.RunConfig(device="cpu", algorithm="push-sum", **kw)
+        cfg = tx.RunConfig(device="cpu", algorithm="push-sum", **kw)
+        run_simulation_sharded(tx.build_topology("imp3D", 64), cfg,
+                               num_devices=2)

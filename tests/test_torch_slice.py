@@ -281,9 +281,16 @@ def test_entry_point_defaults_to_cuda(entry):
                                 dict(fanout="one", delivery="invert"),
                                 dict(delivery="scatter")])
 def test_unported_config_raises(kw):
+    """The pull design is refused by the config; fanout-one push-sum and
+    the fanout-all scatter run on one card and are refused by the sharded
+    engine."""
+    from gossipprotocol_tpu_torch.parallel import run_simulation_sharded
+
     with pytest.raises(NotPortedError):
-        dataclasses.replace(tx.RunConfig(device="cpu", **_DIFFUSION),
-                            **kw)
+        cfg = dataclasses.replace(tx.RunConfig(device="cpu", **_DIFFUSION),
+                                  **kw)
+        run_simulation_sharded(tx.build_topology("imp3D", 64), cfg,
+                               num_devices=2)
 
 
 # ------------------------------------------------------------------ CLI
@@ -313,10 +320,10 @@ def test_cli_not_converged_exit_1(capsys):
       "megakernel", "--device", "cpu", "--devices", "2"], "--devices"),
     (["64", "imp3D", "gossip", "--semantics", "reference", "--devices",
       "2", "--device", "cpu"], "gossip"),
-    (["64", "imp3D", "push-sum", "--fanout", "one", "--delivery", "invert",
-      "--device", "cpu"], "--fanout one"),
+    (["64", "imp3D", "push-sum", "--fanout", "one", "--delivery", "scatter",
+      "--device", "cpu", "--devices", "2"], "--fanout one"),
     (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "scatter",
-      "--device", "cpu"], "--delivery scatter"),
+      "--device", "cpu", "--devices", "2"], "--delivery scatter"),
     (["64", "imp3D", *_CLI, "--fail-fraction=1.5"], "--fail-fraction"),
     (["report", "/tmp/x"], "report"),
     (["64", "torus", *_CLI], "unknown topology"),
