@@ -180,7 +180,23 @@ Phases (each prints its lines; any failure exits non-zero):
       invert`` and Poisson push-sum, SGP on pallas), each within its
       stated tolerance; (o4) ``--delivery invert`` against ``scatter`` on
       imp3D 1M fanout-one push-sum, 64 rounds each, ms per executed
-      round. The phase's seconds are printed.
+      round. The phase's seconds are printed;
+  (p) run telemetry through the CLI on the card, each run with
+      ``--telemetry-dir`` and without it: (p1) pallas push-sum at imp3D
+      1M — the same rounds and a bitwise final state, ``sent ==
+      delivered == rounds × directed edges``, ``report`` exit 0 with
+      ``anomalies: none``, and under ``torch.profiler`` one
+      device-to-host copy a chunk with telemetry on, off and in the
+      chunk as it ran before telemetry (whose kernels the chunk without
+      telemetry launches, by name); routed the same, bitwise the pallas
+      run; (p2) the same graph with a 10 % kill
+      strike at round 0 on pallas and routed — ``delivered == rounds ×
+      live-to-live directed edges`` (numpy), pallas == routed bitwise,
+      the recount's extra launches of rows 1, 11 and 1, 2, 7, 8;
+      (p3) gossip at imp3D 1M with trace rows and the megakernel at K =
+      16 (imp3D 512,000) with counters; (p4) ``--profile-dir``: the
+      trace file names the hand-written kernels. ms per executed round
+      with telemetry off and on, and the phase's seconds.
 
 ``slice_times`` (not a phase) times rows 12, 15-20 and 6 through
 their wrappers by graph replay for whichever tree's package is first on
@@ -3135,6 +3151,304 @@ def phase_workloads(torch, totals):
         f"scatter max |diff| s {errs['s']:.3e}, w {errs['w']:.3e}")
 
 
+# ---------------------------------------------------------------- (p)
+
+# phase (p): run telemetry on the card at the 1M graphs' full width, each
+# run with --telemetry-dir and without it. (p1) the main path: pallas
+# push-sum at imp3D 1M; (p2) the same graph with a 10 % kill strike at
+# round 0 on pallas and routed (the recount's extra matvec); (p3) gossip
+# at imp3D 1M (trace rows) and the megakernel at K = 16 (phase (f)'s
+# graph); (p4) a short run with --profile-dir
+TEL_ARGV = CLI_RUNS["imp3D_1M"] + ["--max-rounds", MAX_ROUNDS,
+                                   "--device", "cuda"]
+TEL_DEAD_FLAGS = ["--fail-fraction", "0.1", "--fail-round", "0"]
+TEL_GOSSIP_ARGV = ["1000000", "imp3D", "gossip", "--max-rounds", "400",
+                   "--device", "cuda"]
+TEL_MK_ARGV = MK_CLI_RUNS["imp3D_512000"] + ["--max-rounds", MAX_ROUNDS,
+                                             "--device", "cuda"]
+TEL_PROFILE_ARGV = TEL_ARGV[:-4] + ["--max-rounds", "16", "--device",
+                                    "cuda"]
+# chunks of 16 rounds whose device-to-host copies are counted
+FETCH_CHUNKS = 4
+# the launches the recount adds under a dead set, per delivery
+RECOUNT_KERNELS = {"pallas": ("gather_bucket", "class_reduce_small"),
+                   "routed": ROUTED_IMP3D_KERNELS}
+
+
+def _tel_cli(tag, argv, tel_dir=None, rcs=(0,)):
+    """One in-process CLI run of phase (p), with ``--telemetry-dir
+    tel_dir`` when given: ``(RunResult, launch counts, ms per executed
+    round, manifest or None)``."""
+    argv = list(argv) + (["--telemetry-dir", tel_dir] if tel_dir else [])
+    rc, text, etext, counts, res = _ref_cli(argv)
+    for line in (etext + text).splitlines():
+        if "rounds:" in line or "Convergence" in line or "error" in line:
+            say(f"(p) {tag} | {line}")
+    require(rc in rcs, f"(p) {tag}: exit {rc}, want {rcs}: {' '.join(argv)}")
+    conv = re.search(r"Convergence Time: ([0-9.]+) ms", text)
+    rounds = re.search(r"rounds: (\d+) \((\d+) executed\)", text)
+    require(conv and rounds, f"(p) {tag}: output lines missing")
+    ms = float(conv.group(1)) / max(int(rounds.group(2)), 1)
+    man = None
+    if tel_dir:
+        with open(os.path.join(tel_dir, "run.json")) as fh:
+            man = json.load(fh)
+        chunks = man["phases"].get("chunk", {})
+        say(f"(p) {tag} | phases {man['phases']}; {chunks.get('count')} "
+            f"chunk spans, "
+            f"{1e3 * chunks.get('total_s', 0) / max(chunks.get('count', 1), 1):.3f}"
+            " ms each (enqueue, the card's work and the one fetch)")
+    return res, counts, ms, man
+
+
+def _report(tel_dir):
+    """``(exit code, text)`` of ``report tel_dir``, in process."""
+    from gossipprotocol_tpu_torch.cli import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["report", tel_dir])
+    return rc, buf.getvalue()
+
+
+def _fetches_and_kernels(torch, topo):
+    """The main path's chunk (imp3D 1M, pallas) without telemetry, with
+    it, and as the engine ran it before telemetry existed, each run for
+    FETCH_CHUNKS chunks of 16 rounds under ``torch.profiler``: the
+    device-to-host copies a chunk and the kernels a chunk by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gossipprotocol_tpu_torch.engine import RunConfig
+    from gossipprotocol_tpu_torch.engine import driver as drv
+    from gossipprotocol_tpu_torch.obs.counters import make_counter_fn
+    from gossipprotocol_tpu_torch.obs.trace import make_trace_fn
+
+    cfg = RunConfig(**DIFFUSION, predicate="global", tol=1e-4,
+                    device="cuda")
+    state, core, done, flags = drv.build_protocol(topo, cfg)
+    delivery = drv.device_arrays(topo, cfg)
+
+    def pre(st, d, start, limit):
+        for _ in range(max(0, limit - start)):
+            active = ~done(st)
+            st = drv._freeze(active, core(st, d), st)
+        return st, torch.stack([st.round, done(st).to(torch.int32)])
+
+    runners = {
+        "off": drv.make_chunk_runner(core, done),
+        "on": drv.make_chunk_runner(
+            core, done,
+            counter_fn=make_counter_fn(topo, cfg, all_alive=flags[0],
+                                       targets_alive=flags[1]),
+            trace_fn=make_trace_fn(topo, cfg), records=True, mass=True),
+        "pre-telemetry": pre,
+    }
+    def profiled(run):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st, r = state, 0
+            for _ in range(FETCH_CHUNKS):
+                st, stats = run(st, delivery, r, r + 16)
+                stats.tolist()
+                r += 16
+            torch.cuda.synchronize()
+        return prof
+
+    out = {}
+    for name, run in runners.items():
+        run(state, delivery, 0, 1)[1].tolist()
+        torch.cuda.synchronize()
+        if not out:
+            # the profiler's first run (CUPTI starting up) is thrown
+            # away
+            profiled(run)
+        d2h, kernels = 0, {}
+        # the card's events only: a host op whose self time rounds to 0
+        # is not a kernel
+        for ev in profiled(run).key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            if "DtoH" in ev.key:
+                d2h += ev.count
+            elif "Memcpy" not in ev.key and "Memset" not in ev.key:
+                kernels[ev.key] = ev.count
+        out[name] = (d2h / FETCH_CHUNKS, kernels)
+    return out
+
+
+def phase_telemetry(torch, totals):
+    """Phase (p); adds the launches of its runs with telemetry to
+    ``totals``."""
+    import numpy as np
+
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    def count(counts):
+        for k, v in counts.items():
+            if k in totals:
+                totals[k] += v
+
+    timings = {}
+    t_sub = [time.perf_counter()]
+
+    def sub_lap(name):
+        t_sub.append(time.perf_counter())
+        say(f"({name}) seconds {t_sub[-1] - t_sub[-2]:.1f}")
+
+    with tempfile.TemporaryDirectory(prefix="telemetry_") as td:
+        # (p1) the main path, off and on
+        off, c_off, ms_off, _ = _tel_cli("p1 off", TEL_ARGV)
+        d1 = os.path.join(td, "p1")
+        on, c_on, ms_on, man = _tel_cli("p1 on", TEL_ARGV, d1)
+        count(c_on)
+        diff = _states_bitwise(torch, on.final_state, off.final_state)
+        require(on.rounds == off.rounds and not diff,
+                f"(p1) telemetry changed the run: rounds {on.rounds} vs "
+                f"{off.rounds}, fields {diff}")
+        edges = man["topology"]["num_directed_edges"]
+        c = man["counters"]
+        require(c["sent"] == c["delivered"] == on.rounds * edges
+                and c["dropped"] == 0,
+                f"(p1) counters {c} against {on.rounds} rounds x {edges} "
+                "directed edges")
+        rc, text = _report(d1)
+        require(rc == 0 and "anomalies: none" in text,
+                f"(p1) report exit {rc}: {text[-400:]}")
+        timings["pallas"] = (ms_off, ms_on)
+        say(f"(p1) pallas imp3D 1M: {on.rounds} rounds bitwise with and "
+            f"without telemetry; counters {c} = rounds x {edges} directed "
+            f"edges; mass drift {man['max_mass_drift_ulps']} / "
+            f"{man['max_w_drift_ulps']} ULPs; trace {man['trace']}; "
+            "report exit 0, anomalies: none; ms per executed round "
+            f"{ms_off:.4f} off, {ms_on:.4f} on; launches on {c_on}")
+        routed_argv = [("routed" if a == "pallas" else a) for a in TEL_ARGV]
+        roff, _c, rms_off, _ = _tel_cli("p1 routed off", routed_argv)
+        ron, rc_on, rms_on, rman = _tel_cli(
+            "p1 routed on", routed_argv, os.path.join(td, "p1_routed"))
+        count(rc_on)
+        diff = _states_bitwise(torch, ron.final_state, on.final_state)
+        require(ron.rounds == roff.rounds == on.rounds and not diff
+                and not _states_bitwise(torch, ron.final_state,
+                                        roff.final_state)
+                and rman["counters"] == c,
+                f"(p1) routed: rounds {ron.rounds}/{roff.rounds}, fields "
+                f"{diff}, counters {rman['counters']} vs pallas {c}")
+        timings["routed"] = (rms_off, rms_on)
+        say(f"(p1) routed imp3D 1M: {ron.rounds} rounds, bitwise the "
+            "pallas run and the run without telemetry, the same counters; "
+            f"ms per executed round {rms_off:.4f} off, {rms_on:.4f} on")
+        topo = build_topology("imp3D", 1_000_000, seed=0)
+        fetch = _fetches_and_kernels(torch, topo)
+        for name, (d2h, kernels) in fetch.items():
+            require(d2h == 1, f"(p1) {name}: {d2h} device-to-host copies "
+                    "a chunk, want 1")
+        k_off, k_pre = fetch["off"][1], fetch["pre-telemetry"][1]
+        require(k_off == k_pre,
+                "(p1) the chunk without telemetry launches other kernels "
+                "than before telemetry: "
+                + str({k: (k_off.get(k), k_pre.get(k))
+                       for k in set(k_off) | set(k_pre)
+                       if k_off.get(k) != k_pre.get(k)}))
+        say(f"(p1) torch.profiler, {FETCH_CHUNKS} chunks of 16 rounds: 1 "
+            "device-to-host copy a chunk off, on and before telemetry; "
+            "kernels a chunk off "
+            f"{sum(fetch['off'][1].values()) / FETCH_CHUNKS:.1f} (= before "
+            "telemetry, by name), on "
+            f"{sum(fetch['on'][1].values()) / FETCH_CHUNKS:.1f}")
+        sub_lap("p1")
+
+        # (p2) the dead-set recount on pallas and routed
+        offsets = np.asarray(topo.offsets, np.int64)
+        src = np.repeat(np.arange(topo.num_nodes), np.diff(offsets))
+        dst = np.asarray(topo.indices, np.int64)
+        deg = np.asarray(topo.degree, np.int64)
+        runs = {}
+        for delivery in ("pallas", "routed"):
+            base = [("routed" if a == "pallas" else a) for a in TEL_ARGV] \
+                if delivery == "routed" else TEL_ARGV
+            argv = base + TEL_DEAD_FLAGS
+            off, c_off, ms_off, _ = _tel_cli(f"p2 {delivery} off", argv)
+            d2 = os.path.join(td, f"p2_{delivery}")
+            on, c_on, ms_on, man = _tel_cli(f"p2 {delivery} on", argv, d2)
+            count(c_on)
+            diff = _states_bitwise(torch, on.final_state, off.final_state)
+            require(on.rounds == off.rounds and not diff,
+                    f"(p2) {delivery}: telemetry changed the run ({diff})")
+            alive = on.final_state.alive.numpy()
+            live = int((alive[src] & alive[dst]).sum())
+            c = man["counters"]
+            require(c["delivered"] == on.rounds * live
+                    and c["sent"] == on.rounds * int(deg[alive].sum())
+                    and c["dropped"] == 0,
+                    f"(p2) {delivery}: counters {c} against {on.rounds} "
+                    f"rounds x {live} live-to-live directed edges")
+            extra = {k: c_on[k] - c_off[k] for k in
+                     RECOUNT_KERNELS[delivery]}
+            require(all(v > 0 for v in extra.values()),
+                    f"(p2) {delivery}: no recount launches {extra}")
+            runs[delivery] = (on, c)
+            timings[f"{delivery} dead set"] = (ms_off, ms_on)
+            say(f"(p2) {delivery} 10 % dead: {on.rounds} rounds bitwise "
+                f"with and without telemetry; counters {c}, delivered = "
+                f"rounds x {live} live-to-live directed edges "
+                f"({int((~alive).sum())} rows dead); the recount's extra "
+                f"launches {extra} (on {c_on}, off {c_off}); ms per "
+                f"executed round {ms_off:.4f} off, {ms_on:.4f} on")
+        (rp, cp), (rr, cr) = runs["pallas"], runs["routed"]
+        diff = _states_bitwise(torch, rp.final_state, rr.final_state)
+        require(rp.rounds == rr.rounds and not diff and cp == cr,
+                f"(p2) pallas vs routed: rounds {rp.rounds} vs "
+                f"{rr.rounds}, fields {diff}, counters {cp} vs {cr}")
+        sub_lap("p2")
+
+        # (p3) gossip with trace rows, the megakernel with counters
+        for tag, argv in (("gossip", TEL_GOSSIP_ARGV),
+                          ("megakernel K=16", TEL_MK_ARGV)):
+            off, _c, ms_off, _ = _tel_cli(f"p3 {tag} off", argv)
+            d3 = os.path.join(td, "p3_" + tag.split()[0])
+            on, c_on, ms_on, man = _tel_cli(f"p3 {tag} on", argv, d3)
+            count(c_on)
+            diff = _states_bitwise(torch, on.final_state, off.final_state)
+            require(on.rounds == off.rounds and not diff
+                    and on.rounds_executed == off.rounds_executed,
+                    f"(p3) {tag}: telemetry changed the run ({diff})")
+            c = man["counters"]
+            if tag == "gossip":
+                require(man["trace"]["rows_written"] == on.rounds
+                        and c["sent"] >= c["delivered"] > 0,
+                        f"(p3) gossip: trace {man['trace']}, counters {c}")
+            else:
+                edges = man["topology"]["num_directed_edges"]
+                require(c["sent"] == c["delivered"] == on.rounds * edges,
+                        f"(p3) megakernel: counters {c} against "
+                        f"{on.rounds} rounds x {edges}")
+            timings[tag] = (ms_off, ms_on)
+            say(f"(p3) {tag}: {on.rounds} rounds bitwise with and without "
+                f"telemetry; counters {c}; trace {man['trace']}; ms per "
+                f"executed round {ms_off:.4f} off, {ms_on:.4f} on")
+
+        sub_lap("p3")
+
+        # (p4) --profile-dir
+        d4 = os.path.join(td, "p4")
+        rc, text, etext, counts, _res = _ref_cli(
+            TEL_PROFILE_ARGV + ["--profile-dir", d4])
+        require(rc in (0, 1), f"(p4) exit {rc}")
+        files = [f for f in os.listdir(d4) if f.endswith(".json")]
+        require(files, "(p4) no trace file in --profile-dir")
+        with open(os.path.join(d4, files[0])) as fh:
+            trace = fh.read()
+        names = [k for k in ("gather_bucket_kernel", "reduce_small_kernel")
+                 if k in trace]
+        require(len(names) == 2, f"(p4) the trace names {names} only")
+        say(f"(p4) --profile-dir: {files[0]} ({len(trace)} bytes) names "
+            f"{names}; launches {counts}")
+    say("(p) ms per executed round, telemetry off / on: " + "; ".join(
+        f"{k} {a:.4f} / {b:.4f} (+{(b - a) / a * 100:.1f} %)"
+        for k, (a, b) in timings.items()))
+
+
 def summarize(records, totals, stream_rate):
     """One record per kernel: its largest main-path call, with its bytes
     over the measured stream rate (``bound_stream_ms``) beside the
@@ -3241,9 +3555,13 @@ def main(argv=None) -> int:
             lap("n")
             phase_workloads(torch, totals)
             lap("o")
+            phase_telemetry(torch, totals)
+            lap("p")
             kernels = summarize(records, totals, stream_rate)
         except SmokeFailure as e:
+            # on both streams: a caller that keeps only one still sees why
             print(f"FAIL: {e}", flush=True)
+            print(f"FAIL: {e}", file=sys.stderr, flush=True)
             return 1
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_kernels.json"),

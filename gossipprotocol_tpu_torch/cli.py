@@ -23,6 +23,10 @@
         [--sentinel [on|quarantine|rollback]]
         [--checkpoint-dir DIR --checkpoint-every C] [--resume PATH]
         [--auto-resume N]
+    ... [--telemetry-dir DIR [--trace-cap ROWS]] [--round-budget N|auto]
+        [--metrics-out FILE] [--profile-dir DIR]
+    python -m gossipprotocol_tpu_torch report DIR [--compare BASE
+        [--threshold F]]
 
 With no flags it runs what the JAX package's CLI runs by default (the
 reference's own surface): gossip, or push-sum with one random target per
@@ -44,14 +48,30 @@ mismatch: ...") or of the JAX package, with exit 2, and ``--auto-resume
 N`` re-executes the CLI from the newest resumable checkpoint when the
 CUDA context dies (:func:`_is_runtime_death`). The workload flags (vector
 payloads, SGP and GALA, Poisson clocks, acceleration, ``--x64``,
-``--edge-chunks``) print the JAX CLI's rejections with exit 2. Every flag
-and combination the port does not have yet exits 2 and names itself;
+``--edge-chunks``) print the JAX CLI's rejections with exit 2.
+
+Observability, as in the JAX CLI: ``--telemetry-dir DIR`` writes the run's
+host spans (``events.jsonl``, a Chrome-trace ``trace.json``), its message
+counters, per-round trace rows (``trace.jsonl``, downsampled past
+``--trace-cap`` rows), ``resources.json`` and the manifest ``run.json``,
+which ``report DIR`` renders (exit 0; 2 for a missing or newer-schema
+dir; 3 when ``--compare`` finds a regression); a dir holding another
+run's manifest (:class:`~gossipprotocol_tpu_torch.obs.telemetry.
+TelemetryDirCollision`) exits 2. ``--round-budget N|auto`` stops a run
+at N rounds (or 8x the analytic prediction) with an ``over_budget``
+record and exit 1; ``--metrics-out FILE`` streams every chunk record as
+JSONL (appending under ``--resume`` and recovery re-execs);
+``--profile-dir DIR`` wraps the run in ``torch.profiler`` and writes its
+Chrome trace there. A run stopped by an installed stop check
+(``engine.driver.install_stop_check``) exits 3. Every flag and
+combination the port does not have yet exits 2 and names itself;
 nothing falls back quietly to another path.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -65,18 +85,16 @@ _ALGO_ALIASES = {
 
 # flags of the JAX package's CLI that this port does not have yet
 UNPORTED_FLAGS = (
-    "--build",
-    "--build-memory-budget", "--metrics-out", "--profile-dir",
-    "--telemetry-dir", "--sweep", "--sweep-seeds", "--round-budget",
-    "--trace-cap", "--compile-cache", "--request-id", "--admission-json",
+    "--build", "--build-memory-budget", "--sweep", "--sweep-seeds",
+    "--compile-cache", "--request-id", "--admission-json",
 )
 
 # --backend names and the --device each selects ("auto": --device's own)
 BACKEND_DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 # subcommands of the JAX package's CLI that this port does not have yet
-UNPORTED_SUBCOMMANDS = ("report", "watch", "history", "plan", "serve",
-                        "submit", "status")
+UNPORTED_SUBCOMMANDS = ("watch", "history", "plan", "serve", "submit",
+                        "status")
 
 
 # CUDA errors after which the context is unusable (sticky): every later
@@ -500,12 +518,55 @@ def build_parser() -> argparse.ArgumentParser:
                    help="small_world ring-lattice degree (even)")
     p.add_argument("--ws-beta", type=float, default=0.1,
                    help="small_world rewiring probability in [0, 1]")
+    p.add_argument("--metrics-out", type=str, default=None,
+                   help="JSONL file for per-chunk metrics records")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="emit a torch.profiler trace here (a Chrome trace "
+                        "of the host and the card's kernels)")
+    p.add_argument("--telemetry-dir", type=str, default=None, metavar="DIR",
+                   help="unified run telemetry: host spans -> DIR/events.jsonl"
+                        " + a Chrome-trace DIR/trace.json, message counters "
+                        "folded through every chunk, and a run manifest "
+                        "DIR/run.json; render with 'python -m "
+                        "gossipprotocol_tpu_torch report DIR'. Unset = zero "
+                        "cost (the chunks launch what they launch without "
+                        "it); set, convergence results are STILL bitwise "
+                        "identical — counters ride alongside and never feed "
+                        "back")
+    p.add_argument("--round-budget", type=str, default=None, metavar="N|auto",
+                   help="cap the run at N rounds with a structured "
+                        "over_budget record instead of grinding to "
+                        "--max-rounds; 'auto' derives the cap from the "
+                        "analytic round prediction (obs/predict.py): "
+                        "budget = 8x the spectral bound for push-sum, 8x "
+                        "the log-spread heuristic for gossip")
+    p.add_argument("--trace-cap", type=int, default=None, metavar="ROWS",
+                   help="per-round trace downsampling cap (default 4096, "
+                        "or $GOSSIP_TPU_TRACE_CAP): whenever another ROWS "
+                        "trace rows land in DIR/trace.jsonl the round "
+                        "stride doubles, bounding the file at "
+                        "ROWS*(1+log2(rounds/ROWS)) lines; needs "
+                        "--telemetry-dir")
     p.add_argument("--check", action="store_true",
                    help="build and validate the topology, print its shape "
                         "summary, and exit without simulating")
     p.add_argument("--quiet", action="store_true",
                    help="suppress everything except the convergence metric")
     return p
+
+
+def _round_budget(text):
+    """``--round-budget`` -> None, an int or ``"auto"`` (the JAX CLI's
+    rule); ValueError (exit 2) for anything else. The int's range is
+    checked by ``RunConfig``."""
+    if text is None or text == "auto":
+        return text
+    try:
+        return int(text)
+    except ValueError:
+        raise ValueError(
+            f"option invalid: --round-budget must be a positive integer "
+            f"or 'auto', got {text!r}")
 
 
 def resolve_backend(backend: str, device) -> str:
@@ -691,6 +752,12 @@ def _check_sharding(args, cfg) -> None:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "report":
+        # subcommand dispatch before argparse: the run parser has three
+        # required positionals and would reject `report DIR`
+        from gossipprotocol_tpu_torch.obs.report import main as report_main
+
+        return report_main(argv[1:])
     bad = _unported(argv)
     if bad is not None:
         print(f"option not yet ported: {bad} (the PyTorch port runs "
@@ -699,15 +766,32 @@ def main(argv=None) -> int:
               "scatter|pallas|routed|megakernel (pallas and routed with "
               "--devices S on one card), faults, loss, events, repair, "
               "checkpoints and the sentinel, vector payloads, SGP and "
-              "GALA, Poisson clocks, acceleration, --x64, --check and "
-              "--backend; use python -m gossipprotocol_tpu for the rest)",
-              file=sys.stderr)
+              "GALA, Poisson clocks, acceleration, --x64, --check, "
+              "--backend, telemetry and report; use python -m "
+              "gossipprotocol_tpu for the rest)", file=sys.stderr)
         return 2
     try:
         args = build_parser().parse_args(argv)
     except SystemExit as e:  # argparse's usage errors are exit 2
         return int(e.code or 0)
 
+    from gossipprotocol_tpu_torch.obs import NULL, Telemetry
+
+    try:
+        tel = (Telemetry(args.telemetry_dir, trace_cap=args.trace_cap)
+               if args.telemetry_dir else NULL)
+    except ValueError as e:  # TelemetryDirCollision
+        print(str(e), file=sys.stderr)
+        return 2
+    try:
+        return _main(args, argv, tel)
+    finally:
+        tel.close()  # idempotent: the run path closes it before the manifest
+
+
+def _main(args, argv, tel) -> int:
+    """The run of :func:`main` after the flags are parsed and the
+    telemetry hub made."""
     algo = _ALGO_ALIASES.get(args.algorithm.lower())
     if algo is None:
         print(f"option invalid: unknown algorithm {args.algorithm!r} "
@@ -718,10 +802,12 @@ def main(argv=None) -> int:
         DELIVERIES, NotPortedError, RunConfig, require_invertible,
         resolve_device, resume_simulation, run_simulation,
     )
+    from gossipprotocol_tpu_torch.obs import write_manifest
     from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
     from gossipprotocol_tpu_torch.utils.metrics import (
-        print_convergence_time, print_start_banner,
+        JsonlMetricsWriter, print_convergence_time, print_start_banner,
     )
+    from gossipprotocol_tpu_torch.utils.profiling import maybe_trace
 
     try:
         if args.routed_design == "pull":
@@ -732,7 +818,9 @@ def main(argv=None) -> int:
             raise ValueError(f"--devices must be >= 1, got {args.devices}")
         args.device = resolve_backend(args.backend, args.device)
         device = resolve_device(args.device)
-        topo, alert_quorum = _build_run_topology(args)
+        with tel.span("topology_build", topology=args.topology,
+                      requested_nodes=args.num_nodes):
+            topo, alert_quorum = _build_run_topology(args)
     except (ValueError, RuntimeError, NotImplementedError) as e:
         print(str(e), file=sys.stderr)
         return 2
@@ -810,6 +898,8 @@ def main(argv=None) -> int:
             local_steps=args.local_steps, sgp_samples=args.sgp_samples,
             loss_tol=args.loss_tol,
             dtype="float64" if args.x64 else "float32",
+            telemetry=tel if tel.enabled else None,
+            round_budget=_round_budget(args.round_budget),
         )
         if cfg.delivery == "invert":
             # the engine's build-time precondition as a clean input error
@@ -851,34 +941,87 @@ def main(argv=None) -> int:
         )
 
     state = None
+    resume_src = resume_round = None
     if args.resume:
         try:
-            state, cfg = _load_resume(args, cfg, topo, ckpt)
+            state, cfg, resume_src, resume_round = _load_resume(
+                args, cfg, topo, ckpt, tel)
         except _ResumeRefused as e:
             print(str(e), file=sys.stderr)
             return 2
 
+    # append when resuming (or re-executed by a recovery): the file keeps
+    # covering the whole logical run, at-least-once — chunks after the
+    # last checkpoint replay — so a marker record separates the attempts
+    writer = (JsonlMetricsWriter(
+        args.metrics_out,
+        mode="a" if (args.resume or args.restarted) else "w",
+        stamp_version=tel.enabled) if args.metrics_out else None)
+    if writer:
+        cfg = dataclasses.replace(cfg, metrics_callback=writer)
+        if state is not None:
+            writer({
+                "event": "resumed",
+                "from_round": resume_round,
+                "note": "records after this marker may replay rounds "
+                        "already present above (at-least-once)",
+            })
+        elif args.restarted:
+            writer({
+                "event": "restarted_from_scratch",
+                "note": "recovery without a checkpoint: every round "
+                        "replays; records above are the crashed attempt",
+            })
+    manifest_kw = dict(device=str(device), num_devices=args.devices,
+                       resumed_from=resume_src, resume_round=resume_round)
+
     if not args.quiet:
         print_start_banner(algo)
     try:
-        if args.devices > 1:
-            from gossipprotocol_tpu_torch.parallel import (
-                run_simulation_sharded,
-            )
+        # `with tel` closes the hub (trace flush, end marker) on every
+        # path; the manifest is written afterwards from its totals
+        with tel:
+            if args.profile_dir and tel.enabled:
+                # recorded so report and manifest point at the trace;
+                # mark_span (depth 1) keeps the phase rollup honest
+                tel.profile_dir = args.profile_dir
+            prof_start = tel.wall_s()
+            with maybe_trace(args.profile_dir):
+                if args.devices > 1:
+                    from gossipprotocol_tpu_torch.parallel import (
+                        run_simulation_sharded,
+                    )
 
-            result = run_simulation_sharded(topo, cfg, mesh=mesh)
-        elif state is not None:
-            result = resume_simulation(topo, cfg, state)
-        else:
-            result = run_simulation(topo, cfg)
+                    result = run_simulation_sharded(topo, cfg, mesh=mesh)
+                elif state is not None:
+                    result = resume_simulation(topo, cfg, state)
+                else:
+                    result = run_simulation(topo, cfg)
+            if args.profile_dir:
+                tel.mark_span("profiler_trace", prof_start,
+                              tel.wall_s() - prof_start,
+                              trace_dir=args.profile_dir)
     except RoutedConfigError as e:
+        # build-time rejections the engine can only raise once it sees
+        # the whole config: the same loud exit 2 as the checks above
+        if writer:
+            writer.close()
+        write_manifest(tel, cfg, topo, None, error=str(e), **manifest_kw)
         print(str(e), file=sys.stderr)
         return 2
     except Exception as e:
         if not (_is_runtime_death(e) and args.auto_resume > 0):
             raise
+        if writer:
+            writer.close()
+        write_manifest(tel, cfg, topo, None,
+                       error=f"accelerator runtime died: {type(e).__name__}",
+                       **manifest_kw)
         return _recover(args, argv, cfg, topo, ckpt, e)
 
+    if writer:
+        writer.close()
+    manifest_path = write_manifest(tel, cfg, topo, result, **manifest_kw)
     print_convergence_time(result.wall_ms)
     if not args.quiet:
         print(f"rounds: {result.rounds} ({result.rounds_executed} executed)"
@@ -888,6 +1031,15 @@ def main(argv=None) -> int:
         err = result.estimate_error
         if err is not None:
             print(f"push-sum max |s/w - mean| = {err:.3e}")
+        if manifest_path:
+            print(f"telemetry: {tel.dir} (render: python -m "
+                  f"gossipprotocol_tpu_torch report {tel.dir})")
+    if result.stopped == "drain":
+        # paused with a checkpoint (or none configured), not finished
+        print(f"drained at round {result.rounds} (checkpoint "
+              f"{'saved' if result.checkpoints else 'not configured'})",
+              file=sys.stderr)
+        return 3
     return 0 if result.converged else 1
 
 
@@ -896,8 +1048,6 @@ def _event_plan(args, topo, schedule, faults):
     ``--churn`` and ``--value-faults`` (the JAX CLI's rules: the plan's
     kill/revive/loss keys merge into the schedule; a generator or value
     faults given twice is an error)."""
-    import dataclasses
-
     from gossipprotocol_tpu_torch.events import (
         EventPlan, parse_churn_arg, parse_event_plan, parse_value_faults_arg,
     )
@@ -936,14 +1086,14 @@ class _ResumeRefused(Exception):
     """A resume the CLI refuses with exit 2 (the message says why)."""
 
 
-def _load_resume(args, cfg, topo, ckpt):
-    """``(state, cfg)`` for ``--resume``: the newest readable checkpoint
-    of a directory (falling back past unreadable ones, as the JAX CLI
-    does) or the named file, checked against this run's trajectory
-    fields, topology kind and adjacency fingerprint; ``cfg`` gains the
-    checkpoint's logged quarantines. A checkpoint of the JAX package is
-    refused at once."""
-    import dataclasses
+def _load_resume(args, cfg, topo, ckpt, tel):
+    """``(state, cfg, path, round)`` for ``--resume``: the newest
+    readable checkpoint of a directory (falling back past unreadable
+    ones, as the JAX CLI does) or the named file, loaded inside the
+    telemetry hub's ``resume_load`` span, checked against this run's
+    trajectory fields, topology kind and adjacency fingerprint; ``cfg``
+    gains the checkpoint's logged quarantines. A checkpoint of the JAX
+    package is refused at once."""
     import zipfile
 
     cands = (ckpt.candidates(args.resume)
@@ -951,22 +1101,25 @@ def _load_resume(args, cfg, topo, ckpt):
     if not cands:
         raise _ResumeRefused(f"no checkpoint found in {args.resume}")
     state = meta = None
-    for path in cands:
-        try:
-            ckpt.check_package(ckpt.peek_meta(path), path)
-            state, meta = ckpt.load(path)
-            break
-        except ckpt.ForeignCheckpointError as e:
-            raise _ResumeRefused(str(e))
-        except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
-            print(
-                f"warning: checkpoint {path} unreadable "
-                f"({type(e).__name__}: {e}); falling back to the "
-                "previous published checkpoint",
-                file=sys.stderr,
-            )
+    with tel.span("resume_load", target=args.resume):
+        for path in cands:
+            try:
+                ckpt.check_package(ckpt.peek_meta(path), path)
+                state, meta = ckpt.load(path)
+                break
+            except ckpt.ForeignCheckpointError as e:
+                raise _ResumeRefused(str(e))
+            except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+                print(
+                    f"warning: checkpoint {path} unreadable "
+                    f"({type(e).__name__}: {e}); falling back to the "
+                    "previous published checkpoint",
+                    file=sys.stderr,
+                )
     if state is None:
         raise _ResumeRefused(f"no readable checkpoint in {args.resume}")
+    resume_round = int(meta.get("round", -1))
+    tel.event("resume_loaded", checkpoint=path, round=resume_round)
     problems = [
         f"{k} {ckpt.stored_value(meta, k)!r} != {v!r}"
         for k, v in ckpt.trajectory_meta(cfg).items()
@@ -989,7 +1142,7 @@ def _load_resume(args, cfg, topo, ckpt):
         cfg = dataclasses.replace(cfg, quarantine_log=tuple(
             (int(r), tuple(int(i) for i in ids))
             for r, ids in meta["quarantines"]))
-    return state, cfg
+    return state, cfg, path, resume_round
 
 
 def _recover(args, argv, cfg, topo, ckpt, e) -> int:

@@ -47,14 +47,27 @@ round; an adjacency change rebuilds the round's device arrays through
 saved every ``checkpoint_every`` chunks (``utils/checkpoint.py``); the
 sentinel, when on, freezes a chunk at the first round whose state holds
 a non-finite or negative row and the loop records, quarantines or rolls
-back. Loss windows are device events inside the drawing rounds. The
-JAX engine's telemetry, round budgets and drain are not ported here.
+back. Loss windows are device events inside the drawing rounds.
+
+Telemetry (``telemetry``, an :class:`~gossipprotocol_tpu_torch.obs.
+Telemetry` hub; ``obs/``) rides the same loop, as in the JAX engine:
+host spans for the topology, protocol and plan builds, the warm-up, every
+chunk, host events, checkpoints and the final sync; the message counters
+(``obs/counters.py``) and the per-round trace rows (``obs/trace.py``) of
+a chunk ride its one int32 fetch (:func:`chunk_stats`), read from the
+states only, so the trajectory is bitwise the run without telemetry; the
+mass drift in ULPs against a baseline taken by the chunk's own
+reduction; the analytic round prediction and the round budget
+(``round_budget``, an int or ``"auto"``, with its ``over_budget``
+record); and the graceful stop (:func:`install_stop_check`, ``drain``).
+With ``telemetry`` unset and no ``metrics_callback`` the chunk runners
+enqueue what they enqueue without this machinery.
 
 What is not yet ported exits as a :class:`NotPortedError` naming itself:
-the sharded pull design, telemetry, sweeps, float64 state on the
-reference walk; and under the sharded engine (``--devices``) every flag
-of faults, events, repair, checkpoints, the sentinel, vector payloads,
-the learning workloads, clocks, acceleration and float64.
+the sharded pull design, sweeps, float64 state on the reference walk;
+and under the sharded engine (``--devices``) every flag of faults,
+events, repair, checkpoints, the sentinel, vector payloads, the learning
+workloads, clocks, acceleration and float64.
 """
 
 from __future__ import annotations
@@ -66,6 +79,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from gossipprotocol_tpu_torch.obs.counters import ulp_drift
 from gossipprotocol_tpu_torch.ops.build import resolve_device
 from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
 from gossipprotocol_tpu_torch.protocols.diffusion import (
@@ -75,7 +89,7 @@ from gossipprotocol_tpu_torch.protocols.gossip import (
     gossip_done, gossip_round_core, inversion_legal,
 )
 from gossipprotocol_tpu_torch.protocols.pushsum import (
-    pushsum_done, pushsum_round_core, sum0,
+    pushsum_done, pushsum_round_core, tree_sum0,
 )
 from gossipprotocol_tpu_torch.protocols.sampling import (
     key_data, round_keys, use_dense,
@@ -218,6 +232,22 @@ class RunConfig:
                                    # resumed checkpoint lived through (its
                                    # "quarantines" metadata), replayed into
                                    # the adjacency like scheduled kills
+    metrics_callback: Optional[Callable[[dict], None]] = None  # receives
+                                   # every chunk and host-event record
+                                   # (the CLI's --metrics-out writer)
+    telemetry: Optional[Any] = None  # obs.Telemetry hub (None = off: the
+                                   # chunk runners enqueue what they do
+                                   # without it). On, the counters and
+                                   # trace rows are read from the states
+                                   # and never fed back, so the
+                                   # trajectory is bitwise unchanged. NOT
+                                   # a trajectory field
+    round_budget: Optional[Any] = None  # None = unlimited; an int caps
+                                   # the run at that many rounds with an
+                                   # over_budget record; "auto" takes
+                                   # the cap from the analytic round
+                                   # prediction (obs/predict.py). NOT a
+                                   # trajectory field
     device: str = "cuda"
 
     @property
@@ -456,6 +486,11 @@ class RunConfig:
             raise ValueError("streak_target must be >= 1")
         if self.chunk_rounds is not None and self.chunk_rounds < 1:
             raise ValueError("chunk_rounds must be >= 1")
+        if self.round_budget is not None and self.round_budget != "auto":
+            if not isinstance(self.round_budget, int) or isinstance(
+                    self.round_budget, bool) or self.round_budget < 1:
+                raise ValueError(
+                    "round_budget must be None, a positive int, or 'auto'")
 
     def _check_workloads(self, sched, plan, ref: bool) -> None:
         """The JAX package's checks of vector payloads, clocks, the
@@ -637,12 +672,15 @@ class RunResult:
     # the sum of the kernel's own ``executed`` — equals ``rounds`` less
     # the start
     rounds_executed: int = 0
-    # the host loop's records: one per chunk ({"round", "done", ...}) and
+    # the host loop's records: one per chunk ({"round", ...}) and
     # one per host event ({"event": "repair" | "churn" | "value_fault" |
     # "sentinel_trip" | "quarantine" | "rollback" | "rollback_fallback",
     # ...}), as the JAX engine's metrics stream
     metrics: List[dict] = dataclasses.field(default_factory=list)
     checkpoints: List[str] = dataclasses.field(default_factory=list)
+    # "drain" when an installed stop check (install_stop_check) ended the
+    # run at a chunk boundary; None for every run that ran its course
+    stopped: Optional[str] = None
 
     @property
     def estimate_error(self) -> Optional[float]:
@@ -1045,7 +1083,25 @@ def walk_start_node(topo: Topology, cfg: RunConfig) -> int:
     return seed_node
 
 
-def device_arrays(topo: Topology, cfg: RunConfig):
+def note_hub_split(tel, topo) -> None:
+    """Stamp the hub-splitting layout geometry on the telemetry hub (the
+    JAX engine's ``note_hub_split``): report and manifest show it as
+    ``hub split: N classes -> M sub-classes (max degree D)``. Left unset
+    on graphs without a class wider than one 128-lane row."""
+    from gossipprotocol_tpu_torch.ops.delivery import degree_classes
+
+    deg = np.asarray(topo.degree)
+    cls = np.unique(degree_classes(deg))
+    split = [int(c) for c in cls if 2 * c > 128]
+    if split:
+        tel.hub_split = {
+            "classes": len(split),
+            "subclasses": int(sum((2 * c) // 128 for c in split)),
+            "max_degree": int(deg.max()),
+        }
+
+
+def device_arrays(topo: Topology, cfg: RunConfig, tel=None):
     """What the round reads, placed on the run's device: for the drawing
     senders the neighbor arrays (gossip's with the inversion tables when
     :func:`gossip_inversion_enabled`, ``delivery='invert'``'s always);
@@ -1055,7 +1111,9 @@ def device_arrays(topo: Topology, cfg: RunConfig):
     :func:`use_megakernel` wrapped for the K-round kernel, whose
     eligibility (resident gathers) is checked here, before any launch.
     The learning workloads wrap these with the nodes' data shards in an
-    :class:`~gossipprotocol_tpu_torch.learn.SGPBundle`."""
+    :class:`~gossipprotocol_tpu_torch.learn.SGPBundle`. ``tel`` (a
+    telemetry hub or None) receives the plan cache's provenance (``hit``,
+    ``miss`` or ``off``) and the hub-split geometry."""
     from gossipprotocol_tpu_torch.ops.plancache import (
         pallas_delivery_cached, routed_delivery_cached,
     )
@@ -1069,7 +1127,7 @@ def device_arrays(topo: Topology, cfg: RunConfig):
         # groups rides along with the workload: replace both, or the
         # re-run checks reject groups > 1 without workload='gala'
         inner = device_arrays(topo, dataclasses.replace(
-            cfg, workload="avg", groups=1))
+            cfg, workload="avg", groups=1), tel)
         a, b, _ = make_least_squares(
             topo.num_nodes, cfg.payload_dim, cfg.sgp_samples, cfg.seed,
             dtype=np.dtype(cfg.dtype))
@@ -1094,12 +1152,31 @@ def device_arrays(topo: Topology, cfg: RunConfig):
 
         return diffusion_edges(topo, device=dev)
     if cfg.delivery == "routed":
-        rd, _prov = routed_delivery_cached(
+        from gossipprotocol_tpu_torch.ops.delivery import (
+            routed_streamed_bytes_per_round,
+        )
+
+        rd, prov = routed_delivery_cached(
             topo, cache_dir=cfg.plan_cache, device=dev)
+        if tel is not None and tel.enabled:
+            tel.event("plan_cache", provenance=prov, design="single-chip",
+                      streamed_bytes_per_round=(
+                          routed_streamed_bytes_per_round(rd)))
+            note_hub_split(tel, topo)
         return rd
 
-    pd, _prov = pallas_delivery_cached(topo, cache_dir=cfg.plan_cache,
-                                       device=dev)
+    from gossipprotocol_tpu_torch.ops.pallasdelivery import (
+        pallas_streamed_bytes_per_round,
+    )
+
+    pd, prov = pallas_delivery_cached(topo, cache_dir=cfg.plan_cache,
+                                      device=dev)
+    if tel is not None and tel.enabled:
+        tel.event("plan_cache", provenance=prov, design="single-chip",
+                  delivery=cfg.delivery,
+                  streamed_bytes_per_round=pallas_streamed_bytes_per_round(
+                      pd))
+        note_hub_split(tel, topo)
     if use_megakernel(cfg):
         from gossipprotocol_tpu_torch.ops.megakernel import (
             build_megakernel_delivery,
@@ -1124,25 +1201,168 @@ def _from_words(words, dtype) -> np.ndarray:
     return np.asarray(words, dtype=np.int32).view(np.dtype(dtype))
 
 
-def chunk_stats(state, done_fn, extra_stats=None,
-                delivery=None, sentinel_fn=None) -> torch.Tensor:
+def metric_words(state) -> list:
+    """The JAX engine's per-chunk record scalars as int32 device scalars:
+    ``[converged, alive]`` (alive rows that have converged, alive rows)
+    and, for a state with an estimate, the bits of ``ratio_min`` and
+    ``ratio_max`` over alive rows (payload columns included) and
+    ``w_underflow``, the alive rows whose ``w`` is 0."""
+    alive = state.alive
+    words = [torch.sum((state.converged & alive).to(torch.int32)),
+             torch.sum(alive.to(torch.int32))]
+    if hasattr(state, "ratio"):
+        live = alive if state.ratio.dim() == 1 else alive[:, None]
+        big = torch.full((), float("inf"), dtype=state.ratio.dtype,
+                         device=alive.device)
+        words += _words(torch.min(torch.where(live, state.ratio, big)))
+        words += _words(torch.max(torch.where(live, state.ratio, -big)))
+        words.append(torch.sum((alive & (state.w == 0)).to(torch.int32)))
+    return words
+
+
+def chunk_stats(state, done_fn, extra_stats=None, delivery=None,
+                sentinel_fn=None, *, records: bool = False,
+                mass: bool = False, rows=()) -> torch.Tensor:
     """The chunk's verdict as ONE int32 device tensor (one host fetch):
-    ``[round, done, *extra_stats(state, delivery)]``; for a learning state
-    the float32 bits of its train loss; and with ``sentinel_fn`` the trip
-    flag and the bits of the mass sums (:func:`sentinel_words`; their
-    count is :func:`sentinel_width`)."""
+    ``[round, done, *extra_stats(state, delivery)]``; with ``records``
+    the record scalars of :func:`metric_words`; for a learning state the
+    float32 bits of its train loss; with
+    ``sentinel_fn`` the trip flag; with ``sentinel_fn`` or ``mass`` the
+    bits of the mass sums (:func:`mass_words`); and last the chunk's
+    per-round rows (``rows``: int32 tensors, flattened — the telemetry
+    counters and trace rows). The host reads it with
+    :class:`StatsLayout`."""
     extra = [] if extra_stats is None else extra_stats(state, delivery)
+    if records:
+        extra = extra + metric_words(state)
     if hasattr(state, "loss"):
         extra = extra + _words(state.loss)
-    if sentinel_fn is not None:
-        extra = extra + sentinel_words(state, sentinel_fn)
-    return torch.stack([state.round, done_fn(state).to(torch.int32),
-                        *extra])
+    if sentinel_fn is not None or mass:
+        sums = mass_words(state)
+        if sentinel_fn is not None:
+            extra = extra + [sentinel_fn(state).to(torch.int32)]
+        extra = extra + sums
+    scalars = torch.stack([state.round, done_fn(state).to(torch.int32),
+                           *extra])
+    if not rows:
+        return scalars
+    return torch.cat([scalars, *(r.reshape(-1) for r in rows)])
+
+
+class StatsLayout:
+    """How the host reads a chunk's stats (:func:`chunk_stats`): the
+    scalars in order, then ``rows`` per-round rows of the telemetry
+    counters (``counter_width`` words each: 3, plus 3 a shard with the
+    per-shard attribution) and trace rows (``trace_width`` words: the
+    float32 bits of :data:`~gossipprotocol_tpu_torch.obs.trace.
+    NUM_TRACE_COLS` columns)."""
+
+    def __init__(self, state, *, records: bool, extra: int, sentinel: bool,
+                 mass: bool, counter_width: int = 0, trace_width: int = 0):
+        self.records = records
+        self.ratio_dt = (str(state.ratio.dtype).split(".")[-1]
+                         if hasattr(state, "ratio") else None)
+        self.metric = 0
+        if records:
+            self.metric = 2
+            if self.ratio_dt is not None:
+                self.metric += 2 * (state.ratio.element_size() // 4) + 1
+        self.extra = extra
+        self.loss = hasattr(state, "loss")
+        self.sentinel = sentinel
+        self.tracked = mass_stats_tracked(state)
+        self.mass = ((mass or sentinel) and self.tracked)
+        self.mass_dt = (str(state.w.dtype).split(".")[-1]
+                        if hasattr(state, "w") else "float32")
+        self.cols = (state.s.shape[1] if self.tracked and state.s.dim() == 2
+                     else 1)
+        self.mass_width = (mass_width(state) if self.mass else 0)
+        self.counter_width = counter_width
+        self.trace_width = trace_width
+        self.scalars = (2 + self.metric + extra + int(self.loss)
+                        + int(sentinel) + self.mass_width)
+
+    def parse(self, vals: list) -> dict:
+        """``{"round", "done", "metric": {...}, "extra": [...],
+        "train_loss", "trip", "mass": (Σs, Σw) or None, "counters":
+        int64 [rows, 3] or None, "shard_counters": int64 [rows, S, 3] or
+        None, "trace": float32 [rows, cols] or None}``."""
+        out = {"round": vals[0], "done": bool(vals[1])}
+        i = 2
+        out["extra"] = vals[i:i + self.extra]
+        i += self.extra
+        metric = {}
+        if self.records:
+            metric["converged"], metric["alive"] = vals[i], vals[i + 1]
+            if self.ratio_dt is not None:
+                pv = (self.metric - 3) // 2
+                j = i + 2
+                lo = _from_words(vals[j:j + pv], self.ratio_dt)[0]
+                hi = _from_words(vals[j + pv:j + 2 * pv], self.ratio_dt)[0]
+                metric["ratio_min"] = float(lo)
+                metric["ratio_max"] = float(hi)
+                metric["w_underflow"] = vals[j + 2 * pv]
+        out["metric"] = metric
+        i += self.metric
+        out["train_loss"] = None
+        if self.loss:
+            out["train_loss"] = float(_f32(vals[i]))
+            i += 1
+        out["trip"] = False
+        if self.sentinel:
+            out["trip"] = bool(vals[i])
+            i += 1
+        out["mass"] = None
+        if self.mass:
+            words = _from_words(vals[i:i + self.mass_width], self.mass_dt)
+            out["mass"] = ((words[:self.cols] if self.cols > 1
+                            else words[0]), words[self.cols])
+            i += self.mass_width
+        tail = vals[i:]
+        width = self.counter_width + self.trace_width
+        nrows = len(tail) // width if width else 0
+        out["counters"] = out["shard_counters"] = out["trace"] = None
+        if self.counter_width:
+            c = np.asarray(tail[:nrows * 3], np.int64).reshape(nrows, 3)
+            out["counters"] = c
+            j = nrows * 3
+            if self.counter_width > 3:
+                s = self.counter_width // 3 - 1
+                out["shard_counters"] = np.asarray(
+                    tail[j:j + nrows * s * 3], np.int64).reshape(nrows, s, 3)
+        if self.trace_width:
+            t = tail[nrows * self.counter_width:]
+            out["trace"] = _from_words(t, "float32").reshape(
+                nrows, self.trace_width)
+        return out
+
+
+def _count_rows(deltas: list, counter_rows: list, shard_rows: list) -> None:
+    """Split per-round counter deltas (``int32 [3]``, or ``[S, 3]`` per
+    shard) into the reduced rows and the per-shard rows."""
+    for d in deltas:
+        if d.dim() == 2:
+            shard_rows.append(d)
+            d = torch.sum(d, dim=0)
+        counter_rows.append(d.to(torch.int32))
+
+
+def _stack_rows(counter_rows, shard_rows, trace_rows) -> list:
+    rows = []
+    if counter_rows:
+        rows.append(torch.stack(counter_rows))
+    if shard_rows:
+        rows.append(torch.stack(shard_rows))
+    if trace_rows:
+        rows.append(torch.stack(trace_rows).to(torch.float32).view(
+            torch.int32))
+    return rows
 
 
 def make_chunk_runner(round_core, done_fn, extra_stats=None,
                       base_key: Optional[torch.Tensor] = None,
-                      sentinel_fn=None):
+                      sentinel_fn=None, *, counter_fn=None, trace_fn=None,
+                      records: bool = False, mass: bool = False):
     """``chunk(state, delivery, start_round, round_limit) -> (state,
     stats)``: advance until global convergence or ``round ==
     round_limit``. The predicate is evaluated before every round, as the
@@ -1158,7 +1378,18 @@ def make_chunk_runner(round_core, done_fn, extra_stats=None,
     state trips it, as the JAX engine's loop condition exits there (the
     trip persists in the state, so the stats see it again), and the
     stats gain the trip flag and the mass sums. Unset, the chunk launches
-    what it launched before the sentinel existed."""
+    what it launched before the sentinel existed.
+
+    ``counter_fn`` (``obs/counters.py``) and ``trace_fn``
+    (``obs/trace.py``) add one counter row and one trace row a round,
+    read from the round's old and new states and never fed back; the
+    rows ride the stats (:func:`chunk_stats`). A frozen round's rows are
+    computed too, and the host keeps only the valid prefix ``[:
+    round - start_round]`` (the rounds run before the predicate held),
+    as the JAX engine's ``while_loop`` writes no row past it.
+    ``records`` adds the record scalars (:func:`metric_words`), ``mass``
+    the mass sums. With all four unset the chunk launches what it
+    launched before telemetry existed."""
     stop_fn = (done_fn if sentinel_fn is None
                else lambda st: done_fn(st) | sentinel_fn(st))
 
@@ -1166,19 +1397,31 @@ def make_chunk_runner(round_core, done_fn, extra_stats=None,
         count = max(0, round_limit - start_round)
         keys = (None if base_key is None
                 else round_keys(base_key, state.round, count))
+        deltas, trace_rows = [], []
         for i in range(count):
             active = ~stop_fn(state)
-            new = (round_core(state, delivery) if keys is None
-                   else round_core(state, delivery, keys[i]))
+            key = None if keys is None else keys[i]
+            new = (round_core(state, delivery) if key is None
+                   else round_core(state, delivery, key))
+            if counter_fn is not None:
+                deltas.append(counter_fn(state, new, delivery, key))
+            if trace_fn is not None:
+                trace_rows.append(trace_fn(new))
             state = _freeze(active, new, state)
-        return state, chunk_stats(state, done_fn, extra_stats, delivery,
-                                  sentinel_fn)
+        counter_rows, shard_rows = [], []
+        _count_rows(deltas, counter_rows, shard_rows)
+        return state, chunk_stats(
+            state, done_fn, extra_stats, delivery, sentinel_fn,
+            records=records, mass=mass,
+            rows=_stack_rows(counter_rows, shard_rows, trace_rows))
 
     return chunk
 
 
 def make_megakernel_chunk_runner(round_core, done_fn,
-                                 rounds_per_kernel: int):
+                                 rounds_per_kernel: int, *, counter_fn=None,
+                                 trace_fn=None, records: bool = False,
+                                 mass: bool = False):
     """``chunk(state, mk, start_round, round_limit) -> (state, stats)``
     for the K-round kernel: pad the state once, launch
     ``ceil((round_limit - start_round) / K)`` super-steps — as many as
@@ -1187,7 +1430,14 @@ def make_megakernel_chunk_runner(round_core, done_fn,
     nothing else; the kernel updates the padded state in place, and a
     launch that finds the predicate already true exits at once, so a
     super-step may overshoot ``round_limit`` by up to K - 1 rounds but
-    never runs past convergence."""
+    never runs past convergence.
+
+    ``counter_fn`` / ``trace_fn`` count at K-round granularity, as the
+    JAX engine's ``counter_rows`` / ``trace_rows`` do: one super-step's
+    counter delta (constant on the all-alive round the kernel runs) and
+    the trace row of the state it leaves are repeated over its K rows;
+    the host keeps the valid prefix ``[: round - start_round]``, which
+    drops the rows past a super-step that stopped at convergence."""
     from gossipprotocol_tpu_torch.ops.megakernel import (
         pad_state, unpad_state,
     )
@@ -1196,10 +1446,20 @@ def make_megakernel_chunk_runner(round_core, done_fn,
 
     def chunk(state, mk, start_round: int, round_limit: int):
         ms = pad_state(state)
+        deltas, trace_rows = [], []
         for _ in range(-(-max(0, round_limit - start_round) // k)):
+            if counter_fn is not None:
+                deltas += [counter_fn(unpad_state(ms, state.alive), None,
+                                      mk, None)] * k
             ms = round_core(ms, mk)
+            if trace_fn is not None:
+                trace_rows += [trace_fn(unpad_state(ms, state.alive))] * k
         state = unpad_state(ms, state.alive)
-        return state, chunk_stats(state, done_fn)
+        counter_rows, shard_rows = [], []
+        _count_rows(deltas, counter_rows, shard_rows)
+        return state, chunk_stats(
+            state, done_fn, records=records, mass=mass,
+            rows=_stack_rows(counter_rows, shard_rows, trace_rows))
 
     return chunk
 
@@ -1307,25 +1567,24 @@ def make_sentinel_fn(cfg: RunConfig):
     return sentinel_fn
 
 
-def sentinel_words(state, sentinel_fn) -> list:
-    """``[trip, *bits(Σs), *bits(Σw)]`` as int32 device scalars: the mass
-    sums (per payload column) ride the chunk's one int32 fetch as their
-    bit patterns. A learning state carries the trip flag alone: its
-    gradient steps inject mass by design."""
+def mass_words(state) -> list:
+    """The bits of the mass sums ``[*bits(Σs), *bits(Σw)]`` (Σs per
+    payload column) as int32 device scalars, to ride the chunk's one
+    int32 fetch; empty for a state whose mass is not tracked
+    (:func:`mass_stats_tracked`)."""
     ms = mass_stats(state)
-    words = [sentinel_fn(state).to(torch.int32)]
-    if ms:
-        words += _words(ms["mass_s"]) + _words(ms["mass_w"])
-    return words
+    if not ms:
+        return []
+    return _words(ms["mass_s"]) + _words(ms["mass_w"])
 
 
-def sentinel_width(state) -> int:
-    """How many int32 words :func:`sentinel_words` gives for ``state``."""
+def mass_width(state) -> int:
+    """How many int32 words :func:`mass_words` gives for ``state``."""
     if not mass_stats_tracked(state):
-        return 1
+        return 0
     per_value = state.w.element_size() // 4
     cols = state.s.shape[1] if state.s.dim() == 2 else 1
-    return 1 + per_value * (cols + 1)
+    return per_value * (cols + 1)
 
 
 def mass_stats_tracked(state) -> bool:
@@ -1367,10 +1626,17 @@ def mass_stats(state) -> dict:
     """Total push-sum mass ``(Σs, Σw)`` over every row (``Σs`` per payload
     column), in the state's dtype on the device (the chunk's reduction, so
     a baseline taken by a no-op chunk drifts by exactly 0 ULPs on a
-    lossless run); empty for gossip and the learning states."""
+    lossless run; on the CPU in the JAX package's order,
+    :func:`~gossipprotocol_tpu_torch.protocols.pushsum.tree_sum0`); the
+    walk's in-flight token carries real mass and is included. Empty for
+    gossip and the learning states."""
     if not mass_stats_tracked(state):
         return {}
-    return {"mass_s": sum0(state.s), "mass_w": sum0(state.w)}
+    ms, mw = tree_sum0(state.s), tree_sum0(state.w)
+    if hasattr(state, "msg_s"):
+        ms = ms + state.msg_s
+        mw = mw + state.msg_w
+    return {"mass_s": ms, "mass_w": mw}
 
 
 def _mass_snapshot(state):
@@ -1382,39 +1648,68 @@ def _mass_snapshot(state):
             float(state.w.cpu().numpy().astype(np.float64).sum()))
 
 
-def ulp_drift(value, baseline) -> float:
-    """|value − baseline| in ULPs of the baseline's dtype (a copy of the
-    JAX package's ``obs/counters.py`` ``ulp_drift``): 0.0 when equal,
-    NaN/Inf propagate."""
-    b = np.asarray(baseline)
-    v = np.asarray(value)
-    if b.ndim:
-        return max(ulp_drift(v.reshape(-1)[k], b.reshape(-1)[k])
-                   for k in range(b.size))
-    v = float(np.float64(v))
-    bf = float(np.float64(b))
-    if v == bf:
-        return 0.0
-    ulp = float(np.spacing(np.abs(b).astype(b.dtype, copy=False)))
-    if ulp == 0.0:
-        ulp = float(np.spacing(np.asarray(0, b.dtype)))
-    return abs(v - bf) / ulp
-
-
 def _f32(bits: int) -> np.float32:
     return np.array([bits], dtype=np.int32).view(np.float32)[0]
+
+
+def compute_prediction(run_topo, cfg: RunConfig, tel) -> Optional[dict]:
+    """Analytic round prediction for this run (``obs/predict.py``; the JAX
+    engine's ``compute_prediction``), computed once before the first
+    chunk, on the host from the topology's CSR.
+
+    None when prediction is off (no telemetry, no budget) or the topology
+    is too large or the configuration unpredictable; raises when
+    ``round_budget == "auto"`` cannot be resolved, since silently running
+    unbudgeted is exactly what the flag exists to prevent."""
+    if not (tel.enabled or cfg.round_budget is not None):
+        return None
+    from gossipprotocol_tpu_torch.obs.predict import maybe_predict_rounds
+
+    with tel.span("predict_rounds"):
+        pred = maybe_predict_rounds(
+            run_topo, cfg, required=(cfg.round_budget == "auto"))
+    if cfg.round_budget == "auto" and pred is None:
+        raise ValueError(
+            "round_budget='auto' needs an analytic round prediction, which "
+            "is unavailable for this configuration/topology (obs/predict.py "
+            "gates on edge count via $GOSSIP_TPU_PREDICT_EDGE_CAP); pass an "
+            "explicit --round-budget N instead"
+        )
+    if pred is not None and tel.enabled:
+        tel.prediction = pred
+        tel.event("prediction", **pred)
+    return pred
+
+
+# Graceful-stop hook: a callable checked at every chunk boundary of the
+# host loop. Truthy -> save a checkpoint (when the run checkpoints at all)
+# and return early with RunResult.stopped = "drain". Module-level rather
+# than a RunConfig field so a signal handler installed before cli.main()
+# can reach a run whose config it never sees (the JAX engine's hook).
+_stop_check: Optional[Callable[[], bool]] = None
+
+
+def install_stop_check(fn: Optional[Callable[[], bool]]) -> None:
+    """Install (or clear, with None) the global graceful-stop check."""
+    global _stop_check
+    _stop_check = fn
 
 
 def _drive(cfg: RunConfig, state, step, num_nodes: int,
            compile_ms: float, trim=None, observe=None, *,
            topo: Optional[Topology] = None,
            rebuild: Optional[Callable] = None,
-           run_topo: Optional[Topology] = None) -> RunResult:
+           run_topo: Optional[Topology] = None,
+           prediction: Optional[dict] = None,
+           num_shards: Optional[int] = None,
+           walk: bool = False) -> RunResult:
     """Host loop: chunks up to ``max_rounds`` and the convergence
     verdict. ``trim`` cuts a padded final state to the real rows (the
-    sharded engine). ``observe(extra)`` takes each chunk's extra stats
-    and returns True when the run has stalled (gossip with no spreader
-    left): the run then stops unconverged, as the JAX engine's does.
+    sharded engine, ``num_shards`` shards). ``observe(extra)`` takes each
+    chunk's extra stats and returns True when the run has stalled (gossip
+    with no spreader left): the run then stops unconverged, as the JAX
+    engine's does. ``walk``: the chunks are the reference walk's hops,
+    counted on the host (``obs/counters.py`` ``WALK_HOP_COUNTS``).
 
     With ``topo`` (the birth topology; the single-card engine) the loop
     is the JAX engine's host-event loop: due host events fire at the top
@@ -1424,15 +1719,24 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
     adjacency in force at entry: the birth one unless a resume replayed
     events past it); checkpoints are saved every ``checkpoint_every``
     chunks; and the sentinel's trips are recorded, quarantined or rolled
-    back. The rebuilds' warm-up chunks are kept out of ``wall_ms``."""
+    back. The rebuilds' warm-up chunks are kept out of ``wall_ms``.
+
+    Every chunk and host-event record goes to ``result.metrics``,
+    ``cfg.metrics_callback`` and the telemetry hub (``cfg.telemetry``).
+    ``prediction`` (:func:`compute_prediction`) resolves ``round_budget
+    == "auto"`` and is completed with the actual outcome."""
     from gossipprotocol_tpu_torch.events import HostEvents
+    from gossipprotocol_tpu_torch.obs import as_telemetry
+    from gossipprotocol_tpu_torch.obs.counters import WALK_HOP_COUNTS
+    from gossipprotocol_tpu_torch.obs.trace import NUM_TRACE_COLS
     from gossipprotocol_tpu_torch.utils import checkpoint as ckpt_mod
 
+    tel = as_telemetry(cfg.telemetry)
     trim = trim if trim is not None else (lambda st: st)
     dev = state.alive.device
     run_topo = run_topo if run_topo is not None else topo
     cur_round = int(state.round)
-    host_events = (HostEvents(topo, cfg, start_round=cur_round)
+    host_events = (HostEvents(topo, cfg, start_round=cur_round, tel=tel)
                    if topo is not None else None)
     metrics: List[dict] = []
     checkpoints: List[str] = []
@@ -1441,6 +1745,13 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
     executed = 0
     excluded_s = 0.0       # rebuild warm-ups, kept out of wall_ms
     fused = use_megakernel(cfg)
+    # round budget: an explicit int, or the analytic prediction's bound
+    budget = None
+    if cfg.round_budget == "auto":
+        budget = int(prediction["budget_rounds"])
+    elif cfg.round_budget is not None:
+        budget = int(cfg.round_budget)
+    over_budget = drained = underflow_warned = False
     checkpointing = bool(cfg.checkpoint_every and cfg.checkpoint_dir)
     adjacency = (ckpt_mod.topology_fingerprint(topo)
                  if checkpointing and topo is not None else None)
@@ -1450,6 +1761,22 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
     # everything this process performs (saved into every checkpoint)
     quar_log = {int(r): np.asarray(ids, np.int64)
                 for r, ids in (cfg.quarantine_log or ())}
+    counters_on = tel.counters_on
+    counter_width = 0
+    if counters_on and not walk:
+        counter_width = 3 + (3 * num_shards
+                             if num_shards and tel.attribution_on else 0)
+    layout = StatsLayout(
+        state, records=tel.enabled or cfg.metrics_callback is not None,
+        extra=2 if observe is not None else 0, sentinel=sentinel_on,
+        mass=counters_on, counter_width=counter_width,
+        trace_width=NUM_TRACE_COLS if tel.traces_on and not walk else 0)
+
+    def emit(rec):
+        metrics.append(rec)
+        tel.metric(rec)
+        if cfg.metrics_callback:
+            cfg.metrics_callback(rec)
 
     def quar_meta():
         if not quar_log:
@@ -1463,7 +1790,7 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
         nonlocal state
         r = int(state.round)
         state, st = step(state, r, r)
-        return st.tolist()
+        return layout.parse(st.tolist())
 
     def take_engine(new):
         nonlocal step, observe
@@ -1473,27 +1800,20 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
     def after_events():
         """Gossip: observe the state again (events change legality)."""
         if observe is not None:
-            observe(noop_stats()[2:])
+            observe(noop_stats()["extra"])
 
-    # the chunk stats' layout: [round, done, *extra, loss?, *sentinel]
-    has_loss = hasattr(state, "loss")
-    tail = sentinel_width(state) if sentinel_on else 0
-    tracked = mass_stats_tracked(state)
-    mass_dt = state.w.dtype if hasattr(state, "w") else torch.float32
-    cols = state.s.shape[1] if tracked and state.s.dim() == 2 else 1
-
-    def base_of(vals):
-        if not tracked:
-            return None
-        words = _from_words(vals[len(vals) - tail + 1:],
-                            str(mass_dt).split(".")[-1])
-        return (words[:cols] if cols > 1 else words[0], words[cols])
+    def save_checkpoint(**attrs):
+        with tel.span("checkpoint_save", round=cur_round, **attrs):
+            checkpoints.append(ckpt_mod.save(
+                cfg.checkpoint_dir, trim(state), cfg, topo_kind,
+                adjacency=adjacency, extra_meta=quar_meta()))
 
     mass_base = None
-    if sentinel_on:
+    if sentinel_on or counters_on:
         # the baseline from the chunk's own reduction (a no-op chunk), so
         # a lossless run drifts by exactly 0 ULPs
-        mass_base = base_of(noop_stats())
+        with tel.span("mass_baseline"):
+            mass_base = noop_stats()["mass"]
 
     t0 = time.perf_counter()
     while cur_round < cfg.max_rounds:
@@ -1502,46 +1822,97 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
                 state, run_topo, cur_round, rebuild)
             take_engine(new)
             excluded_s += sum(rec.get("warm_s", 0.0) for rec in recs)
-            metrics.extend(recs)
+            for rec in recs:
+                emit(rec)
             if reborn and mass_base is not None:
                 # revived rows changed the conserved quantity itself
-                mass_base = base_of(noop_stats())
+                mass_base = noop_stats()["mass"]
             after_events()
         next_event = (host_events.next_round(cfg.max_rounds)
                       if host_events is not None else cfg.max_rounds)
         round_limit = min(cur_round + cfg.chunk, cfg.max_rounds, next_event)
-        state, stats = step(state, cur_round, round_limit)
-        chunk_i += 1
-        vals = stats.tolist()  # the chunk's one fetch
-        prev = cur_round
-        cur_round, done = vals[0], bool(vals[1])
-        extra = vals[2:len(vals) - tail]
-        rec = {"round": cur_round, "done": done}
-        if has_loss:
-            rec["train_loss"] = float(_f32(extra[-1]))
-            extra = extra[:-1]
+        if budget is not None:
+            # stop exactly at the budget, so the over-budget record
+            # carries the budget round, not the chunk boundary past it
+            round_limit = min(round_limit, budget)
+        chunk_start = cur_round
+        with tel.span("chunk", round_start=cur_round,
+                      round_limit=round_limit):
+            state, stats = step(state, cur_round, round_limit)
+            chunk_i += 1
+            # the chunk's one fetch, and the sync point: the span covers
+            # the card's work, not only the enqueue
+            got = layout.parse(stats.tolist())
+        cur_round, done = got["round"], got["done"]
+        ran = cur_round - chunk_start
+        extra = got["extra"]
+        rec = {"round": cur_round, **got["metric"]}
+        if observe is not None:
+            rec["spreading"] = extra[0]
+        if got["train_loss"] is not None:
+            rec["train_loss"] = got["train_loss"]
         # the kernel adds the rounds it ran to `round` itself
-        executed += (cur_round - prev) if fused else (round_limit - prev)
+        executed += ran if fused else (round_limit - chunk_start)
+        if got["trace"] is not None and ran > 0:
+            # valid prefix only: one row per round this chunk ran
+            tel.add_trace_rows(chunk_start, got["trace"][:ran])
+        rows = got["counters"]
+        if walk and counters_on:
+            rows = np.tile(np.asarray(WALK_HOP_COUNTS, np.int64), (ran, 1))
+        if rows is not None:
+            # per-round int32 rows of the rounds that ran; totals as
+            # Python ints, so long runs never overflow
+            sent, delivered, dropped = (int(x) for x in
+                                        rows[:ran].sum(axis=0))
+            rec["sent"] = sent
+            rec["delivered"] = delivered
+            rec["dropped"] = dropped
+            tel.add_counters(sent, delivered, dropped)
+            if got["shard_counters"] is not None:
+                # per-shard attribution: the unreduced partials, whose sum
+                # over shards must reproduce the totals exactly
+                per_shard = got["shard_counters"][:ran].sum(axis=0)
+                total = per_shard.sum(axis=0)
+                if (total != np.asarray([sent, delivered, dropped])).any():
+                    raise AssertionError(
+                        f"per-shard counter partials do not sum to the "
+                        f"reduced totals: {per_shard.tolist()} -> "
+                        f"{total.tolist()} != "
+                        f"{[sent, delivered, dropped]} (round={cur_round})")
+                tel.add_shard_counters(per_shard)
         stalled = (not done and observe is not None
                    and bool(observe(extra)))
-        if stalled:
-            rec["stalled"] = True
-        trip_dev = mass_trip = False
-        if sentinel_on:
-            trip_dev = bool(vals[len(vals) - tail])
-            chunk_mass = base_of(vals)
-        if sentinel_on and tracked:
+        trip_dev = got["trip"]
+        mass_trip = False
+        if got["mass"] is not None and mass_base is not None:
             # a vector payload drifts by its worst column
-            s_ulps = ulp_drift(chunk_mass[0], mass_base[0])
-            w_ulps = ulp_drift(chunk_mass[1], mass_base[1])
+            s_ulps = ulp_drift(got["mass"][0], mass_base[0])
+            w_ulps = ulp_drift(got["mass"][1], mass_base[1])
             rec["mass_drift_ulps"] = s_ulps
             rec["w_drift_ulps"] = w_ulps
-            mass_trip = any((not np.isfinite(u)) or u > SENTINEL_MASS_ULPS
-                            for u in (s_ulps, w_ulps))
+            tel.note_mass_drift(s_ulps, w_ulps)
+            if sentinel_on:
+                mass_trip = any((not np.isfinite(u))
+                                or u > SENTINEL_MASS_ULPS
+                                for u in (s_ulps, w_ulps))
+        if rec.get("w_underflow", 0) and not underflow_warned:
+            import sys as _sys
+
+            print(
+                f"warning: {rec['w_underflow']} alive node(s) underflowed "
+                "w to 0 in a receipt dry spell — float32 single-target "
+                "push-sum cannot certify convergence past this point. "
+                "Use --fanout all (no dry spells by construction) or "
+                "--x64 (covers ~1000-round gaps).",
+                file=_sys.stderr,
+            )
+            underflow_warned = True
+        if stalled:
+            rec["stalled"] = True
         trip = trip_dev or mass_trip
         if trip:
             rec["sentinel_trip"] = True
-        metrics.append(rec)
+        emit(rec)
         if trip:
             # handled BEFORE the checkpoint save: under quarantine and
             # rollback no poisoned state is ever published, so every
@@ -1551,7 +1922,9 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
             ev = {"event": "sentinel_trip", "round": cur_round,
                   "cause": "nonfinite" if trip_dev else "mass_drift",
                   "nodes": int(bad_ids.size), "mode": cfg.sentinel}
-            metrics.append(ev)
+            emit(ev)
+            tel.event("sentinel_trip",
+                      **{k: v for k, v in ev.items() if k != "event"})
 
             def requarantine(at_round, ids):
                 nonlocal state, run_topo, excluded_s
@@ -1559,13 +1932,18 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
                     state, run_topo, at_round, ids, rebuild)
                 take_engine(new)
                 excluded_s += sum(qr.get("warm_s", 0.0) for qr in q_recs)
-                metrics.extend(q_recs)
+                for qr in q_recs:
+                    emit(qr)
+                    if qr.get("event") == "quarantine":
+                        tel.event("quarantine", round=at_round,
+                                  nodes=qr["nodes"], policy=qr["policy"])
                 quar_log[at_round] = np.union1d(
                     quar_log.get(at_round, np.empty(0, np.int64)), ids)
 
             def reanchor():
                 nonlocal mass_base
-                mass_base = base_of(noop_stats())
+                if mass_base is not None:
+                    mass_base = noop_stats()["mass"]
 
             if cfg.sentinel in ("quarantine", "rollback") and bad_ids.size:
                 if rebuild is None:
@@ -1589,42 +1967,50 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
                     )
 
                     c_path, c_round = target
-                    rb_state, _rb_meta = ckpt_mod.load(c_path)
-                    # quarantines of the abandoned timeline (r > C) go; one
-                    # at exactly C merges with the new bad set
-                    merged = np.union1d(
-                        quar_log.get(c_round, np.empty(0, np.int64)),
-                        bad_ids)
-                    quar_log = {r: v for r, v in quar_log.items()
-                                if r < c_round}
-                    run_topo = replay_topology_events(
-                        topo, cfg.schedule, cfg.events, cfg.repair,
-                        cfg.seed, c_round, quarantines=quar_log)
-                    state = type(rb_state)(*(t.to(dev) for t in rb_state))
-                    # a fresh engine at C restores the events the old one
-                    # consumed on the abandoned path
-                    host_events = HostEvents(topo, cfg, start_round=c_round)
-                    prev_topo = run_topo
-                    requarantine(c_round, merged)
-                    if run_topo is prev_topo and (
-                            cfg.repair != "off" or cfg.events.has_events):
-                        # the adjacency at C can differ from the one the
-                        # current round was built against
-                        new, state, info = rebuild(run_topo, state)
-                        take_engine(new)
-                        excluded_s += info.get("warm_s", 0.0)
-                    cur_round = c_round
-                    metrics.append({"event": "rollback", "round": cur_round,
-                                    "from_round": int(ev["round"]),
-                                    "checkpoint": c_path,
-                                    "nodes": int(merged.size)})
+                    with tel.span("sentinel_rollback", round=cur_round,
+                                  target_round=c_round):
+                        rb_state, _rb_meta = ckpt_mod.load(c_path)
+                        # quarantines of the abandoned timeline (r > C)
+                        # go; one at exactly C merges with the new bad set
+                        merged = np.union1d(
+                            quar_log.get(c_round, np.empty(0, np.int64)),
+                            bad_ids)
+                        quar_log = {r: v for r, v in quar_log.items()
+                                    if r < c_round}
+                        run_topo = replay_topology_events(
+                            topo, cfg.schedule, cfg.events, cfg.repair,
+                            cfg.seed, c_round, quarantines=quar_log)
+                        state = type(rb_state)(*(t.to(dev)
+                                                 for t in rb_state))
+                        # a fresh engine at C restores the events the old
+                        # one consumed on the abandoned path
+                        host_events = HostEvents(topo, cfg,
+                                                 start_round=c_round,
+                                                 tel=tel)
+                        prev_topo = run_topo
+                        requarantine(c_round, merged)
+                        if run_topo is prev_topo and (
+                                cfg.repair != "off"
+                                or cfg.events.has_events):
+                            # the adjacency at C can differ from the one
+                            # the current round was built against
+                            new, state, info = rebuild(run_topo, state)
+                            take_engine(new)
+                            excluded_s += info.get("warm_s", 0.0)
+                        cur_round = c_round
+                        emit({"event": "rollback", "round": cur_round,
+                              "from_round": int(ev["round"]),
+                              "checkpoint": c_path,
+                              "nodes": int(merged.size)})
+                        tel.event("rollback", round=cur_round,
+                                  from_round=int(ev["round"]),
+                                  nodes=int(merged.size))
                 else:
                     if cfg.sentinel == "rollback":
                         # no checkpoint predates the trip: contain in place
-                        metrics.append({
-                            "event": "rollback_fallback",
-                            "round": cur_round,
-                            "reason": "no checkpoint predates the trip"})
+                        emit({"event": "rollback_fallback",
+                              "round": cur_round,
+                              "reason": "no checkpoint predates the trip"})
                     requarantine(cur_round, bad_ids)
                 # the quarantine zeroed rows: re-anchor the drift baseline
                 reanchor()
@@ -1637,14 +2023,49 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
             # an unattributable mass-level trip: accept the new level
             reanchor()
         if checkpointing and chunk_i % cfg.checkpoint_every == 0:
-            checkpoints.append(ckpt_mod.save(
-                cfg.checkpoint_dir, trim(state), cfg, topo_kind,
-                adjacency=adjacency, extra_meta=quar_meta()))
-        if done or stalled:
+            save_checkpoint()
+        if budget is not None and not done and cur_round >= budget:
+            # the run is not converging at the configured (or predicted)
+            # rate: stop and leave a structured record instead of
+            # grinding on to max_rounds
+            over_budget = True
+            ob = {"event": "over_budget", "round": cur_round,
+                  "budget_rounds": budget,
+                  "budget_source": ("auto" if cfg.round_budget == "auto"
+                                    else "explicit")}
+            if prediction is not None:
+                ob["predicted_rounds"] = prediction.get("predicted_rounds")
+            emit(ob)
+            tel.event("over_budget",
+                      **{k: v for k, v in ob.items() if k != "event"})
+        if not done and _stop_check is not None and _stop_check():
+            # graceful drain: a checkpoint off the cadence, so the resume
+            # loses nothing, a record, and a result stamped "drain"
+            drained = True
+            if checkpointing:
+                save_checkpoint(reason="drain")
+            emit({"event": "drained", "round": cur_round,
+                  "checkpointed": checkpointing})
+            tel.event("drained", round=cur_round,
+                      checkpointed=checkpointing)
+        if done or stalled or over_budget or drained:
             break
-    if state.round.is_cuda:
-        torch.cuda.synchronize(state.round.device)
+    with tel.span("device_sync"):
+        if state.round.is_cuda:
+            torch.cuda.synchronize(state.round.device)
     wall_ms = (time.perf_counter() - t0 - excluded_s) * 1e3
+    if prediction is not None:
+        # close the loop: the manifest's prediction block records what
+        # happened next to what was predicted
+        prediction["actual_rounds"] = cur_round
+        prediction["converged"] = bool(done)
+        prediction["over_budget"] = over_budget
+        pr = prediction.get("predicted_rounds")
+        if pr:
+            prediction["actual_over_predicted"] = round(cur_round / pr, 4)
+        tel.event("predicted_vs_actual",
+                  predicted_rounds=pr, actual_rounds=cur_round,
+                  converged=bool(done), over_budget=over_budget)
     state = trim(state)
     return RunResult(
         converged=bool(done), rounds=cur_round, wall_ms=wall_ms,
@@ -1652,7 +2073,7 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
         algorithm=cfg.algorithm,
         final_state=type(state)(*(t.cpu() for t in state)),
         rounds_executed=executed, metrics=metrics,
-        checkpoints=checkpoints,
+        checkpoints=checkpoints, stopped="drain" if drained else None,
     )
 
 
@@ -1717,8 +2138,18 @@ def run_simulation(topo: Topology, cfg: RunConfig,
     new topology with the general dead-set path, its device arrays — for
     ``pallas`` and ``routed`` the plans, through the plan cache under the
     new CSR's key — are placed, and its chunk is warmed (kept out of
-    ``wall_ms``); a failed build raises."""
+    ``wall_ms``); a failed build raises. The counters of a rebuilt round
+    recount through the rebuilt delivery.
+
+    With ``cfg.telemetry`` the builds, the warm-up and the prediction are
+    spans of the hub, and the chunk runners carry the counter and trace
+    rows of ``obs/`` (:func:`make_chunk_runner`)."""
+    from gossipprotocol_tpu_torch.obs import as_telemetry
+
     dev = resolve_device(cfg.device)
+    tel = as_telemetry(cfg.telemetry)
+    walk = is_walk(cfg)
+    records = tel.enabled or cfg.metrics_callback is not None
     run_topo = topo
     if initial_state is not None and (
             cfg.repair != "off" or cfg.events.has_events
@@ -1729,19 +2160,36 @@ def run_simulation(topo: Topology, cfg: RunConfig,
         from gossipprotocol_tpu_torch.events import replay_topology
 
         run_topo = replay_topology(topo, cfg, int(initial_state.round))
-    state, round_core, done_fn, _ = build_protocol(
-        run_topo, cfg,
-        allow_all_alive=resume_allows_fast(topo, initial_state))
-    if initial_state is not None:
-        state = type(state)(*(t.to(dev).clone() for t in initial_state))
+    with tel.span("protocol_build", engine="single-card"):
+        state, round_core, done_fn, flags = build_protocol(
+            run_topo, cfg,
+            allow_all_alive=resume_allows_fast(topo, initial_state))
+        if initial_state is not None:
+            state = type(state)(*(t.to(dev).clone() for t in initial_state))
     sentinel_fn = make_sentinel_fn(cfg) if cfg.sentinel != "off" else None
     base_key = key_data(cfg.seed, dev)
 
-    def make_step(ctopo, core, done, delivery):
+    def telemetry_fns(ctopo, run_flags):
+        """``(counter_fn, trace_fn)`` of one build of the round."""
+        counter_fn = trace_fn = None
+        if tel.counters_on:
+            from gossipprotocol_tpu_torch.obs.counters import make_counter_fn
+
+            counter_fn = make_counter_fn(ctopo, cfg, all_alive=run_flags[0],
+                                         targets_alive=run_flags[1])
+        if tel.traces_on and not walk:
+            from gossipprotocol_tpu_torch.obs.trace import make_trace_fn
+
+            trace_fn = make_trace_fn(ctopo, cfg)
+        return counter_fn, trace_fn
+
+    def make_step(ctopo, core, done, delivery, run_flags, label="chunk"):
         """``(step, observe)`` for one build of the round."""
         gossip = isinstance(core, GossipCore)
         extra_stats = core.extra_stats if gossip else None
-        if is_walk(cfg):
+        counter_fn, trace_fn = telemetry_fns(ctopo, run_flags)
+        stats_kw = dict(records=records, mass=tel.counters_on)
+        if walk:
             from gossipprotocol_tpu_torch.protocols.walk import (
                 make_walk_chunk_runner,
             )
@@ -1750,42 +2198,54 @@ def run_simulation(topo: Topology, cfg: RunConfig,
                 delivery, ctopo.num_nodes, streak_target=cfg.streak_target,
                 quorum=(ctopo.num_nodes if cfg.alert_quorum is None
                         else cfg.alert_quorum),
-                base_key=base_key, done_fn=done)
+                base_key=base_key, done_fn=done, **stats_kw)
         elif use_megakernel(cfg):
-            runner = make_megakernel_chunk_runner(core, done,
-                                                  cfg.rounds_per_kernel)
+            runner = make_megakernel_chunk_runner(
+                core, done, cfg.rounds_per_kernel, counter_fn=counter_fn,
+                trace_fn=trace_fn, **stats_kw)
         else:
             runner = make_chunk_runner(
                 core, done, extra_stats,
                 base_key=base_key if draws(cfg) else None,
-                sentinel_fn=sentinel_fn)
+                sentinel_fn=sentinel_fn, counter_fn=counter_fn,
+                trace_fn=trace_fn, **stats_kw)
+        tel.record_compiled(
+            label, None, engine="single-card", delivery=cfg.delivery,
+            rounds_per_kernel=(cfg.rounds_per_kernel if use_megakernel(cfg)
+                               else None),
+            hub_split=(getattr(tel, "hub_split", None) or {}).get(
+                "classes"))
 
         def step(s, start_round, round_limit):
             return runner(s, delivery, start_round, round_limit)
 
         return step, (core.observe if gossip else None)
 
-    delivery = device_arrays(run_topo, cfg)
-    step, observe = make_step(run_topo, round_core, done_fn, delivery)
+    with tel.span("plan_compile", engine="single-card"):
+        delivery = device_arrays(run_topo, cfg, tel=tel)
+    prediction = compute_prediction(run_topo, cfg, tel)
+    step, observe = make_step(run_topo, round_core, done_fn, delivery, flags)
 
     def observe_state(step_fn, observe_fn, st):
         if observe_fn is not None:
             # the first chunk's branch, from the state it starts from
             r = int(st.round)
-            observe_fn(step_fn(st, r, r)[1].tolist()[2:])
+            observe_fn(step_fn(st, r, r)[1].tolist()[2:4])
 
     t0 = time.perf_counter()
-    warm_start(step, state)
-    observe_state(step, observe, state)
+    with tel.span("warm_start"):
+        warm_start(step, state)
+        observe_state(step, observe, state)
     compile_ms = (time.perf_counter() - t0) * 1e3
 
     def rebuild(new_topo, st):
         t0p = time.perf_counter()
-        _, core2, done2, _ = build_protocol(new_topo, cfg,
-                                            allow_all_alive=False)
-        delivery2 = device_arrays(new_topo, cfg)
+        _, core2, done2, flags2 = build_protocol(new_topo, cfg,
+                                                 allow_all_alive=False)
+        delivery2 = device_arrays(new_topo, cfg, tel=tel)
         plan_patch_s = time.perf_counter() - t0p
-        step2, observe2 = make_step(new_topo, core2, done2, delivery2)
+        step2, observe2 = make_step(new_topo, core2, done2, delivery2,
+                                    flags2, label="chunk_rebuild")
         t0w = time.perf_counter()
         warm_start(step2, st)
         observe_state(step2, observe2, st)
@@ -1795,7 +2255,7 @@ def run_simulation(topo: Topology, cfg: RunConfig,
 
     return _drive(cfg, state, step, topo.num_nodes, compile_ms,
                   observe=observe, topo=topo, rebuild=rebuild,
-                  run_topo=run_topo)
+                  run_topo=run_topo, prediction=prediction, walk=walk)
 
 
 def resume_simulation(topo: Topology, cfg: RunConfig, state) -> RunResult:

@@ -98,8 +98,11 @@ class HostEvents:
     chunk at the next event and calls :meth:`fire` between chunks.
     """
 
-    def __init__(self, topo: Topology, cfg, start_round: int):
+    def __init__(self, topo: Topology, cfg, start_round: int, tel=None):
+        from gossipprotocol_tpu_torch.obs import as_telemetry
+
         sched = cfg.schedule
+        self.tel = as_telemetry(tel)
         self.plan = cfg.events
         if self.plan.has_events and topo.implicit_full:
             raise ValueError(
@@ -145,10 +148,26 @@ class HostEvents:
 
     def fire(self, state, run_topo, cur_round: int, rebuild):
         """Fire everything due at ``cur_round`` through the unified
-        pipeline. Returns ``(state, run_topo, new_step_or_None, records,
-        reborn_count)`` — ``new_step`` is what ``rebuild`` returned when
-        the adjacency changed (the caller swaps it in and re-anchors its
-        mass baseline if ``reborn_count``)."""
+        pipeline, inside the telemetry hub's ``fault_event`` span. Returns
+        ``(state, run_topo, new_step_or_None, records, reborn_count)`` —
+        ``new_step`` is what ``rebuild`` returned when the adjacency
+        changed (the caller swaps it in and re-anchors its mass baseline
+        if ``reborn_count``)."""
+        due = lambda ev: sum(1 for r in ev if r <= cur_round)  # noqa: E731
+        attrs = dict(round=cur_round, kills=due(self.kills),
+                     revives=due(self.revives))
+        edge = len({r for ev in (self.adds, self.removes, self.swaps)
+                    for r in ev if r <= cur_round}
+                   | set(_due_churn_rounds(self.plan, self._churn_next,
+                                           cur_round)))
+        if edge:
+            attrs["edge_events"] = edge
+        if due(self.value_faults):
+            attrs["value_faults"] = due(self.value_faults)
+        with self.tel.span("fault_event", **attrs):
+            return self._fire(state, run_topo, cur_round, rebuild)
+
+    def _fire(self, state, run_topo, cur_round: int, rebuild):
         from gossipprotocol_tpu_torch.engine.driver import (
             _mass_snapshot, inject_value_fault, revive_rows,
         )

@@ -28,7 +28,9 @@ import torch
 
 from gossipprotocol_tpu_torch.learn.data import lsq_node_grad, lsq_node_loss
 from gossipprotocol_tpu_torch.ops.build import resolve_device
-from gossipprotocol_tpu_torch.protocols.pushsum import sum0
+from gossipprotocol_tpu_torch.protocols.pushsum import (
+    pushsum_trace_row, sum0, tree_sum0,
+)
 from gossipprotocol_tpu_torch.protocols.state import SGPState, torch_dtype
 
 
@@ -75,6 +77,15 @@ def with_loss(st: SGPState, prev_loss: torch.Tensor, bundle,
                  / torch.clamp(sum0(alive_f), min=1)).to(torch.float32)
     plateau = torch.abs(mean_loss - prev_loss) <= loss_tol
     return st._replace(converged=st.converged & plateau, loss=mean_loss)
+
+
+def sgp_trace_row(state: SGPState, *, all_sum=tree_sum0,
+                  all_max=torch.max):
+    """Observatory trace row for SGP (the JAX package's ``sgp_trace_row``):
+    push-sum's consensus and mass columns plus the mean train loss the
+    state already carries (``pushsum_trace_row`` picks the ``loss`` field
+    up)."""
+    return pushsum_trace_row(state, all_sum=all_sum, all_max=all_max)
 
 
 def make_sgp_core(mix_core, *, lr: float, local_steps: int,

@@ -796,6 +796,52 @@ def pushsum_diffusion_round_routed_push(
     )
 
 
+def shard_routed_message_counts(state, shard_rd: ShardPushDelivery, *,
+                                num_shards: int, fast_alive: bool,
+                                all_alive: bool, exchange: str = "all_to_all",
+                                key: Optional[torch.Tensor] = None,
+                                clock: tuple = ()) -> torch.Tensor:
+    """Telemetry recount of one sharded push-design round: int32 ``[S,
+    3]``, each shard's ``[sent, delivered, dropped]`` over the rows it
+    owns (``obs/counters.py`` semantics; the JAX package's
+    ``shard_routed_message_counts`` before its ``psum``).
+
+    The push design takes no loss windows, so ``dropped`` is 0. On the
+    fast paths ``sent == delivered == Σ degree`` over each shard's live
+    rows (float32 per shard, saturated to int32, as the JAX package
+    counts). Under an arbitrary dead set the recount repeats the round's
+    live-degree matvec through the same exchange."""
+    from gossipprotocol_tpu_torch.obs.counters import clip_count
+
+    deg = shard_rd.degree.reshape(-1).to(torch.float32)
+    rows = deg.shape[0]
+    active = None
+    if clock:
+        from gossipprotocol_tpu_torch.async_.clock import activation_mask
+
+        active = activation_mask(key, clock, torch.arange(
+            rows, dtype=torch.int64, device=deg.device))
+        deg = torch.where(active, deg, torch.zeros_like(deg))
+
+    def per_shard(x):
+        return clip_count(torch.sum(x.view(num_shards, -1), dim=1))
+
+    zero = torch.zeros(num_shards, dtype=torch.int32, device=deg.device)
+    if all_alive:
+        sent = per_shard(deg)
+        return torch.stack([sent, sent, zero], dim=1)
+    sent = per_shard(torch.where(state.alive, deg, torch.zeros_like(deg)))
+    if fast_alive:
+        return torch.stack([sent, sent, zero], dim=1)
+    alive_f = state.alive.to(torch.float32)
+    live_deg, _ = shard_rd.matvec(alive_f, alive_f, exchange=exchange)
+    if active is not None:
+        live_deg = torch.where(active, live_deg, torch.zeros_like(live_deg))
+    delivered = per_shard(torch.where(state.alive, live_deg,
+                                      torch.zeros_like(live_deg)))
+    return torch.stack([sent, delivered, zero], dim=1)
+
+
 def push_exchange_bytes_per_round(sd: ShardPushDelivery) -> int:
     """Per-shard payload of one push-design matvec's exchange: the ``[S,
     2*block_pairs]`` f32 slab (one matvec per round on the fast paths,

@@ -16,6 +16,14 @@ the supervisor's ``global_done`` sums the per-shard unconverged counts.
 The chunk loop is the single-card engine's (``engine/driver.py``): the
 freeze-on-done chunk runner, the warm-up chunk and ``_drive``. All shards
 live on the run's one card (``parallel/mesh.py``).
+
+Telemetry (``cfg.telemetry``) is the single-card engine's too, with the
+JAX sharded engine's additions: the message counters are counted per
+shard (``ops/sharddelivery.py`` ``shard_routed_message_counts``) and
+summed over shards, the per-shard rows feed the manifest's shard-balance
+block (``Telemetry.add_shard_counters``), the trace rows sum in shard
+order, and the exchange's bytes a round are noted beside the plans'
+table bytes.
 """
 
 from __future__ import annotations
@@ -32,8 +40,10 @@ from gossipprotocol_tpu_torch.engine.driver import (
     RunConfig,
     RunResult,
     _drive,
+    compute_prediction,
     initial_alive,
     make_chunk_runner,
+    note_hub_split,
     resume_allows_fast,
     sharded_unported,
     use_megakernel,
@@ -142,10 +152,36 @@ def make_sharded_chunk_runner(topo, cfg: RunConfig,
     """``(chunk, initial padded state, done_fn)``:
     ``chunk(state, plans, start_round, round_limit)`` advances the padded
     state (:func:`sharded_protocol`) until convergence or
-    ``round_limit``."""
+    ``round_limit``, with the telemetry hub's counter and trace rows when
+    ``cfg.telemetry`` has them on."""
+    from gossipprotocol_tpu_torch.obs import as_telemetry
+
+    tel = as_telemetry(cfg.telemetry)
+    num_shards = len(mesh)
+    n_padded = padded_size(topo.num_nodes, num_shards)
+    all_alive = (allow_all_alive and initial_alive(topo) is None
+                 and n_padded == topo.num_nodes)
     state, core, done_fn = sharded_protocol(topo, cfg, mesh,
                                             allow_all_alive)
-    return make_chunk_runner(core, done_fn), state, done_fn
+    counter_fn = trace_fn = None
+    if tel.counters_on:
+        from gossipprotocol_tpu_torch.obs.counters import make_counter_fn
+
+        shard_fn = make_counter_fn(topo, cfg, all_alive=all_alive,
+                                   targets_alive=allow_all_alive,
+                                   num_shards=num_shards)
+        # the per-shard rows ride the stats only for the attribution
+        counter_fn = shard_fn if tel.attribution_on else (
+            lambda *a: torch.sum(shard_fn(*a), dim=0).to(torch.int32))
+    if tel.traces_on:
+        from gossipprotocol_tpu_torch.obs.trace import make_trace_fn
+
+        trace_fn = make_trace_fn(topo, cfg, all_sum=shard_sum(num_shards))
+    runner = make_chunk_runner(
+        core, done_fn, counter_fn=counter_fn, trace_fn=trace_fn,
+        records=tel.enabled or cfg.metrics_callback is not None,
+        mass=tel.counters_on)
+    return runner, state, done_fn
 
 
 def run_simulation_sharded(topo, cfg: RunConfig,
@@ -163,6 +199,8 @@ def run_simulation_sharded(topo, cfg: RunConfig,
     continues from a trimmed state; a dead set other than the birth
     exclusions takes the live-degree path."""
     from gossipprotocol_tpu_torch.convert import shard_push_from_numpy
+    from gossipprotocol_tpu_torch.obs import as_telemetry
+    from gossipprotocol_tpu_torch.ops import sharddelivery
     from gossipprotocol_tpu_torch.ops.plancache import (
         shard_push_deliveries_cached,
     )
@@ -183,25 +221,47 @@ def run_simulation_sharded(topo, cfg: RunConfig,
             "run on one shard: drop --devices)")
     if mesh is None:
         mesh = make_mesh(num_devices, cfg.device)
+    tel = as_telemetry(cfg.telemetry)
     n = topo.num_nodes
     num_shards = len(mesh)
     n_padded = padded_size(n, num_shards)
-    host, _prov = shard_push_deliveries_cached(
-        topo, n_padded, num_shards, cache_dir=cfg.plan_cache,
-        build_workers=cfg.build_workers)
-    plans = shard_push_from_numpy(host, device=mesh[0])
-    runner, state, _ = make_sharded_chunk_runner(
-        topo, cfg, mesh,
-        allow_all_alive=resume_allows_fast(topo, initial_state))
-    if initial_state is not None:
-        state = pad_state(PushSumState(*(t.to(mesh[0]).clone()
-                                         for t in initial_state)), n_padded)
+    with tel.span("plan_compile", engine="sharded"):
+        host, prov = shard_push_deliveries_cached(
+            topo, n_padded, num_shards, cache_dir=cfg.plan_cache,
+            build_workers=cfg.build_workers)
+        plans = shard_push_from_numpy(host, device=mesh[0])
+    if tel.enabled:
+        exch = sharddelivery.push_exchange_wire_bytes_per_round(
+            host, cfg.payload_wire)
+        tel.event("plan_cache", provenance=prov, design="push",
+                  num_shards=num_shards, exchange_bytes_per_round=exch)
+        tel.note_resource("exchange_bytes_per_round", exch)
+        tel.note_resource("routed_table_bytes",
+                          sharddelivery.table_bytes(host))
+        note_hub_split(tel, topo)
+    with tel.span("topology_arrays", engine="sharded"):
+        runner, state, _ = make_sharded_chunk_runner(
+            topo, cfg, mesh,
+            allow_all_alive=resume_allows_fast(topo, initial_state))
+        if initial_state is not None:
+            state = pad_state(PushSumState(*(t.to(mesh[0]).clone()
+                                             for t in initial_state)),
+                              n_padded)
+    tel.record_compiled(
+        "chunk", None, engine="sharded", num_shards=num_shards,
+        delivery=cfg.delivery,
+        payload_wire=(cfg.payload_wire if cfg.payload_wire != "f32"
+                      else None),
+        hub_split=(getattr(tel, "hub_split", None) or {}).get("classes"))
 
     def step(s, start_round, round_limit):
         return runner(s, plans, start_round, round_limit)
 
+    prediction = compute_prediction(topo, cfg, tel)
     t0 = time.perf_counter()
-    warm_start(step, state)
+    with tel.span("warm_start"):
+        warm_start(step, state)
     compile_ms = (time.perf_counter() - t0) * 1e3
     return _drive(cfg, state, step, n, compile_ms,
-                  trim=lambda s: trim_state(s, n))
+                  trim=lambda s: trim_state(s, n), prediction=prediction,
+                  num_shards=num_shards)

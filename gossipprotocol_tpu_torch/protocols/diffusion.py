@@ -29,7 +29,7 @@ import torch
 
 from gossipprotocol_tpu_torch.ops.build import resolve_device
 from gossipprotocol_tpu_torch.protocols.pushsum import (
-    finish_pushsum_round, rowmask, sum0,
+    finish_pushsum_round, pushsum_trace_row, rowmask, sum0, tree_sum0,
 )
 from gossipprotocol_tpu_torch.protocols.sampling import (
     LOSS_FOLD, drop_mask, fold_in, loss_probability,
@@ -300,3 +300,129 @@ def pushsum_diffusion_round(
     return finish_pushsum_round(
         state, s_new, w_new, eps=eps, streak_target=streak_target,
         predicate=predicate, tol=tol, all_alive=all_alive)
+
+
+# ---- telemetry: message counters and the trace row ------------------------
+
+def diffusion_message_counts(
+    old: PushSumState,
+    nbrs: Optional[DiffusionEdges],
+    key: Optional[torch.Tensor],
+    *,
+    n: int,
+    all_alive: bool,
+    targets_alive: bool,
+    loss_windows: tuple,
+    clock: tuple = (),
+) -> torch.Tensor:
+    """Telemetry recount of one fanout-all scatter round: int32 ``[sent,
+    delivered, dropped]`` (``obs/counters.py`` semantics; the JAX
+    package's ``diffusion_message_counts``).
+
+    Walks the same edge list with the same per-edge masks (target
+    liveness, the (src, dst)-keyed drop mask, the senders' clock) the
+    round applied — read-only, one extra pass over E per round while
+    telemetry is on. The implicit complete graph has no edges: every
+    alive node attempts ``a − 1`` sends and all land, counted in float32
+    and saturated to int32."""
+    from gossipprotocol_tpu_torch.obs.counters import clip_count
+
+    rows = old.w.shape[0]
+    dev = old.w.device
+    active = _active_rows(key, clock, rows, dev)
+    if nbrs is None:
+        send_rows = None if all_alive else old.alive
+        if active is not None:
+            send_rows = active if send_rows is None else send_rows & active
+        a = (torch.full((), float(n), dtype=torch.float32, device=dev)
+             if all_alive else sum0(old.alive.to(torch.float32)))
+        local = (torch.full((), float(rows), dtype=torch.float32,
+                            device=dev) if send_rows is None
+                 else torch.sum(send_rows.to(torch.float32)))
+        cnt = clip_count(local * torch.clamp(a - 1.0, min=0.0))
+        return torch.stack([cnt, cnt, torch.zeros_like(cnt)])
+
+    mask = None if all_alive else old.alive[nbrs.src]
+    if active is not None:
+        src_active = active[nbrs.src]
+        mask = src_active if mask is None else mask & src_active
+    sent = (torch.full((), nbrs.src.shape[0], dtype=torch.int32, device=dev)
+            if mask is None else torch.sum(mask.to(torch.int32)))
+    deliver = mask
+    if not (all_alive or targets_alive):
+        tgt_alive = old.alive[nbrs.dst]
+        deliver = tgt_alive if deliver is None else deliver & tgt_alive
+    if loss_windows:
+        keep = ~drop_mask(fold_in(key, LOSS_FOLD),
+                          loss_probability(old.round, loss_windows),
+                          nbrs.src, nbrs.dst)
+        if deliver is None:
+            dropped = torch.sum((~keep).to(torch.int32))
+            deliver = keep
+        else:
+            dropped = torch.sum((deliver & ~keep).to(torch.int32))
+            deliver = deliver & keep
+    else:
+        dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    delivered = (sent if deliver is None
+                 else torch.sum(deliver.to(torch.int32)))
+    return torch.stack([x.to(torch.int32) for x in (sent, delivered,
+                                                   dropped)])
+
+
+def routed_message_counts(
+    old: PushSumState,
+    delivery,  # ops.pallasdelivery.PallasDelivery or ops.delivery.RoutedDelivery
+    *,
+    n: int,
+    all_alive: bool,
+    targets_alive: bool,
+    key: Optional[torch.Tensor] = None,
+    clock: tuple = (),
+) -> torch.Tensor:
+    """Telemetry recount of one fused-gather or routed round (the JAX
+    package's ``routed_message_counts``).
+
+    The deliveries ship one share per directed edge of a live sender and
+    take no loss windows, so ``dropped`` is 0 and ``sent`` is Σ degree
+    over live rows (whose clock ticked). ``delivered`` equals ``sent`` on
+    the fast paths; under an arbitrary dead set the round recovers each
+    node's live-neighbour count with one extra ``matvec(alive, alive)``,
+    and the recount repeats it through the same delivery (its kernels
+    launch a second time in the round while faults are in force and
+    telemetry is on)."""
+    from gossipprotocol_tpu_torch.obs.counters import clip_count
+
+    dt = old.s.dtype
+    rows = old.s.shape[0]
+    deg = delivery.degree.to(dt)
+    active = None
+    if clock:
+        from gossipprotocol_tpu_torch.async_.clock import activation_mask
+
+        active = activation_mask(key, clock, torch.arange(
+            rows, dtype=torch.int64, device=key.device))
+        deg = torch.where(active, deg, torch.zeros_like(deg))
+    zero = torch.zeros((), dtype=torch.int32, device=deg.device)
+    if all_alive:
+        sent = clip_count(torch.sum(deg))
+        return torch.stack([sent, sent, zero])
+    sent = clip_count(torch.sum(torch.where(old.alive, deg,
+                                            torch.zeros_like(deg))))
+    if targets_alive:
+        return torch.stack([sent, sent, zero])
+    alive_f = old.alive.to(dt)
+    live_deg, _ = delivery.matvec(alive_f, alive_f)
+    if active is not None:
+        live_deg = torch.where(active, live_deg, torch.zeros_like(live_deg))
+    delivered = clip_count(torch.sum(torch.where(
+        old.alive, live_deg, torch.zeros_like(live_deg))))
+    return torch.stack([sent, delivered, zero])
+
+
+def diffusion_trace_row(state, *, all_sum=tree_sum0, all_max=torch.max):
+    """Observatory trace row for fanout-all diffusion (and the accelerated
+    two-buffer variants): diffusion shares ``PushSumState``'s (s, w,
+    ratio) fields, so the row IS push-sum's (the JAX package's
+    ``diffusion_trace_row``)."""
+    return pushsum_trace_row(state, all_sum=all_sum, all_max=all_max)

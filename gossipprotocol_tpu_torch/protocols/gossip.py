@@ -112,6 +112,65 @@ def gossip_round(state: GossipState, nbrs, base_key: torch.Tensor, *,
         inverted=inverted, loss_windows=loss_windows, clock=clock)
 
 
+def gossip_message_counts(old: GossipState, new: GossipState, nbrs,
+                          key: torch.Tensor, *, n: int, keep_alive: bool,
+                          all_alive: bool, loss_windows: tuple = (),
+                          clock: tuple = ()) -> torch.Tensor:
+    """Telemetry recount of one gossip round under its round key ``key``:
+    int32 ``[sent, delivered, dropped]`` (``obs/counters.py`` semantics;
+    the JAX package's ``gossip_message_counts``).
+
+    Read-only: ``sent`` is the spreader set :func:`gossip_round_core`
+    computed (re-derived from ``old`` with the same flags, the clock's
+    activation mask included), ``delivered`` is ΣΔcounts — hits actually
+    credited, exact in both delivery branches — and ``dropped`` re-draws
+    the same loss mask from the same key. Sends suppressed by a
+    converged/dead receiver count as sent but not delivered."""
+    from gossipprotocol_tpu_torch.protocols.sampling import send_valid_mask
+
+    spreaders = _spreaders(old, keep_alive, all_alive)
+    rows = old.counts.shape[0]
+    if clock:
+        from gossipprotocol_tpu_torch.async_.clock import activation_mask
+
+        spreaders = spreaders & activation_mask(
+            key, clock, torch.arange(rows, dtype=torch.int64,
+                                     device=key.device))
+    valid = send_valid_mask(nbrs, n)
+    sent_mask = spreaders if valid is None else spreaders & valid
+    sent = torch.sum(sent_mask.to(torch.int32))
+    delivered = (torch.sum(new.counts.to(torch.int32))
+                 - torch.sum(old.counts.to(torch.int32)))
+    if loss_windows:
+        drop = round_drops(key, old.round, loss_windows, n)
+        dropped = torch.sum((sent_mask & drop).to(torch.int32))
+    else:
+        dropped = torch.zeros((), dtype=torch.int64, device=sent.device)
+    return torch.stack([sent, delivered, dropped]).to(torch.int32)
+
+
+def gossip_trace_row(state: GossipState, *, all_sum=None,
+                     all_max=None) -> torch.Tensor:
+    """Observatory trace row for gossip (column contract in
+    :mod:`gossipprotocol_tpu_torch.obs.trace`; the JAX package's
+    ``gossip_trace_row``): the "residual" is the fraction of alive nodes
+    the rumor has not reached yet, the mass and train-loss columns NaN.
+    ``all_max`` is accepted for signature parity but unused."""
+    from gossipprotocol_tpu_torch.protocols.pushsum import tree_sum0
+
+    del all_max
+    if all_sum is None:
+        all_sum = tree_sum0
+    dt = torch.float32
+    alive = state.alive
+    n_alive = torch.clamp(all_sum(alive.to(dt)), min=1)
+    heard = all_sum(((state.counts >= 1) & alive).to(dt))
+    frac = all_sum((state.converged & alive).to(dt)) / n_alive
+    nan = torch.full((), float("nan"), dtype=dt, device=alive.device)
+    return torch.stack([(1 - heard / n_alive).to(dt), frac.to(dt), nan,
+                        nan, nan])
+
+
 def gossip_done(state: GossipState) -> torch.Tensor:
     """Supervisor predicate: every healthy node has converged."""
     return torch.all(state.converged | ~state.alive)

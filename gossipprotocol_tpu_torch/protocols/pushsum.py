@@ -31,6 +31,40 @@ def sum0(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dim=0)
 
 
+# XLA's CPU tree reduction: windows of this many rows, summed in order
+TREE_WINDOW = 32
+
+
+def tree_sum0(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the node axis in the order the JAX package's ``sum0``
+    takes on the CPU, for the telemetry's mass sums and trace rows: XLA
+    rewrites a long reduction into windows of :data:`TREE_WINDOW` rows
+    (zero-padded, the padding split evenly with the smaller half in
+    front), each summed in order from 0, level after level until at most
+    32 partial sums remain, which are summed in order from 0. On the card
+    it is ``torch.sum`` (these sums are read, never fed back into a
+    round, and a replay of the order would cost a launch an add)."""
+    if x.device.type != "cpu":
+        return torch.sum(x, dim=0)
+    rest = tuple(x.shape[1:])
+    while x.shape[0] > TREE_WINDOW:
+        n = x.shape[0]
+        m = -(-n // TREE_WINDOW)
+        pad = m * TREE_WINDOW - n
+        left = pad // 2
+        x = torch.cat([x.new_zeros((left,) + rest), x,
+                       x.new_zeros((pad - left,) + rest)]).view(
+                           (m, TREE_WINDOW) + rest)
+        acc = x.new_zeros((m,) + rest)
+        for j in range(TREE_WINDOW):
+            acc = acc + x[:, j]
+        x = acc
+    acc = x.new_zeros(rest)
+    for j in range(x.shape[0]):
+        acc = acc + x[j]
+    return acc
+
+
 def rowmask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """Broadcast a per-node ``[rows]`` mask against ``like`` (``[rows]``
     or ``[rows, d]``)."""
@@ -189,6 +223,48 @@ def pushsum_round(state: PushSumState, nbrs, base_key: torch.Tensor, *,
                               n=n, **kw)
 
 
+def pushsum_message_counts(old: PushSumState, nbrs, key: torch.Tensor, *,
+                           n: int, all_alive: bool, targets_alive: bool,
+                           delivery: str, loss_windows: tuple,
+                           clock: tuple = ()) -> torch.Tensor:
+    """Telemetry recount of one fanout-one round under its round key
+    ``key``: int32 ``[sent, delivered, dropped]`` (``obs/counters.py``
+    semantics; the JAX package's ``pushsum_message_counts``).
+
+    Re-derives the round's draws through the same
+    :func:`~gossipprotocol_tpu_torch.protocols.sampling.sample_neighbors`
+    and drop-mask calls :func:`pushsum_round_core` made — read-only.
+    ``sent`` counts live senders with a valid draw (whose clock ticked);
+    a half kept because the target was dead is sent-not-delivered, one
+    lost to a loss window is ``dropped``."""
+    if delivery == "invert":
+        # invert is legal only while every send lands: sent == delivered
+        valid = nbrs.degree > 0
+        deliver = valid if all_alive else valid & old.alive
+        cnt = torch.sum(deliver.to(torch.int32))
+        return torch.stack([cnt, cnt, torch.zeros_like(cnt)]).to(
+            torch.int32)
+    targets, valid = sample_neighbors(nbrs, n, key)
+    senders = valid if all_alive else valid & old.alive
+    if clock:
+        from gossipprotocol_tpu_torch.async_.clock import activation_mask
+
+        senders = senders & activation_mask(
+            key, clock, torch.arange(old.s.shape[0], dtype=torch.int64,
+                                     device=key.device))
+    sent = torch.sum(senders.to(torch.int32))
+    deliver = (senders if all_alive or targets_alive
+               else senders & old.alive[targets.long()])
+    if loss_windows:
+        drop = round_drops(key, old.round, loss_windows, n)
+        dropped = torch.sum((deliver & drop).to(torch.int32))
+        deliver = deliver & ~drop
+    else:
+        dropped = torch.zeros_like(sent)
+    delivered = torch.sum(deliver.to(torch.int32))
+    return torch.stack([sent, delivered, dropped]).to(torch.int32)
+
+
 def pushsum_done(state: PushSumState) -> torch.Tensor:
     """Supervisor predicate: every healthy node's estimate has stabilized
     (a bool scalar tensor, left on the device)."""
@@ -198,3 +274,42 @@ def pushsum_done(state: PushSumState) -> torch.Tensor:
 def mass(state: PushSumState):
     """(Σs, Σw) — the conservation invariant."""
     return state.s.sum(), state.w.sum()
+
+
+def pushsum_trace_row(state, *, all_sum=tree_sum0, all_max=torch.max
+                      ) -> torch.Tensor:
+    """Observatory trace row for any push-sum-family state (plain, accel,
+    walk, SGP — everything carrying ``s/w/ratio``; the JAX package's
+    ``pushsum_trace_row``, column contract in
+    :mod:`gossipprotocol_tpu_torch.obs.trace`): the consensus residual
+    max over alive rows of ``|s/w − mean|`` against the alive-mass mean,
+    the converged fraction, Σs (collapsed over payload columns) and Σw
+    over every row (the walk's in-flight token included), and the train
+    loss (NaN without one). Reads the post-round state only. ``all_sum``
+    sums over the node axis (:func:`tree_sum0`, or the sharded engine's
+    shard-ordered sum), ``all_max`` is the full max."""
+    dt = torch.float32
+    alive = state.alive
+    live = rowmask(alive, state.ratio)
+    zero_w = torch.zeros((), dtype=state.w.dtype, device=alive.device)
+    zero_s = torch.zeros((), dtype=state.s.dtype, device=alive.device)
+    sw = all_sum(torch.where(alive, state.w, zero_w))
+    ss = all_sum(torch.where(live, state.s, zero_s))
+    mean = ss / torch.clamp(sw, min=1e-30)
+    residual = all_max(torch.where(live, torch.abs(state.ratio - mean),
+                                   torch.zeros_like(state.ratio)))
+    n_alive = all_sum(alive.to(dt))
+    frac = all_sum((state.converged & alive).to(dt)) / torch.clamp(
+        n_alive, min=1)
+    ms = all_sum(state.s)
+    mw = all_sum(state.w)
+    if hasattr(state, "msg_s"):
+        ms = ms + state.msg_s
+        mw = mw + state.msg_w
+    if ms.dim():
+        ms = tree_sum0(ms)  # collapse [d] payload mass to one scalar
+    loss = (state.loss if hasattr(state, "loss")
+            else torch.full((), float("nan"), dtype=dt,
+                            device=alive.device))
+    return torch.stack([residual.to(dt), frac.to(dt), ms.to(dt),
+                        mw.to(dt), loss.to(dt)])

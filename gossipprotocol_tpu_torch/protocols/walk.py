@@ -271,7 +271,8 @@ def walk_chunk_plain(draws: WalkDraws, state: WalkState,
 
 
 def make_walk_chunk_runner(nbrs, n: int, *, streak_target: int, quorum: int,
-                           base_key: torch.Tensor, done_fn):
+                           base_key: torch.Tensor, done_fn,
+                           **stats_kw):
     """``chunk(state, nbrs, start_round, round_limit) -> (state, stats)``
     for the walk: ``round_limit - start_round`` hops, each frozen once
     the run is done (``quorum`` settled rows, settled meaning converged or
@@ -282,7 +283,9 @@ def make_walk_chunk_runner(nbrs, n: int, *, streak_target: int, quorum: int,
     updates the state in place: a state the runner did not hand out
     itself (the engine's initial state, which the warm-up chunk must not
     change) is copied once first. On the CPU it is
-    :func:`walk_chunk_plain`."""
+    :func:`walk_chunk_plain`. ``stats_kw`` (``records``, ``mass``) goes
+    to the engine's ``chunk_stats``: the telemetry counts the hops on the
+    host from the round count, with no device op a hop."""
     from gossipprotocol_tpu_torch.engine.driver import chunk_stats
 
     if base_key.is_cuda:
@@ -303,7 +306,7 @@ def make_walk_chunk_runner(nbrs, n: int, *, streak_target: int, quorum: int,
             if hops:
                 walk_chunk(lay, state, base_key, hops, quorum, streak_target)
             handed_out[0] = state.s
-            return state, chunk_stats(state, done_fn)
+            return state, chunk_stats(state, done_fn, **stats_kw)
 
         return chunk
 
@@ -313,6 +316,6 @@ def make_walk_chunk_runner(nbrs, n: int, *, streak_target: int, quorum: int,
         hops = max(0, round_limit - start_round)
         state = walk_chunk_plain(draws, state, base_key, hops, quorum,
                                  streak_target)
-        return state, chunk_stats(state, done_fn)
+        return state, chunk_stats(state, done_fn, **stats_kw)
 
     return chunk

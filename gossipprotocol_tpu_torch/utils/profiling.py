@@ -50,6 +50,10 @@ Builds the graph and its delivery on ``cuda``, then:
 
 Prints a table and one JSON line; ``--out FILE`` also writes the JSON
 there. Needs a CUDA device.
+
+:func:`maybe_trace` is the CLI's ``--profile-dir`` (the JAX package's
+``utils/profiling.py`` ``maybe_trace``, with ``torch.profiler`` in place
+of ``jax.profiler``).
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import contextlib
+import os
 import time
 
 import torch
@@ -65,6 +71,28 @@ ROUNDS = 64
 CHUNKS = (64, 16, 8)
 KS = (1, 4, 16, 64)
 INVERSION_PAIRS = 8  # gossip runs with and without the inverted branch
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir):
+    """``torch.profiler`` over the block when a directory is given (CPU
+    activities, and CUDA ones where a card is present), written on exit
+    as a Chrome trace ``trace_dir/trace_<pid>.json`` (Perfetto or
+    chrome://tracing load it); a no-op otherwise. Yields the profiler, or
+    None."""
+    if not trace_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(trace_dir, f"trace_{os.getpid()}.json"))
 
 
 def _kernel_table(prof, rounds):

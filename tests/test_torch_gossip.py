@@ -381,10 +381,10 @@ def test_cli_stall_exit_1(capsys):
     (["64", "imp3D", "gossip", "--fail-fraction", "0.1", "--devices", "2"],
      "--fail-fraction"),
     (["64", "imp3D", "push-sum", "--x64", "--devices", "2"], "--x64"),
-    (["64", "imp3D", "gossip", "--metrics-out", "m.jsonl"], "--metrics-out"),
+    (["64", "imp3D", "gossip", "--compile-cache", "c"], "--compile-cache"),
     (["64", "imp3D", "gossip", "--checkpoint-dir", "ck", "--devices", "2"],
      "--checkpoint-dir"),
-    (["64", "imp3D", "gossip", "--telemetry-dir", "t"], "--telemetry-dir"),
+    (["64", "imp3D", "gossip", "--sweep", "plan.json"], "--sweep"),
     (["64", "imp3D", "gossip", "--sweep-seeds", "2"], "--sweep-seeds"),
     (["64", "imp3D", "push-sum", "--payload-dim", "4", "--devices", "2"],
      "--payload-dim"),

@@ -62,3 +62,15 @@ def test_walk_finds_the_workload_modules():
                 "learn/data.py", "learn/sgp.py", "learn/gala.py",
                 "protocols/accel.py"):
         assert pkg / rel in _FILES, rel
+
+
+def test_walk_finds_the_obs_modules():
+    """The run-side observability modules (telemetry, counters, traces,
+    the manifest, the prediction, the anomaly rules, the report and the
+    resource samples) are walked by the check above."""
+    pkg = ROOT / "gossipprotocol_tpu_torch"
+    for rel in ("obs/__init__.py", "obs/telemetry.py", "obs/counters.py",
+                "obs/trace.py", "obs/manifest.py", "obs/predict.py",
+                "obs/anomaly.py", "obs/report.py", "obs/resources.py",
+                "utils/metrics.py", "utils/profiling.py"):
+        assert pkg / rel in _FILES, rel

@@ -284,6 +284,64 @@ def test_dead_set_matvecs_on_card_equal_plain(cuda, graph):
                     else torch.equal(a, b))
 
 
+@pytest.mark.parametrize("delivery", ["pallas", "routed"])
+def test_dead_set_recount_on_card_equals_plain(cuda, delivery):
+    """The telemetry recount under a dead set (``routed_message_counts``:
+    ``matvec(alive, alive)`` through the delivery's kernels a second time
+    in the round) on the card, equal to its plain version on the CPU; and
+    a telemetry run with a kill strike, card against CPU: the same
+    counters every chunk, the same state bitwise as without telemetry."""
+    from gossipprotocol_tpu_torch.engine import RunConfig, run_simulation
+    from gossipprotocol_tpu_torch.engine.driver import device_arrays
+    from gossipprotocol_tpu_torch.obs import Telemetry
+    from gossipprotocol_tpu_torch.protocols.diffusion import (
+        routed_message_counts,
+    )
+    from gossipprotocol_tpu_torch.protocols.state import pushsum_init
+    from gossipprotocol_tpu_torch.topology import build_topology
+    from gossipprotocol_tpu_torch.utils import faults
+    import tempfile
+
+    topo = build_topology("imp3D", 20_000, seed=1)
+    n = topo.num_nodes
+    alive = torch.from_numpy(np.random.default_rng(6).random(n) > 0.1)
+    state = pushsum_init(n, device="cpu")._replace(alive=alive)
+    got = {}
+    for dev in (str(cuda), "cpu"):
+        cfg = RunConfig(algorithm="push-sum", fanout="all",
+                        delivery=delivery, device=dev, plan_cache="none")
+        d = device_arrays(topo, cfg)
+        st = type(state)(*(t.to(dev) for t in state))
+        before = dict(co.LAUNCHES)
+        got[dev] = routed_message_counts(
+            st, d, n=n, all_alive=False, targets_alive=False).cpu()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert co.LAUNCHES["class_reduce_small"] > before[
+                "class_reduce_small"]
+    assert torch.equal(got[str(cuda)], got["cpu"])
+    assert int(got["cpu"][1]) < int(got["cpu"][0])
+    sched = faults.build_schedule(n, fail_fraction=0.1, fail_round=3, seed=1)
+    res = {}
+    for dev in (str(cuda), "cpu"):
+        tel = Telemetry(tempfile.mkdtemp())
+        res[dev] = run_simulation(topo, RunConfig(
+            algorithm="push-sum", fanout="all", delivery=delivery,
+            device=dev, max_rounds=12, chunk_rounds=4, telemetry=tel,
+            fault_schedule=sched, plan_cache="none"))
+        tel.close()
+    off = run_simulation(topo, RunConfig(
+        algorithm="push-sum", fanout="all", delivery=delivery,
+        device=str(cuda), max_rounds=12, chunk_rounds=4,
+        fault_schedule=sched, plan_cache="none"))
+    rows = [[(m["round"], m["sent"], m["delivered"]) for m in r.metrics
+             if "sent" in m] for r in res.values()]
+    assert rows[0] == rows[1] and len(rows[0]) == 4
+    for a, b in zip(res[str(cuda)].final_state, off.final_state):
+        assert (_bits_equal(a, b) if a.dtype == torch.float32
+                else torch.equal(a, b))
+
+
 _MK_GRAPHS = {"imp3D": ("imp3D", 216, {"seed": 4}),
               "powerlaw": ("powerlaw", 400, {"seed": 3, "m": 3})}
 
@@ -1246,3 +1304,25 @@ def test_walk_kernel_chunks_in_a_row(cuda):
                 if a.dtype == torch.float32 else torch.equal(a, b))
     # the warm-up chunk and one launch per chunk of the run
     assert launches == 1 + -(-card.rounds // 100)
+
+
+@pytest.mark.parametrize("dim", [None, 8])
+def test_gala_group_sum_on_card_same_bits_every_run(cuda, dim):
+    """GALA's group sum on the card (``learn/gala.py``
+    ``contiguous_group_sum``, a reduction over each group's rows, not
+    ``index_add_``'s atomics): the same bits on every call, and within
+    relative 1e-6 of the float64 sum on the CPU."""
+    from gossipprotocol_tpu_torch.learn.gala import contiguous_group_sum
+
+    rows, groups = 4 * 8192, 4
+    shape = (rows,) if dim is None else (rows, dim)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 1.5, shape).astype(np.float32))
+    ids = torch.arange(rows) // (rows // groups)
+    exact = torch.zeros((groups,) + shape[1:], dtype=torch.float64) \
+        .index_add_(0, ids, x.double())
+    runs = [contiguous_group_sum(x.to(cuda), groups, rows // groups)
+            for _ in range(3)]
+    assert all(_bits_equal(r, runs[0]) for r in runs)
+    err = (runs[0].cpu().double() - exact).abs() / exact.abs()
+    assert float(err.max()) <= 1e-6

@@ -113,6 +113,30 @@ def _cores(workload):
     return cj, ct, bj, bt, jmix, tmix
 
 
+@pytest.mark.parametrize("rows,groups,size,dim", [
+    (4 * 8192, 4, 8192, None), (4 * 8192, 4, 8192, 8),
+    (260, 4, 54, 3),    # rows past the last full group join the last
+    (100, 4, 54, None),  # fewer rows than groups × size: empty groups
+])
+def test_card_group_sum_nearer_exact_than_ascending(rows, groups, size, dim):
+    """``learn/gala.py`` ``contiguous_group_sum`` (the card's group sum)
+    sums the rows that the clamped group ids give each group: within
+    relative 1e-6 of the float64 sum, and no farther from it than
+    ``index_add_`` in ascending row order (the CPU's)."""
+    rng = np.random.default_rng(7)
+    shape = (rows,) if dim is None else (rows, dim)
+    x = torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(np.float32))
+    ids = torch.clamp(torch.arange(rows) // size, 0, groups - 1)
+    zeros = torch.zeros((groups,) + shape[1:], dtype=torch.float64)
+    exact = zeros.index_add_(0, ids, x.double())
+    ascending = zeros.float().index_add_(0, ids, x)
+    got = tl.gala.contiguous_group_sum(x, groups, size)
+    assert got.dtype == torch.float32 and got.shape == exact.shape
+    err = (got.double() - exact).abs()
+    assert float((err / exact.abs().clamp(min=1)).max()) <= 1e-6
+    assert float(err.max()) <= float((ascending.double() - exact).abs().max())
+
+
 @pytest.mark.parametrize("workload", ["sgp", "gala"])
 def test_core_mixing_bitwise_learner_within_tolerance(workload):
     """Ten core rounds from the same state. Each round the port's mixing

@@ -5,10 +5,10 @@ handling of its host loop): the injected rows, the poisoned and repaired
 states and the runs under ``nan``, ``inf`` and ``scale:K`` with the
 sentinel ``on``, ``quarantine`` and ``rollback`` equal the JAX engine's —
 the trip round, the quarantined ids, the rollback target, the rounds and
-the final state bitwise. The faults are decisive ones: the port sums the
-mass with ``torch.sum``, in another order than XLA's, so a drift near the
-256-ULP tripwire could trip on one side only. With the sentinel off the
-chunk is the operation sequence of the chunk before the sentinel."""
+the final state bitwise. The faults are decisive ones, far from the
+256-ULP tripwire (the port sums the mass in XLA's CPU order,
+``protocols/pushsum.py`` ``tree_sum0``). With the sentinel off the chunk
+is the operation sequence of the chunk before the sentinel."""
 
 from __future__ import annotations
 
