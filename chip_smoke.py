@@ -196,7 +196,28 @@ Phases (each prints its lines; any failure exits non-zero):
       (p3) gossip at imp3D 1M with trace rows and the megakernel at K =
       16 (imp3D 512,000) with counters; (p4) ``--profile-dir``: the
       trace file names the hand-written kernels. ms per executed round
-      with telemetry off and on, and the phase's seconds.
+      with telemetry off and on, and the phase's seconds;
+  (q) batched sweeps and the capacity model, at full width: (q1) an
+      imp3D 1M gossip seed sweep of 8 lanes in process (one topology
+      build), each lane's rounds and state bitwise its standalone card
+      run, the sweep's wall time against the 8 serial runs', ms per
+      executed round of one lane alone and of the 8, and the lane round
+      profiled at 1 and 8 lanes (device busy, enqueue, idle share);
+      (q2) fanout-one push-sum, 8 lanes: 32 rounds with the predicate
+      off within ``SCATTER_TOL`` of the standalone runs with equal alive
+      sets, then to convergence beside the standalone runs' rounds;
+      (q3) the README's sweeps through the CLI (4096 imp3D push-sum
+      ``--sweep-seeds 64``, an eps x tol plan, a gossip threshold axis)
+      with ``report``, ``watch --max-frames 1`` and ``history`` exit 0;
+      (q4) the capacity model's predicted total against the card's
+      measured peak (``max_memory_allocated`` over the build and 32
+      rounds, less what was held before) on every path — gossip,
+      fanout-one push-sum, pallas, routed (imp3D and power_law 1M),
+      the megakernel (imp3D 512,000, power_law 500,000), ``--devices
+      4`` (imp3D 1M, power_law 400,000) and (q1)'s sweep — never below
+      it, and the CLI: ``plan 2000000000 imp3D`` exit 1 on the card's
+      capacity, a 1M run under a 64 MB budget exit 2 before any plan
+      build. Each sub-phase's seconds.
 
 ``slice_times`` (not a phase) times rows 12, 15-20 and 6 through
 their wrappers by graph replay for whichever tree's package is first on
@@ -3449,6 +3470,326 @@ def phase_telemetry(torch, totals):
         for k, (a, b) in timings.items()))
 
 
+# ---------------------------------------------------------------- (q)
+
+SWEEP_N = 1_000_000
+SWEEP_LANES = 8
+# (q2): rounds held to the standalone card runs with the predicate off
+SWEEP_PS_ROUNDS = 32
+SWEEP_PS_ARGV = dict(algorithm="push-sum", predicate="global", tol=1e-4)
+# (q3): the README's sweeps through the CLI
+SWEEP_README_ARGV = ["4096", "imp3D", "push-sum", "--sweep-seeds", "64"]
+SWEEP_TRACED_PLANS = {
+    "push-sum eps x tol": (["4096", "imp3D", "push-sum"],
+                           {"axes": {"eps": [1e-6, 1e-8],
+                                     "tol": [1e-3, 1e-4]}}),
+    "gossip threshold": (["4096", "imp3D", "gossip"],
+                         {"axes": {"threshold": [3, 5, 10]}}),
+}
+# (q4): each path of the port against the capacity model: (label,
+# topology, nodes, config, shards); 32 rounds each (the first chunks
+# reach the round's high-water mark)
+CAPACITY_ROUNDS = 32
+CAPACITY_RUNS = (
+    ("gossip", "imp3D", 1_000_000, dict(algorithm="gossip"), 1),
+    ("gossip", "power_law", 1_000_000, dict(algorithm="gossip"), 1),
+    ("fanout-one push-sum", "imp3D", 1_000_000, dict(SWEEP_PS_ARGV), 1),
+    ("fanout-one push-sum", "power_law", 1_000_000, dict(SWEEP_PS_ARGV), 1),
+    ("pallas", "imp3D", 1_000_000, dict(DIFFUSION, predicate="global"), 1),
+    ("pallas", "power_law", 1_000_000, dict(DIFFUSION, predicate="global"),
+     1),
+    ("routed", "imp3D", 1_000_000,
+     dict(DIFFUSION, delivery="routed", predicate="global"), 1),
+    ("routed", "power_law", 1_000_000,
+     dict(DIFFUSION, delivery="routed", predicate="global"), 1),
+    ("megakernel K=16", "imp3D", 512_000,
+     dict(DIFFUSION, delivery="megakernel", rounds_per_kernel=16), 1),
+    ("megakernel K=16", "power_law", 500_000,
+     dict(DIFFUSION, delivery="megakernel", rounds_per_kernel=16), 1),
+    ("--devices 4 pallas", "imp3D", 1_000_000,
+     dict(DIFFUSION, predicate="global"), 4),
+    ("--devices 4 pallas", "power_law", 400_000,
+     dict(DIFFUSION, predicate="global"), 4),
+    ("8-lane gossip sweep (q1)", "imp3D", 1_000_000,
+     dict(algorithm="gossip"), 1),
+)
+# a prediction more than this many times the measured peak is printed
+# (and written down with its reason)
+CAPACITY_SLACK = 1.5
+
+
+def _lane_round_profile(torch, topo, cfg, lanes):
+    """``(busy, event, enqueue ms/round, idle share)`` of the lane round
+    (``utils/profiling.py``'s profiler over ROUNDS rounds) for ``lanes``
+    seed lanes of ``cfg``'s round on the card."""
+    import dataclasses
+
+    from gossipprotocol_tpu_torch.engine.driver import (
+        build_protocol, device_arrays,
+    )
+    from gossipprotocol_tpu_torch.protocols.sampling import (
+        key_data, round_keys,
+    )
+    from gossipprotocol_tpu_torch.sweep import SweepSpec
+    from gossipprotocol_tpu_torch.sweep.engine import _lane_round
+    from gossipprotocol_tpu_torch.utils import profiling
+
+    spec = SweepSpec.from_seeds(lanes)
+    cfg = dataclasses.replace(cfg, streak_target=2**30)
+    built = [build_protocol(topo, spec.lane_config(cfg, i))
+             for i in range(lanes)]
+    state = type(built[0][0])(*(torch.stack(f) for f in
+                                zip(*(b[0] for b in built))))
+    all_alive, targets_alive = built[0][3]
+    core, _, _ = _lane_round(topo, cfg, spec, {}, all_alive=all_alive,
+                             targets_alive=targets_alive)
+    nbrs = device_arrays(topo, cfg)
+    base = torch.stack([key_data(i, "cuda") for i in range(lanes)])
+    keys = round_keys(base, state.round, profiling.ROUNDS)
+
+    def rounds():
+        st = state
+        for i in range(profiling.ROUNDS):
+            st = core(st, nbrs, keys[i])
+
+    _, busy, event, enqueue, idle = profiling._profile_rounds(
+        rounds, torch.device("cuda"))
+    return busy, event, enqueue, idle
+
+
+def _lane_equal(torch, lane, solo):
+    return all(bitwise_equal(torch, getattr(lane, f).reshape(-1),
+                             getattr(solo, f).reshape(-1))
+               for f in lane._fields)
+
+
+def _sweep_cli(tag, argv):
+    """One in-process CLI sweep: ``(rc, stdout)``; prints the closing
+    lines."""
+    rc, text, etext, _ = _run_cli(argv)
+    for line in (etext + text).splitlines():
+        if line.startswith(("rounds:", "sweep:", "Convergence")):
+            say(f"(q3) {tag} | {line}")
+    require(rc == 0, f"(q3) {tag}: exit {rc}: {' '.join(argv)}\n{etext}")
+    require("sweep: " in text, f"(q3) {tag}: no sweep line")
+    return rc, text
+
+
+def phase_sweeps(torch):
+    """Phase (q): batched sweeps on the card and the capacity model
+    against the card's measured peaks."""
+    import dataclasses
+
+    from gossipprotocol_tpu_torch.engine.driver import (
+        RunConfig, run_simulation,
+    )
+    from gossipprotocol_tpu_torch.sweep import SweepSpec
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    t_sub = [time.perf_counter()]
+
+    def sub_lap(name):
+        t_sub.append(time.perf_counter())
+        say(f"({name}) seconds {t_sub[-1] - t_sub[-2]:.1f}")
+
+    spec = SweepSpec.from_seeds(SWEEP_LANES)
+    topo = build_topology("imp3D", SWEEP_N, seed=0)
+    # (q1) the gossip seed sweep: lanes bitwise their standalone runs
+    cfg = RunConfig(algorithm="gossip", device="cuda")
+    sweep = run_simulation(topo, dataclasses.replace(cfg, sweep=spec))
+    solos = [run_simulation(topo, spec.lane_config(cfg, i))
+             for i in range(SWEEP_LANES)]
+    for i, solo in enumerate(solos):
+        require(sweep.lane_records[i]["rounds"] == solo.rounds
+                and _lane_equal(torch, sweep.lane_state(i),
+                                solo.final_state),
+                f"(q1) gossip lane {i}: {sweep.lane_records[i]['rounds']} "
+                f"rounds against its standalone {solo.rounds}, or its "
+                "state differs")
+    serial = sum(s.wall_ms for s in solos)
+    one = solos[0].wall_ms / max(solos[0].rounds_executed, 1)
+    eight = sweep.wall_ms / max(sweep.rounds_executed, 1)
+    say(f"(q1) imp3D 1M gossip, {SWEEP_LANES} seed lanes: every lane's "
+        f"rounds and state bitwise its standalone card run (rounds "
+        f"{[s.rounds for s in solos]}); sweep {sweep.wall_ms:.1f} ms "
+        f"({sweep.rounds_executed} executed rounds) against "
+        f"{serial:.1f} ms for the {SWEEP_LANES} serial runs "
+        f"(ratio {sweep.wall_ms / serial:.4f}); ms per executed round "
+        f"{one:.4f} one lane alone, {eight:.4f} the {SWEEP_LANES} "
+        f"together ({eight / one:.3f}x for {SWEEP_LANES}x the lanes)")
+    for lanes in (1, SWEEP_LANES):
+        busy, event, enq, idle = _lane_round_profile(torch, topo, cfg, lanes)
+        say(f"(q1) gossip round, {lanes} lane(s) (utils/profiling.py's "
+            f"profiler): device busy {busy:.4f} ms/round, CUDA events "
+            f"{event:.4f}, host enqueue {enq:.4f}, idle share {idle:.3f}")
+    del sweep, solos
+    sub_lap("q1")
+
+    # (q2) the fanout-one push-sum seed sweep: 32 rounds with the
+    # predicate off held to the standalone runs, then to convergence
+    cfg = RunConfig(**SWEEP_PS_ARGV, device="cuda")
+    held = dataclasses.replace(cfg, streak_target=2**30,
+                               max_rounds=SWEEP_PS_ROUNDS)
+    sweep = run_simulation(topo, dataclasses.replace(held, sweep=spec))
+    worst = {"s": 0.0, "w": 0.0}
+    for i in range(SWEEP_LANES):
+        solo = run_simulation(topo, spec.lane_config(held, i)).final_state
+        lane = sweep.lane_state(i)
+        require(torch.equal(lane.alive, solo.alive)
+                and int(lane.round) == int(solo.round) == SWEEP_PS_ROUNDS,
+                f"(q2) lane {i}: alive sets or rounds differ")
+        for f in ("s", "w"):
+            worst[f] = max(worst[f], max_abs_err(torch, getattr(lane, f),
+                                                 getattr(solo, f)))
+    require(worst["s"] <= SCATTER_TOL and worst["w"] <= SCATTER_TOL,
+            f"(q2) lanes against their standalone runs {worst} over "
+            f"{SCATTER_TOL}")
+    say(f"(q2) imp3D 1M fanout-one push-sum, {SWEEP_LANES} seed lanes, "
+        f"{SWEEP_PS_ROUNDS} rounds predicate off: max |diff| against the "
+        f"standalone card runs s {worst['s']:.3e}, w {worst['w']:.3e} "
+        f"(within {SCATTER_TOL}), equal alive sets")
+    sweep = run_simulation(topo, dataclasses.replace(cfg, sweep=spec))
+    solos = [run_simulation(topo, spec.lane_config(cfg, i))
+             for i in range(SWEEP_LANES)]
+    require(sweep.converged and all(s.converged for s in solos),
+            "(q2) a push-sum lane or run did not converge")
+    serial = sum(s.wall_ms for s in solos)
+    say(f"(q2) to convergence (--predicate global --tol 1e-4): lane "
+        f"rounds {[lr['rounds'] for lr in sweep.lane_records]}, standalone "
+        f"{[s.rounds for s in solos]}; estimate error sweep "
+        f"{sweep.estimate_error:.3e}; sweep {sweep.wall_ms:.1f} ms against "
+        f"{serial:.1f} ms serial (ratio {sweep.wall_ms / serial:.4f}); ms "
+        f"per executed round "
+        f"{solos[0].wall_ms / max(solos[0].rounds_executed, 1):.4f} one "
+        f"lane, {sweep.wall_ms / max(sweep.rounds_executed, 1):.4f} the "
+        f"{SWEEP_LANES}")
+    for lanes in (1, SWEEP_LANES):
+        busy, event, enq, idle = _lane_round_profile(torch, topo, cfg, lanes)
+        say(f"(q2) push-sum round, {lanes} lane(s): device busy "
+            f"{busy:.4f} ms/round, CUDA events {event:.4f}, host enqueue "
+            f"{enq:.4f}, idle share {idle:.3f}")
+    del sweep, solos
+    sub_lap("q2")
+
+    with tempfile.TemporaryDirectory(prefix="sweeps_") as td:
+        # (q3) the README's sweeps through the CLI, report, watch, history
+        dirs = []
+        d = os.path.join(td, "artifacts", "seeds64")
+        _sweep_cli("--sweep-seeds 64", SWEEP_README_ARGV
+                   + ["--telemetry-dir", d])
+        dirs.append(d)
+        for tag, (argv, plan) in SWEEP_TRACED_PLANS.items():
+            path = os.path.join(td, tag.replace(" ", "_") + ".json")
+            with open(path, "w") as fh:
+                json.dump(plan, fh)
+            d = os.path.join(td, "artifacts", tag.replace(" ", "_"))
+            _sweep_cli(tag, argv + ["--sweep", path, "--telemetry-dir", d])
+            dirs.append(d)
+        from gossipprotocol_tpu_torch.cli import main as cli_main
+
+        for d in dirs:
+            rc, text = _report(d)
+            require(rc == 0 and "sweep:" in text,
+                    f"(q3) report {d}: exit {rc}")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(["watch", d, "--max-frames", "1"])
+            require(rc == 0 and "FINISHED" in buf.getvalue(),
+                    f"(q3) watch {d}: exit {rc}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["history", td, "--no-write"])
+        require(rc == 0 and "indexed sweeps (3)" in buf.getvalue(),
+                f"(q3) history {td}: exit {rc}")
+        say(f"(q3) report, watch --max-frames 1 exit 0 on the 3 sweep "
+            f"dirs; history over them exit 0: "
+            f"{buf.getvalue().splitlines()[-3:]}")
+    sub_lap("q3")
+    capacity_on_card(torch, spec)
+    sub_lap("q4")
+
+
+def capacity_on_card(torch, spec):
+    """(q4): the capacity model's predicted total against the card's
+    measured peak on every path, and the CLI's plan and preflight."""
+    import dataclasses
+
+    from gossipprotocol_tpu_torch.engine.driver import (
+        RunConfig, run_simulation,
+    )
+    from gossipprotocol_tpu_torch.obs.capacity import estimate_for_topology
+    from gossipprotocol_tpu_torch.ops import (
+        kernel_launches, reset_kernel_launches,
+    )
+    from gossipprotocol_tpu_torch.parallel import (
+        make_mesh, run_simulation_sharded,
+    )
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    graphs = {}
+    rows = []
+    for label, kind, n, kw, shards in CAPACITY_RUNS:
+        if (kind, n) not in graphs:
+            graphs = {(kind, n): build_topology(kind, n, seed=0, m=4)}
+        g = graphs[(kind, n)]
+        cfg = RunConfig(**kw, device="cuda", max_rounds=CAPACITY_ROUNDS)
+        if "sweep" in label:
+            cfg = dataclasses.replace(cfg, sweep=spec)
+        predicted = estimate_for_topology(g, cfg, shards)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launches()
+        if shards > 1:
+            run_simulation_sharded(g, cfg, mesh=make_mesh(
+                shards, torch.device("cuda")))
+        else:
+            run_simulation(g, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {k: v for k, v in kernel_launches().items() if v}
+        total = predicted["per_device"]["total_bytes"]
+        ratio = total / max(peak, 1)
+        rows.append((label, kind, n, total, peak, ratio))
+        say(f"(q4) {label} {kind} {n}: predicted {total} B (state "
+            f"{predicted['per_device']['state_bytes']}, delivery "
+            f"{predicted['per_device']['delivery_bytes']}, temp "
+            f"{predicted['per_device']['temp_bytes']}) against measured "
+            f"peak {peak} B: {ratio:.3f}x; launches {launches}")
+        require(total >= peak, f"(q4) {label} {kind} {n}: predicted {total} "
+                f"B below the measured peak {peak} B")
+        if ratio > CAPACITY_SLACK:
+            say(f"(q4) over {CAPACITY_SLACK}x: {label} {kind} {n} "
+                f"({ratio:.3f}x)")
+    del graphs
+    # the CLI: plan over the card's capacity, and the run preflight
+    rc, text, etext, _ = _run_cli(["plan", "2000000000", "imp3D"])
+    require(rc == 1 and "torch.cuda total_memory" in text
+            and "OVER CAPACITY" in text,
+            f"(q4) plan 2000000000 imp3D: exit {rc}\n{text}{etext}")
+    say("(q4) plan 2000000000 imp3D | " + " | ".join(
+        ln.strip() for ln in text.splitlines()
+        if "capacity:" in ln or "verdict" in ln or "feasible" in ln))
+    os.environ["GOSSIP_TPU_HBM_BYTES"] = "64000000"
+    try:
+        from gossipprotocol_tpu_torch.engine import driver as drv
+
+        real, built = drv.device_arrays, []
+        drv.device_arrays = lambda *a, **k: built.append(1) or real(*a, **k)
+        try:
+            rc, text, etext, _ = _run_cli(["1000000", "imp3D", "push-sum"])
+        finally:
+            drv.device_arrays = real
+    finally:
+        del os.environ["GOSSIP_TPU_HBM_BYTES"]
+    require(rc == 2 and not built and "max feasible n" in etext,
+            f"(q4) imp3D 1M under a 64 MB budget: exit {rc}, "
+            f"{len(built)} plan builds\n{etext}")
+    say(f"(q4) imp3D 1M under GOSSIP_TPU_HBM_BYTES=64000000: exit 2 before "
+        f"any plan build | {etext.strip()}")
+
+
 def summarize(records, totals, stream_rate):
     """One record per kernel: its largest main-path call, with its bytes
     over the measured stream rate (``bound_stream_ms``) beside the
@@ -3557,6 +3898,8 @@ def main(argv=None) -> int:
             lap("o")
             phase_telemetry(torch, totals)
             lap("p")
+            phase_sweeps(torch)
+            lap("q")
             kernels = summarize(records, totals, stream_rate)
         except SmokeFailure as e:
             # on both streams: a caller that keeps only one still sees why

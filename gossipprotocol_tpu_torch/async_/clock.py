@@ -15,9 +15,11 @@ Clock specs:
 * ``(rate, id_div)`` — Poisson clock; the coins are keyed on ``gid //
   id_div`` (1: independent node clocks; GALA passes its group size so a
   group shares one clock).
-
-(The JAX package's third form, ``("prob", p, id_div)``, threads per-lane
-rates through its vmapped sweeps; the port has no sweep engine yet.)
+* ``("prob", p, id_div)`` — Poisson clock with the per-round activation
+  probability given directly: the sweep engine's form
+  (``sweep/engine.py``), with ``p`` a float32 ``[B]`` tensor, one value a
+  lane, already the host-rounded ``float32(1 - exp(-rate))`` and used
+  verbatim, so every lane draws at its standalone run's threshold.
 """
 
 from __future__ import annotations
@@ -60,11 +62,16 @@ def activation_mask(round_key: torch.Tensor, clock: Tuple,
     round's key (``fold_in(base_key, round)``); ``gids`` are global row
     ids. Call it under a Poisson spec only."""
     assert clock, "activation_mask called under the synchronous clock"
-    id_div = int(clock[1])
+    if clock[0] == "prob":
+        prob = clock[1].to(torch.float32)
+        id_div = int(clock[2])
+    else:
+        prob = torch.tensor(
+            float(np.float32(activation_probability(clock))),
+            dtype=torch.float32, device=gids.device)
+        id_div = int(clock[1])
     ids = gids if id_div == 1 else torch.div(gids, id_div,
                                              rounding_mode="floor")
-    prob = torch.tensor(float(np.float32(activation_probability(clock))),
-                        dtype=torch.float32, device=gids.device)
     # drop_mask draws u32 < p·2³²: a Bernoulli(p) sampler where "dropped"
     # reads "active"
     return drop_mask(fold_in(round_key, CLOCK_FOLD), prob, ids)

@@ -25,8 +25,16 @@
         [--auto-resume N]
     ... [--telemetry-dir DIR [--trace-cap ROWS]] [--round-budget N|auto]
         [--metrics-out FILE] [--profile-dir DIR]
+    ... [--sweep PLAN.json | --sweep-seeds B]
     python -m gossipprotocol_tpu_torch report DIR [--compare BASE
         [--threshold F]]
+    python -m gossipprotocol_tpu_torch watch DIR | --queue-dir D
+        [--interval S] [--max-frames N]
+    python -m gossipprotocol_tpu_torch history [ROOT] [--metric SUBSTR]
+        [--no-write]
+    python -m gossipprotocol_tpu_torch plan N TOPOLOGY [ALGO] [--devices S]
+        [--fanout one|all] [--delivery D] [--payload-dim D] [--x64]
+        [--hbm-bytes B] [--safety F] [--json]
 
 With no flags it runs what the JAX package's CLI runs by default (the
 reference's own surface): gossip, or push-sum with one random target per
@@ -63,9 +71,22 @@ record and exit 1; ``--metrics-out FILE`` streams every chunk record as
 JSONL (appending under ``--resume`` and recovery re-execs);
 ``--profile-dir DIR`` wraps the run in ``torch.profiler`` and writes its
 Chrome trace there. A run stopped by an installed stop check
-(``engine.driver.install_stop_check``) exits 3. Every flag and
-combination the port does not have yet exits 2 and names itself;
-nothing falls back quietly to another path.
+(``engine.driver.install_stop_check``) exits 3.
+
+Sweeps, as in the JAX CLI: ``--sweep PLAN.json`` or ``--sweep-seeds B``
+run B lanes through one round program (``sweep/``; exactly one of the
+two, no ``--resume``, no ``--devices``, per-round traces off) and print a
+closing ``sweep:`` line; a config outside the sweep envelope exits 2
+with the JAX message. Before any plan build the capacity preflight
+(``obs/capacity.py``) refuses a run the card cannot hold (exit 2; silent
+on the CPU unless ``$GOSSIP_TPU_HBM_BYTES`` is set). ``watch DIR`` tails
+a telemetry dir (``--queue-dir``: a serve queue dir's journal),
+``history`` indexes bench records, manifests, sweeps and journals, and
+``plan`` prices a request against the card's memory (exit 0 fits, 1 over
+capacity, 2 bad input). Every flag and combination the port does not
+have yet exits 2 and names itself (``--build``, ``--build-memory-budget``,
+``--compile-cache``, ``--request-id``, ``--admission-json``, ``serve``,
+``submit``, ``status``); nothing falls back quietly to another path.
 """
 
 from __future__ import annotations
@@ -85,16 +106,24 @@ _ALGO_ALIASES = {
 
 # flags of the JAX package's CLI that this port does not have yet
 UNPORTED_FLAGS = (
-    "--build", "--build-memory-budget", "--sweep", "--sweep-seeds",
-    "--compile-cache", "--request-id", "--admission-json",
+    "--build", "--build-memory-budget", "--compile-cache", "--request-id",
+    "--admission-json",
 )
 
 # --backend names and the --device each selects ("auto": --device's own)
 BACKEND_DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 # subcommands of the JAX package's CLI that this port does not have yet
-UNPORTED_SUBCOMMANDS = ("watch", "history", "plan", "serve", "submit",
-                        "status")
+UNPORTED_SUBCOMMANDS = ("serve", "submit", "status")
+
+# subcommands dispatched before argparse (the run parser has three
+# required positionals): name -> (module, function)
+SUBCOMMANDS = {
+    "report": ("gossipprotocol_tpu_torch.obs.report", "main"),
+    "watch": ("gossipprotocol_tpu_torch.obs.watch", "main"),
+    "history": ("gossipprotocol_tpu_torch.obs.history", "main"),
+    "plan": ("gossipprotocol_tpu_torch.obs.capacity", "main"),
+}
 
 
 # CUDA errors after which the context is unusable (sticky): every later
@@ -533,6 +562,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "it); set, convergence results are STILL bitwise "
                         "identical — counters ride alongside and never feed "
                         "back")
+    p.add_argument("--sweep", type=str, default=None, metavar="PLAN.json",
+                   help="batched-sweep plan (JSON): {\"axes\": {\"seed\": "
+                        "[...], \"eps\": [...], ...}, \"mode\": "
+                        "\"product\"|\"zip\"}. Expands axes that vary only "
+                        "values the round treats as data (seed, seed_node, "
+                        "eps, tol, threshold, activation_rate, drop_prob) "
+                        "into B lanes run through ONE round program with a "
+                        "leading lane dimension — one delivery build, one "
+                        "fetch a chunk, per-lane convergence freezing. Lane "
+                        "i is the standalone run with lane i's config "
+                        "(bitwise on the CPU; on the card gossip bitwise, "
+                        "push-sum up to the float atomics' order). "
+                        "Structural axes (topology, algorithm, delivery, "
+                        "...) are rejected with exit 2; so is --devices N")
+    p.add_argument("--sweep-seeds", type=_positive_int, default=None,
+                   metavar="B",
+                   help="seed-sweep sugar: B lanes with seeds --seed, "
+                        "--seed+1, ... --seed+B-1 (equivalent to --sweep "
+                        "with a seed axis; mutually exclusive with it)")
     p.add_argument("--round-budget", type=str, default=None, metavar="N|auto",
                    help="cap the run at N rounds with a structured "
                         "over_budget record instead of grinding to "
@@ -701,6 +749,12 @@ def _check_sharding(args, cfg) -> None:
         raise ValueError(
             "delivery='invert' is single-chip only — drop --devices "
             "or use delivery='scatter'")
+    if args.devices > 1 and (args.sweep is not None
+                             or args.sweep_seeds is not None):
+        raise NotPortedError(
+            "option not yet ported with --devices: "
+            f"{'--sweep' if args.sweep is not None else '--sweep-seeds'} "
+            "(the batched sweep runs on one card: drop --devices)")
     if args.devices > 1:
         flag = _slice_flag(args)
         if flag is not None:
@@ -752,12 +806,13 @@ def _check_sharding(args, cfg) -> None:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "report":
+    if argv and argv[0] in SUBCOMMANDS:
         # subcommand dispatch before argparse: the run parser has three
         # required positionals and would reject `report DIR`
-        from gossipprotocol_tpu_torch.obs.report import main as report_main
+        import importlib
 
-        return report_main(argv[1:])
+        module, func = SUBCOMMANDS[argv[0]]
+        return getattr(importlib.import_module(module), func)(argv[1:])
     bad = _unported(argv)
     if bad is not None:
         print(f"option not yet ported: {bad} (the PyTorch port runs "
@@ -767,8 +822,9 @@ def main(argv=None) -> int:
               "--devices S on one card), faults, loss, events, repair, "
               "checkpoints and the sentinel, vector payloads, SGP and "
               "GALA, Poisson clocks, acceleration, --x64, --check, "
-              "--backend, telemetry and report; use python -m "
-              "gossipprotocol_tpu for the rest)", file=sys.stderr)
+              "--backend, telemetry, sweeps, report, watch, history and "
+              "plan; use python -m gossipprotocol_tpu for the rest)",
+              file=sys.stderr)
         return 2
     try:
         args = build_parser().parse_args(argv)
@@ -777,8 +833,12 @@ def main(argv=None) -> int:
 
     from gossipprotocol_tpu_torch.obs import NULL, Telemetry
 
+    # sweep runs keep counters + manifests but not per-round traces
+    # (the trace rows have no lane story yet — the engine would reject)
+    sweeping = args.sweep is not None or args.sweep_seeds is not None
     try:
-        tel = (Telemetry(args.telemetry_dir, trace_cap=args.trace_cap)
+        tel = (Telemetry(args.telemetry_dir, trace_cap=args.trace_cap,
+                         traces=False if sweeping else None)
                if args.telemetry_dir else NULL)
     except ValueError as e:  # TelemetryDirCollision
         print(str(e), file=sys.stderr)
@@ -804,6 +864,7 @@ def _main(args, argv, tel) -> int:
     )
     from gossipprotocol_tpu_torch.obs import write_manifest
     from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
+    from gossipprotocol_tpu_torch.sweep.engine import SweepConfigError
     from gossipprotocol_tpu_torch.utils.metrics import (
         JsonlMetricsWriter, print_convergence_time, print_start_banner,
     )
@@ -927,7 +988,40 @@ def _main(args, argv, tel) -> int:
 
             mesh = make_mesh(args.devices, device)
             print(placement_line(mesh), file=sys.stderr)
+        if args.sweep is not None or args.sweep_seeds is not None:
+            if args.sweep is not None and args.sweep_seeds is not None:
+                raise ValueError(
+                    "--sweep and --sweep-seeds are two spellings of one "
+                    "sweep plan — give exactly one"
+                )
+            if args.resume:
+                raise ValueError(
+                    "sweep runs cannot resume from a checkpoint — lanes "
+                    "have no per-lane checkpoint story yet"
+                )
+            from gossipprotocol_tpu_torch.sweep import SweepSpec
+
+            spec = (SweepSpec.from_file(args.sweep)
+                    if args.sweep is not None
+                    else SweepSpec.from_seeds(args.sweep_seeds,
+                                              base_seed=args.seed))
+            # riding RunConfig means the capacity preflight below prices
+            # device memory as lanes x per-run state automatically
+            cfg = dataclasses.replace(cfg, sweep=spec)
     except (ValueError, RuntimeError, NotImplementedError) as e:
+        print(str(e), file=sys.stderr)
+        return 2
+
+    # capacity preflight: refuse a run whose predicted per-device footprint
+    # cannot fit, before any plan build (silent where capacity is unknown,
+    # i.e. the CPU without $GOSSIP_TPU_HBM_BYTES)
+    from gossipprotocol_tpu_torch.obs.capacity import (
+        CapacityError, preflight as capacity_preflight,
+    )
+
+    try:
+        capacity_preflight(topo, cfg, args.devices, tel)
+    except CapacityError as e:
         print(str(e), file=sys.stderr)
         return 2
 
@@ -1001,9 +1095,10 @@ def _main(args, argv, tel) -> int:
                 tel.mark_span("profiler_trace", prof_start,
                               tel.wall_s() - prof_start,
                               trace_dir=args.profile_dir)
-    except RoutedConfigError as e:
-        # build-time rejections the engine can only raise once it sees
-        # the whole config: the same loud exit 2 as the checks above
+    except (RoutedConfigError, SweepConfigError) as e:
+        # build-time rejections and sweep-envelope violations the engine
+        # can only raise once it sees the whole config: the same loud
+        # exit 2 as the checks above
         if writer:
             writer.close()
         write_manifest(tel, cfg, topo, None, error=str(e), **manifest_kw)
@@ -1028,6 +1123,13 @@ def _main(args, argv, tel) -> int:
               f"  converged: {result.converged}  "
               f"nodes: {result.num_nodes}  compile: "
               f"{result.compile_ms:.1f} ms  device: {device}")
+        lanes = getattr(result, "lanes", 0)
+        if lanes:
+            done = sum(1 for lr in result.lane_records if lr["converged"])
+            rounds = sorted(lr["rounds"] for lr in result.lane_records)
+            print(f"sweep: {lanes} lanes, {done} converged, lane rounds "
+                  f"{rounds[0]}..{rounds[-1]}  "
+                  f"(amortized {result.wall_ms / lanes:.2f} ms/lane)")
         err = result.estimate_error
         if err is not None:
             print(f"push-sum max |s/w - mean| = {err:.3e}")

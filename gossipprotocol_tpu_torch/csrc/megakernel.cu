@@ -36,7 +36,8 @@
 //     launch (read in the prologue, written back at the end), so a round
 //     moves only the gather sources through L2. Where it does not fit
 //     (MK_NODE_FIELDS * 4 bytes a node slot: above about 811,000 nodes on
-//     132 SMs, which only a raised resident bound admits) the launcher
+//     132 SMs, which only a raised resident bound admits; the capacity
+//     planner asks gossip_megakernel_state_in_smem) the launcher
 //     takes the SMEM_STATE = false instantiation, which reads and writes
 //     the state in device memory in place, in the same order;
 //   - work: the small classes' units go out in chunks of one unit per
@@ -757,7 +758,33 @@ cudaError_t pick_kernel(bool probe, size_t dyn, int grid, const void** fn,
   return cudaSuccess;
 }
 
+// Each thread's node slots of an `n`-node launch on `grid` blocks, and the
+// dynamic shared memory that the state in shared memory takes for them.
+int nodes_per_thread(long long n, int grid) {
+  const long long per = static_cast<long long>(grid) * MK_THREADS;
+  return static_cast<int>((n + per - 1) / per);
+}
+
+size_t state_smem_bytes(int per_thread) {
+  return static_cast<size_t>(per_thread) * MK_THREADS * MK_NODE_FIELDS * 4;
+}
+
 }  // namespace
+
+// Whether a launch over `n` nodes on `grid` blocks keeps the node state in
+// shared memory on the current device: the launcher's own choice
+// (pick_kernel), asked without launching.
+GOSSIP_EXPORT int gossip_megakernel_state_in_smem(long long n, int grid,
+                                                  int* out) {
+  const void* fn = nullptr;
+  size_t fn_dyn = 0;
+  cudaError_t e = pick_kernel(
+      false, state_smem_bytes(nodes_per_thread(n, grid)), grid, &fn,
+      &fn_dyn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *out = fn == reinterpret_cast<const void*>(megakernel<false, true>);
+  return 0;
+}
 
 // stamps: null for the plain kernel; else the probe's buffer of
 // grid * (6 + 6 * k) u64 (PROBE_HEAD, PROBE_EVENTS). The node state takes
@@ -804,10 +831,8 @@ GOSSIP_EXPORT int gossip_megakernel(
   p.streak_target = streak_target;
   p.global_pred = global_pred;
   p.quorum = quorum;
-  const long long per = static_cast<long long>(grid) * MK_THREADS;
-  p.nodes_per_thread = static_cast<int>((n + per - 1) / per);
-  const size_t dyn = static_cast<size_t>(p.nodes_per_thread) * MK_THREADS
-                     * MK_NODE_FIELDS * 4;
+  p.nodes_per_thread = nodes_per_thread(n, grid);
+  const size_t dyn = state_smem_bytes(p.nodes_per_thread);
   const void* fn = nullptr;
   size_t fn_dyn = 0;
   cudaError_t e = pick_kernel(stamps != nullptr, dyn, grid, &fn, &fn_dyn);

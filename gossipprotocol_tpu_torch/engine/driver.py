@@ -63,9 +63,14 @@ record); and the graceful stop (:func:`install_stop_check`, ``drain``).
 With ``telemetry`` unset and no ``metrics_callback`` the chunk runners
 enqueue what they enqueue without this machinery.
 
+Sweeps (``sweep``, a :class:`~gossipprotocol_tpu_torch.sweep.SweepSpec`)
+run B lanes through this module's chunk runner with a leading lane
+dimension (``sweep/engine.py``): one delivery build, one fetch a chunk,
+each lane frozen on its own predicate.
+
 What is not yet ported exits as a :class:`NotPortedError` naming itself:
-the sharded pull design, sweeps, float64 state on the reference walk;
-and under the sharded engine (``--devices``) every flag of faults,
+the sharded pull design, float64 state on the reference walk; and under
+the sharded engine (``--devices``) sweeps and every flag of faults,
 events, repair, checkpoints, the sentinel, vector payloads, the learning
 workloads, clocks, acceleration and float64.
 """
@@ -248,6 +253,15 @@ class RunConfig:
                                    # the cap from the analytic round
                                    # prediction (obs/predict.py). NOT a
                                    # trajectory field
+    sweep: Optional[Any] = None    # sweep.SweepSpec: B lanes (seeds,
+                                   # tolerances, rates) through one round
+                                   # program with a leading lane dimension
+                                   # (sweep/engine.py). None = the
+                                   # ordinary single-run engine. Lane i is
+                                   # bitwise the standalone run with lane
+                                   # i's config (on the card: gossip
+                                   # bitwise, push-sum up to the float
+                                   # atomics' order)
     device: str = "cuda"
 
     @property
@@ -407,6 +421,11 @@ class RunConfig:
                     "per-round chunk loop; the round-loop megakernel "
                     "checks nothing between its fused rounds — use "
                     "delivery='pallas' with rounds_per_kernel=1")
+            if self.sweep is not None:
+                raise ValueError(
+                    "the sentinel quarantines through the host-event "
+                    "pipeline, which the vmapped sweep lanes do not "
+                    "carry — run sentinel runs unswept")
         if self.sentinel == "rollback" and not (
                 self.checkpoint_every and self.checkpoint_dir):
             raise ValueError(
@@ -746,9 +765,17 @@ def gossip_inversion_enabled(topo: Topology, cfg: RunConfig) -> bool:
     wherever it holds, so the scatter alone is the same trajectory. Nor
     does a run under a Poisson clock (idle spreaders break legality every
     round; the JAX package's rule)."""
-    return (cfg.algorithm == "gossip" and not topo.asymmetric
-            and use_dense(topo) and not cfg.schedule.has_loss
-            and cfg.clock == "sync"
+    return gossip_inverts(cfg, asymmetric=topo.asymmetric,
+                          dense=use_dense(topo))
+
+
+def gossip_inverts(cfg: RunConfig, *, asymmetric: bool,
+                   dense: bool) -> bool:
+    """:func:`gossip_inversion_enabled`'s rule from the graph's
+    asymmetry and table kind alone (the capacity planner's, before any
+    graph exists)."""
+    return (cfg.algorithm == "gossip" and not asymmetric and dense
+            and not cfg.schedule.has_loss and cfg.clock == "sync"
             and torch.device(cfg.device).type == "cpu")
 
 
@@ -1187,7 +1214,14 @@ def device_arrays(topo: Topology, cfg: RunConfig, tel=None):
 
 
 def _freeze(active: torch.Tensor, new, old):
-    return type(new)(*(torch.where(active, a, b) for a, b in zip(new, old)))
+    """``new`` where ``active``, else ``old``, field by field. ``active``
+    is a device bool scalar, or ``[B]`` for sweep lanes (a lane's whole
+    state, ``round`` included, stops where its predicate holds)."""
+    if active.dim() == 0:
+        return type(new)(*(torch.where(active, a, b)
+                           for a, b in zip(new, old)))
+    return type(new)(*(torch.where(active.view((-1,) + (1,) * (a.dim() - 1)),
+                                   a, b) for a, b in zip(new, old)))
 
 
 def _words(x: torch.Tensor) -> list:
@@ -1201,22 +1235,43 @@ def _from_words(words, dtype) -> np.ndarray:
     return np.asarray(words, dtype=np.int32).view(np.dtype(dtype))
 
 
+def lanes_of(state) -> int:
+    """The sweep lanes of ``state``: B for a lane-stacked state (``round``
+    is ``[B]``, ``sweep/engine.py``), 0 for a single run's."""
+    return int(state.round.shape[0]) if state.round.dim() else 0
+
+
 def metric_words(state) -> list:
     """The JAX engine's per-chunk record scalars as int32 device scalars:
     ``[converged, alive]`` (alive rows that have converged, alive rows)
     and, for a state with an estimate, the bits of ``ratio_min`` and
     ``ratio_max`` over alive rows (payload columns included) and
-    ``w_underflow``, the alive rows whose ``w`` is 0."""
+    ``w_underflow``, the alive rows whose ``w`` is 0. Of a lane-stacked
+    state, each is ``[B]`` (a lane's value over its own rows)."""
     alive = state.alive
-    words = [torch.sum((state.converged & alive).to(torch.int32)),
-             torch.sum(alive.to(torch.int32))]
+    lanes = lanes_of(state)
+    if lanes:
+        def count(mask):
+            return torch.sum(mask.to(torch.int32), dim=-1)
+
+        def lo(x):
+            return torch.amin(x.reshape(lanes, -1), dim=1)
+
+        def hi(x):
+            return torch.amax(x.reshape(lanes, -1), dim=1)
+    else:
+        def count(mask):
+            return torch.sum(mask.to(torch.int32))
+
+        lo, hi = torch.min, torch.max
+    words = [count(state.converged & alive), count(alive)]
     if hasattr(state, "ratio"):
-        live = alive if state.ratio.dim() == 1 else alive[:, None]
+        live = alive if state.ratio.dim() == alive.dim() else alive[..., None]
         big = torch.full((), float("inf"), dtype=state.ratio.dtype,
                          device=alive.device)
-        words += _words(torch.min(torch.where(live, state.ratio, big)))
-        words += _words(torch.max(torch.where(live, state.ratio, -big)))
-        words.append(torch.sum((alive & (state.w == 0)).to(torch.int32)))
+        words += _words(lo(torch.where(live, state.ratio, big)))
+        words += _words(hi(torch.where(live, state.ratio, -big)))
+        words.append(count(alive & (state.w == 0)))
     return words
 
 
@@ -1231,7 +1286,9 @@ def chunk_stats(state, done_fn, extra_stats=None, delivery=None,
     bits of the mass sums (:func:`mass_words`); and last the chunk's
     per-round rows (``rows``: int32 tensors, flattened — the telemetry
     counters and trace rows). The host reads it with
-    :class:`StatsLayout`."""
+    :class:`StatsLayout`. Of a lane-stacked state (``sweep/engine.py``)
+    the per-run scalars are ``[B]`` lane values, concatenated in the same
+    order."""
     extra = [] if extra_stats is None else extra_stats(state, delivery)
     if records:
         extra = extra + metric_words(state)
@@ -1242,6 +1299,9 @@ def chunk_stats(state, done_fn, extra_stats=None, delivery=None,
         if sentinel_fn is not None:
             extra = extra + [sentinel_fn(state).to(torch.int32)]
         extra = extra + sums
+    if lanes_of(state):
+        return torch.cat([x.reshape(-1).to(torch.int32) for x in
+                          (state.round, done_fn(state), *extra, *rows)])
     scalars = torch.stack([state.round, done_fn(state).to(torch.int32),
                            *extra])
     if not rows:
@@ -1255,18 +1315,26 @@ class StatsLayout:
     counters (``counter_width`` words each: 3, plus 3 a shard with the
     per-shard attribution) and trace rows (``trace_width`` words: the
     float32 bits of :data:`~gossipprotocol_tpu_torch.obs.trace.
-    NUM_TRACE_COLS` columns)."""
+    NUM_TRACE_COLS` columns).
+
+    Of a lane-stacked state (``sweep/engine.py``, B lanes) every per-run
+    scalar is B words and reads as a ``[B]`` array (a float's bits, B
+    values); ``extra`` stays one word each (the sweep's gossip stats sum
+    over the lanes), and a counter row is ``[B, 3]`` (``counter_width``
+    ``3·B``)."""
 
     def __init__(self, state, *, records: bool, extra: int, sentinel: bool,
                  mass: bool, counter_width: int = 0, trace_width: int = 0):
+        self.lanes = lanes_of(state)
+        b = max(1, self.lanes)
         self.records = records
         self.ratio_dt = (str(state.ratio.dtype).split(".")[-1]
                          if hasattr(state, "ratio") else None)
+        self.pv = (state.ratio.element_size() // 4
+                   if self.ratio_dt is not None else 0)
         self.metric = 0
         if records:
-            self.metric = 2
-            if self.ratio_dt is not None:
-                self.metric += 2 * (state.ratio.element_size() // 4) + 1
+            self.metric = (2 + (2 * self.pv + 1 if self.pv else 0)) * b
         self.extra = extra
         self.loss = hasattr(state, "loss")
         self.sentinel = sentinel
@@ -1274,40 +1342,51 @@ class StatsLayout:
         self.mass = ((mass or sentinel) and self.tracked)
         self.mass_dt = (str(state.w.dtype).split(".")[-1]
                         if hasattr(state, "w") else "float32")
-        self.cols = (state.s.shape[1] if self.tracked and state.s.dim() == 2
-                     else 1)
+        self.cols = (state.s.shape[-1] if self.tracked
+                     and state.s.dim() == 2 + bool(self.lanes) else 1)
         self.mass_width = (mass_width(state) if self.mass else 0)
         self.counter_width = counter_width
         self.trace_width = trace_width
-        self.scalars = (2 + self.metric + extra + int(self.loss)
+        self.scalars = (2 * b + self.metric + extra + int(self.loss) * b
                         + int(sentinel) + self.mass_width)
 
     def parse(self, vals: list) -> dict:
         """``{"round", "done", "metric": {...}, "extra": [...],
         "train_loss", "trip", "mass": (Σs, Σw) or None, "counters":
         int64 [rows, 3] or None, "shard_counters": int64 [rows, S, 3] or
-        None, "trace": float32 [rows, cols] or None}``."""
-        out = {"round": vals[0], "done": bool(vals[1])}
-        i = 2
+        None, "trace": float32 [rows, cols] or None}``; of a lane-stacked
+        state ``round``, ``done``, the metric values, ``train_loss`` and
+        the mass sums are ``[B]`` arrays (Σs ``[B, d]``) and ``counters``
+        is ``[rows, B, 3]``."""
+        lanes = self.lanes
+        b = max(1, lanes)
+
+        def ints(i):
+            return np.asarray(vals[i:i + b], np.int64) if lanes else vals[i]
+
+        def floats(i, dt):
+            v = _from_words(vals[i:i + b * (np.dtype(dt).itemsize // 4)], dt)
+            return v if lanes else float(v[0])
+
+        out = {"round": ints(0),
+               "done": ints(b).astype(bool) if lanes else bool(vals[1])}
+        i = 2 * b
         out["extra"] = vals[i:i + self.extra]
         i += self.extra
         metric = {}
         if self.records:
-            metric["converged"], metric["alive"] = vals[i], vals[i + 1]
+            metric["converged"], metric["alive"] = ints(i), ints(i + b)
             if self.ratio_dt is not None:
-                pv = (self.metric - 3) // 2
-                j = i + 2
-                lo = _from_words(vals[j:j + pv], self.ratio_dt)[0]
-                hi = _from_words(vals[j + pv:j + 2 * pv], self.ratio_dt)[0]
-                metric["ratio_min"] = float(lo)
-                metric["ratio_max"] = float(hi)
-                metric["w_underflow"] = vals[j + 2 * pv]
+                j = i + 2 * b
+                metric["ratio_min"] = floats(j, self.ratio_dt)
+                metric["ratio_max"] = floats(j + self.pv * b, self.ratio_dt)
+                metric["w_underflow"] = ints(j + 2 * self.pv * b)
         out["metric"] = metric
         i += self.metric
         out["train_loss"] = None
         if self.loss:
-            out["train_loss"] = float(_f32(vals[i]))
-            i += 1
+            out["train_loss"] = floats(i, "float32")
+            i += b
         out["trip"] = False
         if self.sentinel:
             out["trip"] = bool(vals[i])
@@ -1315,14 +1394,23 @@ class StatsLayout:
         out["mass"] = None
         if self.mass:
             words = _from_words(vals[i:i + self.mass_width], self.mass_dt)
-            out["mass"] = ((words[:self.cols] if self.cols > 1
-                            else words[0]), words[self.cols])
+            if lanes:
+                s = words[:b * self.cols]
+                out["mass"] = (s.reshape(b, -1) if self.cols > 1 else s,
+                               words[b * self.cols:])
+            else:
+                out["mass"] = ((words[:self.cols] if self.cols > 1
+                                else words[0]), words[self.cols])
             i += self.mass_width
         tail = vals[i:]
         width = self.counter_width + self.trace_width
         nrows = len(tail) // width if width else 0
         out["counters"] = out["shard_counters"] = out["trace"] = None
-        if self.counter_width:
+        if self.counter_width and lanes:
+            out["counters"] = np.asarray(
+                tail[:nrows * self.counter_width], np.int64).reshape(
+                    nrows, b, 3)
+        elif self.counter_width:
             c = np.asarray(tail[:nrows * 3], np.int64).reshape(nrows, 3)
             out["counters"] = c
             j = nrows * 3
@@ -1337,11 +1425,13 @@ class StatsLayout:
         return out
 
 
-def _count_rows(deltas: list, counter_rows: list, shard_rows: list) -> None:
+def _count_rows(deltas: list, counter_rows: list, shard_rows: list,
+                lanes: bool = False) -> None:
     """Split per-round counter deltas (``int32 [3]``, or ``[S, 3]`` per
-    shard) into the reduced rows and the per-shard rows."""
+    shard) into the reduced rows and the per-shard rows; sweep lanes'
+    ``[B, 3]`` deltas are rows as they are."""
     for d in deltas:
-        if d.dim() == 2:
+        if d.dim() == 2 and not lanes:
             shard_rows.append(d)
             d = torch.sum(d, dim=0)
         counter_rows.append(d.to(torch.int32))
@@ -1389,7 +1479,13 @@ def make_chunk_runner(round_core, done_fn, extra_stats=None,
     as the JAX engine's ``while_loop`` writes no row past it.
     ``records`` adds the record scalars (:func:`metric_words`), ``mass``
     the mass sums. With all four unset the chunk launches what it
-    launched before telemetry existed."""
+    launched before telemetry existed.
+
+    Sweep lanes (``sweep/engine.py``): a state with a leading ``[B]``
+    dimension, ``[B, 2]`` base keys and a ``done_fn`` giving ``[B]``
+    freeze each lane on its own predicate (a frozen lane keeps its
+    round, so an active lane's i-th key is always its own round's); the
+    stats carry a ``[B]`` view of every per-run value (:func:`chunk_stats`)."""
     stop_fn = (done_fn if sentinel_fn is None
                else lambda st: done_fn(st) | sentinel_fn(st))
 
@@ -1409,7 +1505,8 @@ def make_chunk_runner(round_core, done_fn, extra_stats=None,
                 trace_rows.append(trace_fn(new))
             state = _freeze(active, new, state)
         counter_rows, shard_rows = [], []
-        _count_rows(deltas, counter_rows, shard_rows)
+        _count_rows(deltas, counter_rows, shard_rows,
+                    lanes=state.round.dim() == 1)
         return state, chunk_stats(
             state, done_fn, extra_stats, delivery, sentinel_fn,
             records=records, mass=mass,
@@ -1583,8 +1680,9 @@ def mass_width(state) -> int:
     if not mass_stats_tracked(state):
         return 0
     per_value = state.w.element_size() // 4
-    cols = state.s.shape[1] if state.s.dim() == 2 else 1
-    return per_value * (cols + 1)
+    lanes = lanes_of(state)
+    cols = state.s.shape[-1] if state.s.dim() == 2 + bool(lanes) else 1
+    return per_value * (cols + 1) * max(1, lanes)
 
 
 def mass_stats_tracked(state) -> bool:
@@ -1628,10 +1726,15 @@ def mass_stats(state) -> dict:
     a baseline taken by a no-op chunk drifts by exactly 0 ULPs on a
     lossless run; on the CPU in the JAX package's order,
     :func:`~gossipprotocol_tpu_torch.protocols.pushsum.tree_sum0`); the
-    walk's in-flight token carries real mass and is included. Empty for
-    gossip and the learning states."""
+    walk's in-flight token carries real mass and is included. Of a
+    lane-stacked state, each lane's own sums (``[B]``, Σs ``[B, d]``).
+    Empty for gossip and the learning states."""
     if not mass_stats_tracked(state):
         return {}
+    if lanes_of(state):
+        # a lane's sums over its own rows, in the single run's order
+        ms, mw = (tree_sum0(x.transpose(0, 1)) for x in (state.s, state.w))
+        return {"mass_s": ms, "mass_w": mw}
     ms, mw = tree_sum0(state.s), tree_sum0(state.w)
     if hasattr(state, "msg_s"):
         ms = ms + state.msg_s
@@ -1648,8 +1751,65 @@ def _mass_snapshot(state):
             float(state.w.cpu().numpy().astype(np.float64).sum()))
 
 
-def _f32(bits: int) -> np.float32:
-    return np.array([bits], dtype=np.int32).view(np.float32)[0]
+# ---- the host loop's records, shared by _drive and the sweep's loop ----
+
+
+def round_budget_rounds(cfg: RunConfig,
+                        prediction: Optional[dict] = None) -> Optional[int]:
+    """The run's round budget: an explicit int, the analytic
+    prediction's bound under ``round_budget == "auto"``, or None."""
+    if cfg.round_budget == "auto":
+        return int(prediction["budget_rounds"])
+    if cfg.round_budget is not None:
+        return int(cfg.round_budget)
+    return None
+
+
+def record_emitter(cfg: RunConfig, tel, metrics: List[dict]):
+    """``emit(rec)``: a chunk or host-event record to ``metrics``, the
+    telemetry hub and ``cfg.metrics_callback``."""
+    def emit(rec):
+        metrics.append(rec)
+        tel.metric(rec)
+        if cfg.metrics_callback:
+            cfg.metrics_callback(rec)
+
+    return emit
+
+
+def emit_over_budget(emit, tel, cfg: RunConfig, cur_round: int,
+                     budget: int, **extra) -> None:
+    """The structured record (and telemetry event) of a run stopped at
+    its round budget unconverged, instead of grinding on to
+    ``max_rounds``."""
+    ob = {"event": "over_budget", "round": cur_round,
+          "budget_rounds": budget,
+          "budget_source": ("auto" if cfg.round_budget == "auto"
+                            else "explicit"), **extra}
+    emit(ob)
+    tel.event("over_budget", **{k: v for k, v in ob.items() if k != "event"})
+
+
+def note_counters(rec: dict, totals, tel) -> None:
+    """A chunk's ``(sent, delivered, dropped)`` totals into its record and
+    the telemetry totals, as Python ints (long runs never overflow)."""
+    sent, delivered, dropped = (int(x) for x in totals)
+    rec["sent"] = sent
+    rec["delivered"] = delivered
+    rec["dropped"] = dropped
+    tel.add_counters(sent, delivered, dropped)
+
+
+def note_mass_drift(rec: dict, mass, base, tel) -> Tuple[float, float]:
+    """The drift of a chunk's mass sums from the baseline's, in ULPs (a
+    vector payload, or a sweep's lanes, by its worst entry), into its
+    record and the telemetry; returns ``(s_ulps, w_ulps)``."""
+    s_ulps = ulp_drift(mass[0], base[0])
+    w_ulps = ulp_drift(mass[1], base[1])
+    rec["mass_drift_ulps"] = s_ulps
+    rec["w_drift_ulps"] = w_ulps
+    tel.note_mass_drift(s_ulps, w_ulps)
+    return s_ulps, w_ulps
 
 
 def compute_prediction(run_topo, cfg: RunConfig, tel) -> Optional[dict]:
@@ -1745,12 +1905,7 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
     executed = 0
     excluded_s = 0.0       # rebuild warm-ups, kept out of wall_ms
     fused = use_megakernel(cfg)
-    # round budget: an explicit int, or the analytic prediction's bound
-    budget = None
-    if cfg.round_budget == "auto":
-        budget = int(prediction["budget_rounds"])
-    elif cfg.round_budget is not None:
-        budget = int(cfg.round_budget)
+    budget = round_budget_rounds(cfg, prediction)
     over_budget = drained = underflow_warned = False
     checkpointing = bool(cfg.checkpoint_every and cfg.checkpoint_dir)
     adjacency = (ckpt_mod.topology_fingerprint(topo)
@@ -1772,11 +1927,7 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
         mass=counters_on, counter_width=counter_width,
         trace_width=NUM_TRACE_COLS if tel.traces_on and not walk else 0)
 
-    def emit(rec):
-        metrics.append(rec)
-        tel.metric(rec)
-        if cfg.metrics_callback:
-            cfg.metrics_callback(rec)
+    emit = record_emitter(cfg, tel, metrics)
 
     def quar_meta():
         if not quar_log:
@@ -1860,14 +2011,10 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
         if walk and counters_on:
             rows = np.tile(np.asarray(WALK_HOP_COUNTS, np.int64), (ran, 1))
         if rows is not None:
-            # per-round int32 rows of the rounds that ran; totals as
-            # Python ints, so long runs never overflow
-            sent, delivered, dropped = (int(x) for x in
-                                        rows[:ran].sum(axis=0))
-            rec["sent"] = sent
-            rec["delivered"] = delivered
-            rec["dropped"] = dropped
-            tel.add_counters(sent, delivered, dropped)
+            # per-round int32 rows of the rounds that ran
+            note_counters(rec, rows[:ran].sum(axis=0), tel)
+            sent, delivered, dropped = (rec["sent"], rec["delivered"],
+                                        rec["dropped"])
             if got["shard_counters"] is not None:
                 # per-shard attribution: the unreduced partials, whose sum
                 # over shards must reproduce the totals exactly
@@ -1885,12 +2032,8 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
         trip_dev = got["trip"]
         mass_trip = False
         if got["mass"] is not None and mass_base is not None:
-            # a vector payload drifts by its worst column
-            s_ulps = ulp_drift(got["mass"][0], mass_base[0])
-            w_ulps = ulp_drift(got["mass"][1], mass_base[1])
-            rec["mass_drift_ulps"] = s_ulps
-            rec["w_drift_ulps"] = w_ulps
-            tel.note_mass_drift(s_ulps, w_ulps)
+            s_ulps, w_ulps = note_mass_drift(rec, got["mass"], mass_base,
+                                             tel)
             if sentinel_on:
                 mass_trip = any((not np.isfinite(u))
                                 or u > SENTINEL_MASS_ULPS
@@ -2029,15 +2172,10 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
             # rate: stop and leave a structured record instead of
             # grinding on to max_rounds
             over_budget = True
-            ob = {"event": "over_budget", "round": cur_round,
-                  "budget_rounds": budget,
-                  "budget_source": ("auto" if cfg.round_budget == "auto"
-                                    else "explicit")}
-            if prediction is not None:
-                ob["predicted_rounds"] = prediction.get("predicted_rounds")
-            emit(ob)
-            tel.event("over_budget",
-                      **{k: v for k, v in ob.items() if k != "event"})
+            emit_over_budget(
+                emit, tel, cfg, cur_round, budget,
+                **({} if prediction is None else
+                   {"predicted_rounds": prediction.get("predicted_rounds")}))
         if not done and _stop_check is not None and _stop_check():
             # graceful drain: a checkpoint off the cadence, so the resume
             # loses nothing, a record, and a result stamped "drain"
@@ -2079,8 +2217,8 @@ def _drive(cfg: RunConfig, state, step, num_nodes: int,
 
 def sharded_unported(cfg: RunConfig) -> Optional[str]:
     """The flags of faults, events, repair, checkpoints, the sentinel,
-    vector payloads, the learning workloads, clocks, acceleration and
-    float64 that ``cfg`` uses, which the sharded engine does not run yet
+    sweeps, vector payloads, the learning workloads, clocks, acceleration
+    and float64 that ``cfg`` uses, which the sharded engine does not run yet
     (its side, with the plan patching of ``patch_shard_push_deliveries``
     and the sharded ``matvec_payload``, is still to port), or None."""
     sched = cfg.schedule
@@ -2098,6 +2236,8 @@ def sharded_unported(cfg: RunConfig) -> Optional[str]:
         names.append(f"--sentinel {cfg.sentinel}")
     if cfg.checkpoint_every or cfg.checkpoint_dir or cfg.quarantine_log:
         names.append("--checkpoint-dir/--checkpoint-every/--resume")
+    if cfg.sweep is not None:
+        names.append("--sweep/--sweep-seeds")
     for flag, given in (("--payload-dim", cfg.payload_dim != 1),
                         ("--workload", cfg.workload != "avg"),
                         ("--clock", cfg.clock != "sync"),
@@ -2126,7 +2266,10 @@ def resume_allows_fast(topo: Topology,
 def run_simulation(topo: Topology, cfg: RunConfig,
                    initial_state=None) -> RunResult:
     """Build what the round reads, warm the kernels, and drive the
-    protocol to convergence (or ``max_rounds``). ``initial_state``
+    protocol to convergence (or ``max_rounds``); with ``cfg.sweep`` the
+    batched sweep engine runs instead (``sweep/engine.py``
+    :func:`~gossipprotocol_tpu_torch.sweep.engine.run_sweep`), which
+    cannot resume. ``initial_state``
     continues from a given state (a checkpoint's, or one carried across
     with :mod:`gossipprotocol_tpu_torch.convert`); it runs the general
     dead-set path unless its dead set is the birth exclusions, and a run
@@ -2146,6 +2289,15 @@ def run_simulation(topo: Topology, cfg: RunConfig,
     rows of ``obs/`` (:func:`make_chunk_runner`)."""
     from gossipprotocol_tpu_torch.obs import as_telemetry
 
+    if cfg.sweep is not None:
+        from gossipprotocol_tpu_torch.sweep.engine import run_sweep
+
+        if initial_state is not None:
+            raise ValueError(
+                "sweep runs cannot resume from a checkpoint — lanes have "
+                "no per-lane checkpoint story yet"
+            )
+        return run_sweep(topo, cfg)
     dev = resolve_device(cfg.device)
     tel = as_telemetry(cfg.telemetry)
     walk = is_walk(cfg)

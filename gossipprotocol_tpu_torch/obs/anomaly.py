@@ -22,8 +22,10 @@ Rule groups:
   finished run never trips them): residual plateau (stall) and residual
   growth (divergence) over the last :data:`TRACE_WINDOW` trace rows.
 
-The JAX package's ``daemon_flags`` reads the serve daemon's journal,
-which is not ported; it is left out here.
+:func:`daemon_flags` is the serve-daemon counterpart over replayed
+journal states (queue saturation, prediction-ratio blowout, retry
+storm) — same contract: rules only fire on provable conditions, so a
+healthy daemon smoke renders ``anomalies: none``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,25 @@ SHARD_SKEW_FACTOR = 1.5
 # ... but only once enough messages flowed for the ratio to mean
 # anything (tiny smoke runs legitimately skew on integer granularity)
 SHARD_SKEW_MIN_SENT = 10_000
+# daemon rules: retries across the journal before the storm rule fires
+# (one request's in-policy retries — at most retry_attempts-1 = 2 by
+# default — never trip it)
+RETRY_STORM_MIN = 3
+# ... and how far past its admission-time prediction a finished request
+# must run (matches obs.predict.BUDGET_FACTOR: within the auto budget
+# is healthy by definition)
+PREDICTION_BLOWOUT_FACTOR = 8.0
+
+# pinned daemon-rule message heads (tests and CI grep these verbatim)
+MSG_QUEUE_SATURATED = (
+    "queue SATURATED: {n} request(s) refused queue-full — raise "
+    "--max-queue or add workers")
+MSG_PREDICTION_BLOWOUT = (
+    "prediction blowout: {rid} ran {rounds} rounds, {ratio:.1f}x its "
+    "admission-time prediction of {predicted}")
+MSG_RETRY_STORM = (
+    "retry STORM: {n} infra retries across {m} request(s) — "
+    "accelerator runtime flapping")
 
 
 def _finite(x: Any) -> bool:
@@ -289,4 +310,52 @@ def anomaly_flags(
     flags += _trace_flags(manifest, trace)
     if manifest is None:
         flags.append("run.json missing: run likely crashed before finishing")
+    return flags
+
+
+# ---------------------------------------------------------------------
+# daemon-level rules (serve/ journal states, not run telemetry)
+
+
+def daemon_flags(states: Dict[str, Any]) -> List[str]:
+    """Every daemon anomaly the journal proves, for a replayed
+    ``{request_id: RequestState}`` map (``serve.journal.replay``):
+
+    * **queue saturation** — any request refused with the supervisor's
+      queue-full message means the backlog ceiling was actually hit;
+    * **prediction-ratio blowout** — a finished request that ran more
+      than :data:`PREDICTION_BLOWOUT_FACTOR` times the rounds its
+      admission-time *analytic* prediction priced (heuristic-confidence
+      predictions never fire, same gating as the run-level rule);
+    * **retry storm** — :data:`RETRY_STORM_MIN` or more infra retries
+      across the journal: one request's in-policy retries stay silent,
+      a flapping accelerator runtime does not.
+
+    Same contract as :func:`anomaly_flags`: no rule fires on a healthy
+    queue, because CI asserts ``anomalies: none`` on clean smokes.
+    """
+    from gossipprotocol_tpu_torch.obs import slo as slo_mod
+
+    flags: List[str] = []
+    sts = list(states.values())
+    saturated = [st for st in sts
+                 if st.phase == "refused"
+                 and str(st.last.get("reason", "")).startswith("queue full")]
+    if saturated:
+        flags.append(MSG_QUEUE_SATURATED.format(n=len(saturated)))
+    for st in sts:
+        admitted = st.first("admitted")
+        if admitted is None or admitted.get(
+                "prediction_confidence") != "analytic":
+            continue
+        ratio = slo_mod.prediction_ratio(st)
+        if ratio is not None and ratio > PREDICTION_BLOWOUT_FACTOR:
+            final = st.first("finished") or st.first("over_budget") or {}
+            flags.append(MSG_PREDICTION_BLOWOUT.format(
+                rid=st.id, rounds=final.get("rounds"), ratio=ratio,
+                predicted=admitted.get("predicted_rounds")))
+    retries = sum(st.retries for st in sts)
+    if retries >= RETRY_STORM_MIN:
+        flags.append(MSG_RETRY_STORM.format(
+            n=retries, m=sum(1 for st in sts if st.retries)))
     return flags

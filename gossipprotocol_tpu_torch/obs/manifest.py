@@ -146,7 +146,8 @@ def build_manifest(
         # sent/delivered/dropped totals + skew; None off / single-device
         "shard_balance": (tel.shard_balance()
                           if hasattr(tel, "shard_balance") else None),
-        # sweep rollup (sweeps are not ported: None)
+        # sweep rollup (lanes, converged fraction, round percentiles,
+        # per-lane records) when the run was a batched sweep; None else
         "sweep": getattr(tel, "sweep", None),
         # torch.profiler trace dir when the run was profiled
         "profile_dir": getattr(tel, "profile_dir", None),

@@ -39,9 +39,11 @@ from gossipprotocol_tpu_torch.utils.metrics import SCHEMA_VERSION
 
 COUNTER_TOTAL_FIELDS = ("sent", "delivered", "dropped")
 
-# Chrome-trace process id of the run's own host spans (the JAX package's
-# pid 1; its pid 2 belongs to the serve daemon, which is not ported)
+# Chrome-trace process ids: the run's own host spans, and the serve
+# daemon's request-lifecycle track (serve/lifecycle.py), as in the JAX
+# package
 TRACE_PID_RUN = 1
+TRACE_PID_DAEMON = 2
 
 
 def write_trace_doc(path: str, events: List[Dict[str, Any]]) -> str:
@@ -135,7 +137,7 @@ class Telemetry:
     enabled = True
     prediction = None  # obs.predict round prediction, set by the driver
     profile_dir = None  # torch.profiler trace dir when --profile-dir is set
-    sweep = None  # sweep rollup (sweeps are not ported: always None)
+    sweep = None  # sweep rollup, set by the sweep engine (sweep/engine.py)
     admission = None  # serve admission verdict (not ported: always None)
 
     def __init__(self, out_dir: str, *, counters: bool = True,

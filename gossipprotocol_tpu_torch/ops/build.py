@@ -79,6 +79,8 @@ _SIGNATURES = {
     },
     "megakernel": {
         "gossip_megakernel_max_grid": (_VOIDP,),
+        # n, grid, out
+        "gossip_megakernel_state_in_smem": (_LL, _INT, _VOIDP),
         # state (5), round, deg, pre_node, out_rank, xp2, yp2, part,
         # arrived, red, cnt, bar, work, probe stamps (null: the plain
         # kernel), classes, ncls, split_units, small_units, n, nu, k, eps,

@@ -14,7 +14,8 @@ ratio f32 and streak, conv int32, each ``[rp, 128]``
 (:class:`MegakernelState`; ``round`` is the run's int32 scalar). On the
 card the kernel updates it IN PLACE (it holds the state in shared memory
 for the launch where it fits and writes it back at the end; past that,
-about 811,000 nodes on 132 SMs, it works on the state in device memory)
+about 811,000 nodes on 132 SMs, it works on the state in device memory;
+:func:`state_in_shared_memory` asks which)
 and adds ``executed`` to
 ``round``; a chunk pads once, launches, and unpads once
 (``engine/driver.py``). The kernel gathers through compact tables it
@@ -34,7 +35,7 @@ import torch
 from gossipprotocol_tpu_torch.ops import build
 from gossipprotocol_tpu_torch.ops.delivery import RoutedConfigError
 from gossipprotocol_tpu_torch.ops.pallasdelivery import (
-    LANES, TILE_ROWS, PallasDelivery, _resident_rows,
+    LANES, TILE, TILE_ROWS, PallasDelivery, _resident_rows,
 )
 from gossipprotocol_tpu_torch.protocols.state import PushSumState
 
@@ -218,26 +219,59 @@ def build_megakernel_delivery(pd: PallasDelivery) -> MegakernelDelivery:
 def megakernel_working_set_bytes(pd: PallasDelivery) -> int:
     """Closed-form bytes of the K-round kernel's working set — the JAX
     package's ``megakernel_vmem_bytes`` (there is no VMEM on the card;
-    ``chip_smoke.py`` prints it against the 50 MB L2): the padded state
-    I/O (6 in + 5 out 128-lane vectors), both int32 index tables, the two
-    gather sources with their gathered f32 streams, and the widest class
-    region with its fold accumulator. K-independent."""
-    rp = _pad_rows(pd.n)
-    state_io = 11 * rp * LANES * 4
-    idx = (pd.gather_pre.idx.numel() + pd.gather_out.idx.numel()) * 4
-    srcs = (pd.gather_pre.src_rows + pd.gather_out.src_rows) * LANES * 4
-    gathered = (pd.gather_pre.idx.numel() + pd.gather_out.idx.numel()) * 4
-    region = max((reg_rows * LANES * 4 * 2
-                  for _c, _n_c, _start, reg_rows, _cap in pd.classes),
-                  default=0)
-    return state_io + idx + srcs + gathered + region
+    ``chip_smoke.py`` prints it against the 50 MB L2).
+    :func:`working_set_bytes` of the delivery's geometry, with its widest
+    class region."""
+    region = max((reg_rows for _c, _n_c, _start, reg_rows, _cap
+                  in pd.classes), default=0)
+    return working_set_bytes(pd.n, pd.m_pairs, pd.nu, region)
+
+
+def working_set_bytes(n: int, m_pairs: int, nu: int,
+                      region_rows: int) -> int:
+    """The working set from the geometry alone (the capacity planner
+    prices it before any plan build): the padded state I/O (6 in + 5 out
+    128-lane vectors), both int32 index tables (gather-pre over the
+    ``2·m_pairs`` pair slots, gather-out over the ``2·n`` node slots), the
+    two gather sources (``2·n`` and ``2·nu`` values and a zero slot) with
+    their gathered f32 streams, and the widest class region
+    (``region_rows`` 128-lane rows) with its fold accumulator.
+    K-independent."""
+    idx = (_ceil_to(2 * m_pairs, TILE) + _ceil_to(2 * n, TILE)) * 4
+    srcs = (_ceil_to(2 * n + 1, TILE) + _ceil_to(2 * nu + 1, TILE)) * 4
+    return (11 * _pad_rows(n) * LANES * 4 + 2 * idx + srcs
+            + region_rows * LANES * 4 * 2)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-int(x) // m) * m
 
 
 def launch_grid(mk: MegakernelDelivery) -> int:
     """Blocks of one launch: as many co-resident blocks as the work (the
     larger of the node and pair-slot counts, one thread each) can use."""
-    work = max(mk.pd.n, mk.pd.m_pairs)
-    return max(1, min(mk.scratch["max_grid"], -(-work // THREADS)))
+    return _grid(mk.pd.n, mk.pd.m_pairs, mk.scratch["max_grid"])
+
+
+def _grid(n: int, m_pairs: int, max_grid: int) -> int:
+    return max(1, min(max_grid, -(-max(n, m_pairs) // THREADS)))
+
+
+def state_in_shared_memory(n: int, m_pairs: int, device) -> bool:
+    """Does a launch over ``n`` nodes and ``m_pairs`` pair slots keep the
+    node state in shared memory on ``device``? The launcher's own choice
+    (``csrc/megakernel.cu`` ``pick_kernel``) at :func:`launch_grid`'s
+    grid, asked of the built library without a launch."""
+    import ctypes
+
+    grid = _grid(n, m_pairs, max_grid_size(device))
+    lib = build.library("megakernel")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.gossip_megakernel_state_in_smem(int(n), grid,
+                                                 ctypes.addressof(out))
+    build.check(lib, rc, "megakernel (shared-memory query)")
+    return bool(out.value)
 
 
 def max_grid_size(device) -> int:

@@ -641,16 +641,13 @@ def push_program_geometry(sd: ShardPushDelivery):
                   for x in push_leaves(sd)))
 
 
-def _build_push_shards(topo, n_padded: int, num_shards: int,
-                       progress=None,
-                       build_workers: Optional[int] = None) -> list:
-    """Uniformized per-shard push builds (capacity/block pre-pass +
-    cr-floors fixpoint), one host-form :class:`ShardPushDelivery` per
-    shard, not yet stacked."""
+def shard_geometry(topo, n_padded: int, num_shards: int):
+    """The push plans' uniformized geometry, before any tile routing:
+    ``(caps, block_pairs, e_max, classes, m_pairs)`` — the per-class
+    node-count maxima over the shards, the slab block (the cross-shard
+    max block census, one bincount per shard, O(E) total), the most
+    edges a shard owns, and the class layout every shard runs."""
     local = n_padded // num_shards
-
-    # capacity + block pre-pass: per-class node-count maxima and the
-    # cross-shard max block census (one bincount per shard, O(E) total)
     n = topo.num_nodes
     bounds = [k * local for k in range(num_shards + 1)]
     caps = _shard_class_counts(topo, bounds)
@@ -666,13 +663,25 @@ def _build_push_shards(topo, n_padded: int, num_shards: int,
             bmax = max(bmax, int(np.bincount(
                 cross, minlength=num_shards).max()))
     block_pairs = max(64, -(-max(bmax, 1) // 64) * 64)
-
-    # the promised build-time size guard, before any tile routing
     cls_sorted = np.repeat(
         np.array(sorted(caps), np.int64),
         np.array([caps[c] for c in sorted(caps)], np.int64),
     ) if caps else np.zeros(0, np.int64)
     classes_u, _, m_pairs_u, _, _ = class_layout(cls_sorted, caps=caps)
+    return caps, block_pairs, e_max, classes_u, m_pairs_u
+
+
+def _build_push_shards(topo, n_padded: int, num_shards: int,
+                       progress=None,
+                       build_workers: Optional[int] = None) -> list:
+    """Uniformized per-shard push builds (capacity/block pre-pass +
+    cr-floors fixpoint), one host-form :class:`ShardPushDelivery` per
+    shard, not yet stacked."""
+    local = n_padded // num_shards
+    caps, block_pairs, e_max, classes_u, m_pairs_u = shard_geometry(
+        topo, n_padded, num_shards)
+
+    # the promised build-time size guard, before any tile routing
     assert_push_tables_linear(m_pairs_u, num_shards, block_pairs,
                               e_max, local, len(caps),
                               split_pad_pairs=split_pad_pairs_of(classes_u))

@@ -18,6 +18,12 @@ JAX package picks it per round with ``jax.lax.cond`` on a device flag;
 here the caller picks the branch (``inverted``) and must take it only
 while :func:`inversion_legal` holds — then both branches give bitwise
 equal hits, so the trajectory does not depend on the rule.
+
+Sweep lanes (``sweep/engine.py``): a state with a leading ``[B]``
+dimension (``round`` ``[B]``), ``[B, 2]`` round keys and, for a swept
+threshold, a ``[B]`` int32 ``threshold`` run B independent rounds in one
+pass; the hits scatter into a flattened ``[B·n]`` target
+(:func:`~gossipprotocol_tpu_torch.protocols.sampling.index_add_rows`).
 """
 
 from __future__ import annotations
@@ -27,8 +33,8 @@ import torch
 
 from gossipprotocol_tpu_torch.ops.build import resolve_device
 from gossipprotocol_tpu_torch.protocols.sampling import (
-    InvertedDense, dense_table, fold_in, recomputed_hits, round_drops,
-    sample_neighbors,
+    InvertedDense, dense_table, fold_in, index_add_rows, lane_param,
+    node_sum, recomputed_hits, round_drops, sample_neighbors,
 )
 from gossipprotocol_tpu_torch.protocols.state import GossipState
 from gossipprotocol_tpu_torch.topology.base import Topology
@@ -68,14 +74,15 @@ def gossip_round_core(state: GossipState, nbrs, key: torch.Tensor, *,
     static_loss_windows()``): a dropped send never lands — gossip needs
     no mass return. ``clock`` (a Poisson spec, ``async_/clock.py``): only
     rows whose clock ticked spread; the inverted branch is never taken
-    under it (activation breaks its legality every round)."""
+    under it (activation breaks its legality every round). Sweep lanes:
+    see the module docstring (``threshold`` an int or a ``[B]`` tensor)."""
     spreaders = _spreaders(state, keep_alive, all_alive)
     if clock:
         assert not inverted, "inverted delivery requires the sync clock"
         from gossipprotocol_tpu_torch.async_.clock import activation_mask
 
         spreaders = spreaders & activation_mask(
-            key, clock, torch.arange(state.counts.shape[0],
+            key, clock, torch.arange(state.counts.shape[-1],
                                      dtype=torch.int64, device=key.device))
     if inverted:
         assert not loss_windows, "the inverted branch cannot drop sends"
@@ -85,8 +92,8 @@ def gossip_round_core(state: GossipState, nbrs, key: torch.Tensor, *,
         send = spreaders & valid
         if loss_windows:
             send = send & ~round_drops(key, state.round, loss_windows, n)
-        hits = torch.zeros_like(state.counts).index_add_(
-            0, targets, send.to(torch.int32))
+        hits = index_add_rows(torch.zeros_like(state.counts), targets,
+                              send.to(torch.int32))
     # the reference's sender-side dictionary check, applied at the
     # receiver: no hit lands on a converged or failed node
     suppressed = (state.converged if all_alive
@@ -94,7 +101,8 @@ def gossip_round_core(state: GossipState, nbrs, key: torch.Tensor, *,
     hits = torch.where(suppressed, torch.zeros_like(hits), hits)
     counts = state.counts + hits
     return GossipState(counts=counts,
-                       converged=state.converged | (counts >= threshold),
+                       converged=state.converged
+                       | (counts >= lane_param(threshold, counts)),
                        alive=state.alive, round=state.round + 1)
 
 
@@ -125,11 +133,13 @@ def gossip_message_counts(old: GossipState, new: GossipState, nbrs,
     activation mask included), ``delivered`` is ΣΔcounts — hits actually
     credited, exact in both delivery branches — and ``dropped`` re-draws
     the same loss mask from the same key. Sends suppressed by a
-    converged/dead receiver count as sent but not delivered."""
+    converged/dead receiver count as sent but not delivered. Sweep lanes
+    give ``[B, 3]``, one row a lane."""
     from gossipprotocol_tpu_torch.protocols.sampling import send_valid_mask
 
+    lanes = old.round.dim() == 1
     spreaders = _spreaders(old, keep_alive, all_alive)
-    rows = old.counts.shape[0]
+    rows = old.counts.shape[-1]
     if clock:
         from gossipprotocol_tpu_torch.async_.clock import activation_mask
 
@@ -138,15 +148,16 @@ def gossip_message_counts(old: GossipState, new: GossipState, nbrs,
                                      device=key.device))
     valid = send_valid_mask(nbrs, n)
     sent_mask = spreaders if valid is None else spreaders & valid
-    sent = torch.sum(sent_mask.to(torch.int32))
-    delivered = (torch.sum(new.counts.to(torch.int32))
-                 - torch.sum(old.counts.to(torch.int32)))
+    sent = node_sum(sent_mask.to(torch.int32), lanes)
+    delivered = (node_sum(new.counts.to(torch.int32), lanes)
+                 - node_sum(old.counts.to(torch.int32), lanes))
     if loss_windows:
         drop = round_drops(key, old.round, loss_windows, n)
-        dropped = torch.sum((sent_mask & drop).to(torch.int32))
+        dropped = node_sum((sent_mask & drop).to(torch.int32), lanes)
     else:
-        dropped = torch.zeros((), dtype=torch.int64, device=sent.device)
-    return torch.stack([sent, delivered, dropped]).to(torch.int32)
+        dropped = torch.zeros(sent.shape, dtype=torch.int64,
+                              device=sent.device)
+    return torch.stack([sent, delivered, dropped], dim=-1).to(torch.int32)
 
 
 def gossip_trace_row(state: GossipState, *, all_sum=None,
@@ -218,4 +229,4 @@ def hits_by_inversion(nbrs: InvertedDense, key: torch.Tensor) -> torch.Tensor:
     draw points back at i, ``Σ_k [slot(table[i,k]) == rev[i,k]]`` over
     ``k < degree[i]`` — the scatter's histogram when every eligible node
     spreads."""
-    return recomputed_hits(nbrs, key).sum(dim=1, dtype=torch.int32)
+    return recomputed_hits(nbrs, key).sum(dim=-1, dtype=torch.int32)

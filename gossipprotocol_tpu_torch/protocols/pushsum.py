@@ -14,6 +14,13 @@ convergence predicate is either the local delta streak ``|Δ(s/w)| <=
 eps`` for ``streak_target`` rounds (sticky) or the global ``|s/w - mean|
 <= tol`` streak (non-sticky); under vector payloads every column must be
 within tolerance.
+
+Sweep lanes (``sweep/engine.py``): a state with a leading ``[B]``
+dimension (``round`` ``[B]``), ``[B, 2]`` round keys and, for swept
+tolerances, ``[B]`` tensors ``eps`` / ``tol`` run B independent rounds in
+one pass; the messages scatter into a flattened ``[B·n]`` target
+(:func:`~gossipprotocol_tpu_torch.protocols.sampling.index_add_rows`) and
+the global mean is taken per lane.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from gossipprotocol_tpu_torch.protocols.sampling import (
-    fold_in, recomputed_hits, round_drops, sample_neighbors,
+    fold_in, index_add_rows, lane_param, node_sum, recomputed_hits,
+    round_drops, sample_neighbors,
 )
 from gossipprotocol_tpu_torch.protocols.state import PushSumState
 
@@ -65,10 +73,12 @@ def tree_sum0(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def rowmask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+def rowmask(mask: torch.Tensor, like: torch.Tensor,
+            lanes: bool = False) -> torch.Tensor:
     """Broadcast a per-node ``[rows]`` mask against ``like`` (``[rows]``
-    or ``[rows, d]``)."""
-    return mask if like.dim() == 1 else mask[:, None]
+    or ``[rows, d]``; with ``lanes``, ``[B, rows]`` or ``[B, rows, d]``
+    against a ``[rows]`` or ``[B, rows]`` mask)."""
+    return mask if like.dim() == 1 + lanes else mask[..., None]
 
 
 def finish_pushsum_round(state: PushSumState, s_new: torch.Tensor,
@@ -81,27 +91,37 @@ def finish_pushsum_round(state: PushSumState, s_new: torch.Tensor,
     underflowed (0/0 would be NaN). Divisions take tensor divisors (see
     :func:`~gossipprotocol_tpu_torch.protocols.state.pushsum_init`).
     ``all_sum`` sums over the node axis for the global mean (the sharded
-    engine passes its shard-ordered sum).
+    engine passes its shard-ordered sum). Sweep lanes take the mean per
+    lane, and ``eps`` / ``tol`` may be ``[B]`` tensors.
     """
+    lanes = state.round.dim() == 1
     floor = torch.clamp(w_new, min=1e-30)
-    ratio_new = s_new / rowmask(floor, s_new)
+    ratio_new = s_new / rowmask(floor, s_new, lanes)
     if predicate == "global":
         s_healthy = s_new if all_alive else torch.where(
-            rowmask(state.alive, s_new), s_new, torch.zeros_like(s_new))
+            rowmask(state.alive, s_new, lanes), s_new,
+            torch.zeros_like(s_new))
         w_healthy = w_new if all_alive else torch.where(
             state.alive, w_new, torch.zeros_like(w_new))
-        mean = all_sum(s_healthy) / torch.clamp(all_sum(w_healthy),
-                                                min=1e-30)
-        near = torch.abs(ratio_new - mean) <= tol
-        if near.dim() == 2:
+        if lanes:
+            den = torch.clamp(torch.sum(w_healthy, dim=1, keepdim=True),
+                              min=1e-30)
+            mean = torch.sum(s_healthy, dim=1, keepdim=True) / rowmask(
+                den, s_new, lanes)
+        else:
+            mean = all_sum(s_healthy) / torch.clamp(all_sum(w_healthy),
+                                                    min=1e-30)
+        near = torch.abs(ratio_new - mean) <= lane_param(tol, ratio_new)
+        if near.dim() == 2 + lanes:
             near = torch.all(near, dim=-1)
         streak = torch.where(near, state.streak + 1,
                              torch.zeros_like(state.streak))
         # non-sticky: a node that drifts back out of tol un-converges
         converged = streak >= streak_target
     elif predicate == "delta":
-        near = torch.abs(ratio_new - state.ratio) <= eps
-        if near.dim() == 2:
+        near = torch.abs(ratio_new - state.ratio) <= lane_param(eps,
+                                                                 ratio_new)
+        if near.dim() == 2 + lanes:
             near = torch.all(near, dim=-1)
         streak = torch.where(near, state.streak + 1,
                              torch.zeros_like(state.streak))
@@ -144,9 +164,13 @@ def pushsum_round_core(state: PushSumState, nbrs, key: torch.Tensor, *,
     dense table, a component-closed dead set (``targets_alive``), the
     synchronous clock, no loss window and a scalar payload (the engine's
     config checks pin this); its sums are taken by receivers, in slot
-    order, bitwise the JAX package's."""
+    order, bitwise the JAX package's. The JAX package's sweep lanes take
+    the same fused order on the CPU, a swept tolerance's too (its lane
+    body scatters with ``segment_sum``, which XLA rewrites alike), so
+    sweep lanes run this body as it is."""
+    lanes = state.round.dim() == 1
     if delivery == "invert":
-        assert not (clock or loss_windows) and state.s.dim() == 1, (
+        assert not (clock or loss_windows) and state.s.dim() == 1 + lanes, (
             "delivery='invert' needs the synchronous clock, no loss and a "
             "scalar payload")
         valid = nbrs.degree > 0
@@ -169,6 +193,9 @@ def pushsum_round_core(state: PushSumState, nbrs, key: torch.Tensor, *,
         deliver = valid
     elif targets_alive:
         deliver = valid & state.alive
+    elif lanes:
+        deliver = valid & state.alive & torch.gather(state.alive, 1,
+                                                     targets.long())
     else:
         deliver = valid & state.alive & state.alive[targets]
     if clock:
@@ -179,11 +206,11 @@ def pushsum_round_core(state: PushSumState, nbrs, key: torch.Tensor, *,
                                      device=key.device))
     if loss_windows:
         deliver = deliver & ~round_drops(key, state.round, loss_windows, n)
-    s_sent = torch.where(rowmask(deliver, state.s), state.s * 0.5,
+    s_sent = torch.where(rowmask(deliver, state.s, lanes), state.s * 0.5,
                          torch.zeros_like(state.s))
     w_sent = torch.where(deliver, state.w * 0.5, torch.zeros_like(state.w))
-    s_new = (state.s - s_sent).index_add_(0, targets, s_sent)
-    w_new = (state.w - w_sent).index_add_(0, targets, w_sent)
+    s_new = index_add_rows(state.s - s_sent, targets, s_sent)
+    w_new = index_add_rows(state.w - w_sent, targets, w_sent)
     return finish_pushsum_round(
         state, s_new, w_new, eps=eps, streak_target=streak_target,
         predicate=predicate, tol=tol, all_alive=all_alive)
@@ -210,8 +237,8 @@ def received_by_inversion(nbrs, key: torch.Tensor, s: torch.Tensor,
     acc_w = torch.zeros_like(w)
     for k in range(nbrs.table.shape[1]):
         j = nbrs.table[:, k].long()
-        acc_s = acc_s + torch.where(hit[:, k], s[j], zero)
-        acc_w = acc_w + torch.where(hit[:, k], w[j], zero)
+        acc_s = acc_s + torch.where(hit[..., k], s[..., j], zero)
+        acc_w = acc_w + torch.where(hit[..., k], w[..., j], zero)
     return acc_s * 0.5, acc_w * 0.5
 
 
@@ -236,13 +263,16 @@ def pushsum_message_counts(old: PushSumState, nbrs, key: torch.Tensor, *,
     and drop-mask calls :func:`pushsum_round_core` made — read-only.
     ``sent`` counts live senders with a valid draw (whose clock ticked);
     a half kept because the target was dead is sent-not-delivered, one
-    lost to a loss window is ``dropped``."""
+    lost to a loss window is ``dropped``. Sweep lanes give ``[B, 3]``,
+    one row a lane."""
+    lanes = old.round.dim() == 1
     if delivery == "invert":
         # invert is legal only while every send lands: sent == delivered
         valid = nbrs.degree > 0
         deliver = valid if all_alive else valid & old.alive
-        cnt = torch.sum(deliver.to(torch.int32))
-        return torch.stack([cnt, cnt, torch.zeros_like(cnt)]).to(
+        cnt = node_sum(deliver.expand(old.alive.shape).to(torch.int32),
+                       lanes)
+        return torch.stack([cnt, cnt, torch.zeros_like(cnt)], dim=-1).to(
             torch.int32)
     targets, valid = sample_neighbors(nbrs, n, key)
     senders = valid if all_alive else valid & old.alive
@@ -250,19 +280,24 @@ def pushsum_message_counts(old: PushSumState, nbrs, key: torch.Tensor, *,
         from gossipprotocol_tpu_torch.async_.clock import activation_mask
 
         senders = senders & activation_mask(
-            key, clock, torch.arange(old.s.shape[0], dtype=torch.int64,
+            key, clock, torch.arange(old.w.shape[-1], dtype=torch.int64,
                                      device=key.device))
-    sent = torch.sum(senders.to(torch.int32))
-    deliver = (senders if all_alive or targets_alive
-               else senders & old.alive[targets.long()])
+    senders = senders.expand(old.alive.shape)
+    sent = node_sum(senders.to(torch.int32), lanes)
+    if all_alive or targets_alive:
+        deliver = senders
+    elif lanes:
+        deliver = senders & torch.gather(old.alive, 1, targets.long())
+    else:
+        deliver = senders & old.alive[targets.long()]
     if loss_windows:
         drop = round_drops(key, old.round, loss_windows, n)
-        dropped = torch.sum((deliver & drop).to(torch.int32))
+        dropped = node_sum((deliver & drop).to(torch.int32), lanes)
         deliver = deliver & ~drop
     else:
         dropped = torch.zeros_like(sent)
-    delivered = torch.sum(deliver.to(torch.int32))
-    return torch.stack([sent, delivered, dropped]).to(torch.int32)
+    delivered = node_sum(deliver.to(torch.int32), lanes)
+    return torch.stack([sent, delivered, dropped], dim=-1).to(torch.int32)
 
 
 def pushsum_done(state: PushSumState) -> torch.Tensor:

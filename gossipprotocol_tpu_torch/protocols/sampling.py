@@ -16,6 +16,11 @@ scalar ``jax.random.randint`` of the reference walk reads both, so
 Topology arrays are runtime arguments: :class:`DenseNeighbors` (a padded
 ``[n, max_degree]`` table, bounded-degree graphs), :class:`CSRNeighbors`
 (hub graphs) or ``None`` for the implicit complete graph.
+
+Sweep lanes (``sweep/engine.py``): a key may be ``[B, 2]``, one per lane,
+and then every draw gains a leading ``[B]`` dimension; lane ``i``'s words
+are those of its standalone run under key ``i``. A ``[2]`` key runs the
+single-run path unchanged.
 """
 
 from __future__ import annotations
@@ -97,6 +102,15 @@ def threefry2x32_words(k0, k1, x0: torch.Tensor,
     return x0, x1
 
 
+def _key_words(key: torch.Tensor):
+    """``(k0, k1)`` of a key: scalars for a ``[2]`` key, ``[B, 1]``
+    columns for ``[B, 2]`` lane keys (broadcasting against ``[n]`` ids or
+    ``[B, m]`` counters to ``[B, ...]``)."""
+    if key.dim() == 1:
+        return key[0], key[1]
+    return key[:, 0:1], key[:, 1:2]
+
+
 def key_data(seed: int, device="cuda") -> torch.Tensor:
     """``jax.random.key_data(jax.random.key(seed))`` as int64 [2] on
     ``device``: a 32-bit seed pads to ``(0, seed mod 2**32)`` (the JAX
@@ -108,9 +122,17 @@ def key_data(seed: int, device="cuda") -> torch.Tensor:
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: the hash of the counter words
     ``(0, data)``; ``data`` an int or an integer tensor of any shape
-    (then one key per element, shape ``[*data.shape, 2]``)."""
+    (then one key per element, shape ``[*data.shape, 2]``). Lane keys
+    ``[B, 2]`` take a scalar ``data`` (``[B, 2]`` out) or ``[B, ...]``
+    data (``[B, ..., 2]`` out)."""
     d = torch.as_tensor(data, device=key.device).to(torch.int64) & _U32
-    y0, y1 = threefry2x32_words(key[0], key[1], torch.zeros_like(d), d)
+    if key.dim() == 1:
+        y0, y1 = threefry2x32_words(key[0], key[1], torch.zeros_like(d), d)
+    else:
+        shape = (-1,) + (1,) * max(d.dim() - 1, 0)
+        y0, y1 = threefry2x32_words(key[:, 0].reshape(shape),
+                                    key[:, 1].reshape(shape),
+                                    torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -118,10 +140,15 @@ def round_keys(base_key: torch.Tensor, first_round: torch.Tensor,
                count: int) -> torch.Tensor:
     """``[count, 2]``: ``fold_in(base_key, r)`` for the rounds
     ``first_round .. first_round + count - 1`` (``first_round`` a device
-    scalar), hashed in one pass instead of one small hash per round."""
-    rounds = first_round.to(torch.int64) + torch.arange(
-        count, dtype=torch.int64, device=base_key.device)
-    return fold_in(base_key, rounds)
+    scalar), hashed in one pass instead of one small hash per round.
+    Lane keys ``[B, 2]`` with a ``[B]`` ``first_round`` give ``[count, B,
+    2]``: round i of lane b is ``fold_in(base_key[b], first_round[b] +
+    i)``."""
+    steps = torch.arange(count, dtype=torch.int64, device=base_key.device)
+    if base_key.dim() == 1:
+        return fold_in(base_key, first_round.to(torch.int64) + steps)
+    rounds = first_round.to(torch.int64)[:, None] + steps[None, :]
+    return fold_in(base_key, rounds).transpose(0, 1)
 
 
 def per_node_randint(key: torch.Tensor, gids: torch.Tensor,
@@ -131,7 +158,7 @@ def per_node_randint(key: torch.Tensor, gids: torch.Tensor,
     pairing, which makes a draw a function of the id alone), then
     ``u % maxval`` in uint32. Returns int32."""
     g = gids.to(torch.int64) & _U32
-    u, _ = threefry2x32_words(key[0], key[1], g, g)
+    u, _ = threefry2x32_words(*_key_words(key), g, g)
     mx = torch.as_tensor(maxval, device=g.device).to(torch.int64) & _U32
     return (u % mx).to(torch.int32)
 
@@ -213,11 +240,14 @@ def use_dense(topo: Topology) -> bool:
     :data:`DENSE_MAX_DEGREE` (the JAX package's rule; its
     ``GOSSIP_TPU_DENSE`` switch is not ported — ``device_topology(dense=
     False)`` forces CSR)."""
-    return (
-        not topo.implicit_full
-        and int(topo.degree.max() if topo.degree.size else 0)
-        <= DENSE_MAX_DEGREE
-    )
+    return not topo.implicit_full and dense_for_degree(
+        int(topo.degree.max() if topo.degree.size else 0))
+
+
+def dense_for_degree(max_degree: int) -> bool:
+    """:func:`use_dense`'s rule from the max degree alone (the capacity
+    planner's, before any graph exists)."""
+    return int(max_degree) <= DENSE_MAX_DEGREE
 
 
 def device_topology(topo: Topology, dense: Optional[bool] = None,
@@ -262,7 +292,8 @@ def recomputed_hits(nbrs: InvertedDense, key: torch.Tensor) -> torch.Tensor:
     Slots ``k >= degree[i]`` are masked off."""
     table = nbrs.table
     maxd = table.shape[1]
-    slot = node_slots(nbrs.degree, key)[table]
+    slot = node_slots(nbrs.degree, key)
+    slot = slot[table] if slot.dim() == 1 else slot[:, table]
     col = torch.arange(maxd, dtype=torch.int32, device=table.device)
     return (slot == nbrs.rev.to(torch.int32)) & (
         col[None, :] < nbrs.degree[:, None])
@@ -284,7 +315,12 @@ def sample_neighbors(nbrs, n: int, key: torch.Tensor):
     if isinstance(nbrs, (DenseNeighbors, InvertedDense)):
         deg = nbrs.degree
         slot = node_slots(deg, key)
-        targets = torch.gather(nbrs.table, 1, slot.long()[:, None])[:, 0]
+        if slot.dim() == 1:
+            targets = torch.gather(nbrs.table, 1, slot.long()[:, None])[:, 0]
+        else:  # lanes: [B, n] slots into the one shared table
+            maxd = nbrs.table.shape[1]
+            flat = _ids(n, key.device) * maxd + slot.long()
+            targets = nbrs.table.reshape(-1)[flat]
         valid = deg > 0
         return torch.where(valid, targets, torch.zeros_like(targets)), valid
     if nbrs is None:
@@ -306,10 +342,18 @@ def loss_probability(rnd: torch.Tensor, windows) -> torch.Tensor:
     scalar): overlapping windows ``(start, stop, prob)`` compose as
     independent drops, survive = Π (1 − pₖ·activeₖ), in float32, each
     factor ``1 - prob`` rounded from the double once, as the JAX
-    package's ``jnp.float32(1.0 - prob)``."""
+    package's ``jnp.float32(1.0 - prob)``. Sweep lanes pass ``rnd`` as
+    ``[B]`` rounds and a window's ``prob`` as a float32 ``[B]`` tensor of
+    the SURVIVE factors ``float32(1 - p)``, pre-complemented on the host
+    in the same one rounding (the JAX package's traced entry); the result
+    is then ``[B]``."""
     survive = torch.ones((), dtype=torch.float32, device=rnd.device)
     for start, stop, prob in windows:
         active = (rnd >= int(start)) & (rnd < int(stop))
+        if isinstance(prob, torch.Tensor):
+            survive = survive * torch.where(active, prob,
+                                            torch.ones_like(prob))
+            continue
         keep = float(np.float32(1.0 - prob))
         survive = survive * torch.where(
             active, torch.full_like(survive, keep), torch.ones_like(survive))
@@ -328,8 +372,10 @@ def drop_mask(key: torch.Tensor, prob: torch.Tensor, ids: torch.Tensor,
     of global ids, so any layout draws the same drops."""
     a = ids.to(torch.int64) & _U32
     b = a if ids2 is None else ids2.to(torch.int64) & _U32
-    u, _ = threefry2x32_words(key[0], key[1], a, b)
+    u, _ = threefry2x32_words(*_key_words(key), a, b)
     thresh = prob.to(torch.float32) * 4294967296.0
+    if key.dim() == 2 and thresh.dim() == 1:
+        thresh = thresh[:, None]  # one probability a lane
     return u.to(torch.float32) < thresh
 
 
@@ -339,6 +385,41 @@ def round_drops(key: torch.Tensor, rnd: torch.Tensor, windows,
     key ``key``: one draw per sender id in ``[0, n)``."""
     return drop_mask(fold_in(key, LOSS_FOLD),
                      loss_probability(rnd, windows), _ids(n, key.device))
+
+
+def index_add_rows(base: torch.Tensor, targets: torch.Tensor,
+                   src: torch.Tensor) -> torch.Tensor:
+    """``base.index_add_(0, targets, src)``: add message ``i`` onto row
+    ``targets[i]`` of ``base``, in place. Sweep lanes (``[B, n]``
+    targets, ``base`` ``[B, n, ...]``) add into the flattened ``[B·n,
+    ...]`` view at ``lane·n + target``, so on the CPU, which adds in
+    source order, each lane's messages land in ascending sender order, as
+    in its standalone run."""
+    if targets.dim() == 1:
+        return base.index_add_(0, targets, src)
+    lanes, n = targets.shape
+    tail = tuple(base.shape[2:])
+    off = torch.arange(lanes, dtype=torch.int64,
+                       device=targets.device)[:, None] * n
+    flat = (targets.to(torch.int64) + off).reshape(-1)
+    base.view((lanes * n,) + tail).index_add_(
+        0, flat, src.expand((lanes, n) + tail).reshape((lanes * n,) + tail))
+    return base
+
+
+def lane_param(value, like: torch.Tensor):
+    """A round parameter against ``like`` (``[B, n, ...]``): a sweep
+    lane's ``[B]`` tensor viewed as ``[B, 1, ...]``; a Python number as
+    it is."""
+    if not isinstance(value, torch.Tensor):
+        return value
+    return value.view((-1,) + (1,) * (like.dim() - 1))
+
+
+def node_sum(x: torch.Tensor, lanes: bool) -> torch.Tensor:
+    """Sum over the node axis: everything for a single run, the last axis
+    (one sum a lane) for sweep lanes."""
+    return torch.sum(x, dim=-1) if lanes else torch.sum(x)
 
 
 def send_valid_mask(nbrs, n: int) -> Optional[torch.Tensor]:

@@ -384,8 +384,10 @@ def test_cli_stall_exit_1(capsys):
     (["64", "imp3D", "gossip", "--compile-cache", "c"], "--compile-cache"),
     (["64", "imp3D", "gossip", "--checkpoint-dir", "ck", "--devices", "2"],
      "--checkpoint-dir"),
-    (["64", "imp3D", "gossip", "--sweep", "plan.json"], "--sweep"),
-    (["64", "imp3D", "gossip", "--sweep-seeds", "2"], "--sweep-seeds"),
+    (["64", "imp3D", "gossip", "--build", "streamed"], "--build"),
+    (["64", "imp3D", "gossip", "--request-id", "r1"], "--request-id"),
+    (["64", "imp3D", "gossip", "--sweep-seeds", "2", "--devices", "2"],
+     "--devices"),
     (["64", "imp3D", "push-sum", "--payload-dim", "4", "--devices", "2"],
      "--payload-dim"),
     (["64", "imp3D", "gossip", "--delivery", "pallas"], "fanout-all"),

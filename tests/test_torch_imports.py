@@ -74,3 +74,15 @@ def test_walk_finds_the_obs_modules():
                 "obs/anomaly.py", "obs/report.py", "obs/resources.py",
                 "utils/metrics.py", "utils/profiling.py"):
         assert pkg / rel in _FILES, rel
+
+
+def test_walk_finds_the_sweep_serve_and_planner_modules():
+    """The batched sweeps, the serve daemon's host-side readers and the
+    offline tools (the capacity planner, watch, history, the SLOs) are
+    walked by the check above."""
+    pkg = ROOT / "gossipprotocol_tpu_torch"
+    for rel in ("sweep/__init__.py", "sweep/spec.py", "sweep/engine.py",
+                "serve/__init__.py", "serve/journal.py",
+                "serve/lifecycle.py", "obs/capacity.py", "obs/watch.py",
+                "obs/history.py", "obs/slo.py"):
+        assert pkg / rel in _FILES, rel

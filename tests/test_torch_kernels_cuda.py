@@ -1326,3 +1326,81 @@ def test_gala_group_sum_on_card_same_bits_every_run(cuda, dim):
     assert all(_bits_equal(r, runs[0]) for r in runs)
     err = (runs[0].cpu().double() - exact).abs() / exact.abs()
     assert float(err.max()) <= 1e-6
+
+
+@pytest.mark.parametrize("graph", [("imp3D", 4096), ("power_law", 4096)])
+def test_gossip_seed_sweep_lanes_equal_standalone_card_runs(cuda, graph):
+    """A gossip seed sweep on the card: every lane's rounds and final
+    state bitwise its standalone card run (the hits are integer adds)."""
+    import dataclasses
+
+    from gossipprotocol_tpu_torch.engine.driver import (
+        RunConfig, run_simulation,
+    )
+    from gossipprotocol_tpu_torch.sweep import SweepSpec
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology(graph[0], graph[1], seed=0)
+    cfg = RunConfig(algorithm="gossip", device="cuda", max_rounds=3000)
+    spec = SweepSpec.from_seeds(4, base_seed=3)
+    res = run_simulation(topo, dataclasses.replace(cfg, sweep=spec))
+    assert res.lanes == 4
+    for i in range(4):
+        solo = run_simulation(topo, spec.lane_config(cfg, i))
+        assert res.lane_records[i]["rounds"] == solo.rounds
+        lane = res.lane_state(i)
+        for f in lane._fields:
+            assert torch.equal(getattr(lane, f),
+                               getattr(solo.final_state, f)), (i, f)
+
+
+def test_capacity_prediction_not_below_card_peak(cuda):
+    """A small run's predicted total is at or above the card's measured
+    peak (the allocator's high-water mark over the build and the run,
+    less what was held before)."""
+    from gossipprotocol_tpu_torch.engine.driver import (
+        RunConfig, run_simulation,
+    )
+    from gossipprotocol_tpu_torch.obs.capacity import estimate_for_topology
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology("imp3D", 32768, seed=0)
+    for cfg in (RunConfig(algorithm="push-sum", device="cuda",
+                          max_rounds=48),
+                RunConfig(algorithm="push-sum", fanout="all",
+                          delivery="pallas", device="cuda", max_rounds=48,
+                          plan_cache="none")):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run_simulation(topo, cfg)
+        peak = torch.cuda.max_memory_allocated() - base
+        predicted = estimate_for_topology(
+            topo, cfg, 1)["per_device"]["total_bytes"]
+        assert predicted >= peak, (cfg.delivery, predicted, peak)
+
+
+def test_capacity_megakernel_fields_ask_the_launcher(cuda):
+    """The planner's shared-memory field on the card is the launcher's own
+    choice: the state stays in shared memory at imp3D 4096, and a grid
+    of one block cannot hold a million nodes' state there."""
+    from gossipprotocol_tpu_torch.engine.driver import RunConfig
+    from gossipprotocol_tpu_torch.obs.capacity import estimate_for_topology
+    from gossipprotocol_tpu_torch.ops import megakernel as mkm
+    from gossipprotocol_tpu_torch.topology import build_topology
+
+    topo = build_topology("imp3D", 4096, seed=0)
+    doc = estimate_for_topology(
+        topo, RunConfig(algorithm="push-sum", fanout="all",
+                        delivery="megakernel", device="cuda"), 1)
+    assert doc["per_device"]["megakernel_state_in_shared_memory"] is True
+    assert mkm.state_in_shared_memory(4096, 4096, cuda)
+    import ctypes
+
+    lib = mkm.build.library("megakernel")
+    out = ctypes.c_int(7)
+    with torch.cuda.device(cuda):
+        rc = lib.gossip_megakernel_state_in_smem(10**6, 1,
+                                                 ctypes.addressof(out))
+    assert rc == 0 and out.value == 0

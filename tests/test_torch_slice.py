@@ -325,7 +325,7 @@ def test_cli_not_converged_exit_1(capsys):
     (["64", "imp3D", "push-sum", "--fanout", "all", "--delivery", "scatter",
       "--device", "cpu", "--devices", "2"], "--delivery scatter"),
     (["64", "imp3D", *_CLI, "--fail-fraction=1.5"], "--fail-fraction"),
-    (["watch", "/tmp/x"], "watch"),
+    (["serve", "/tmp/x"], "serve"),
     (["64", "torus", *_CLI], "unknown topology"),
     (["64", "full", *_CLI], "complete graph"),
     (["64", "imp3D", "wiretap", "--device", "cpu"], "option invalid"),
